@@ -1,0 +1,2 @@
+"""Flash attention: the Hopper kernel (``kernel``), its dispatcher
+(``ops``) and the plain PyTorch version (``ref``)."""

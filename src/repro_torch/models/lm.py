@@ -1,0 +1,209 @@
+"""Decoder-only LM assembly, dense path — the port of ``repro.models.lm``.
+
+Layer stacking follows the reference exactly (``layer_groups``): a prefix
+of singleton groups plus one periodic group whose params are stacked with
+a leading (repeats,) dim.  The reference scans over that dim
+(``lax.scan``); here it is a Python loop over the stacked leaves
+(``leaf[r]`` views — no copies).  olmo-1b is one group of 16 repeats, so
+every param and cache leaf carries a leading (16,) dim, and the cache
+pytree is ``[{"blocks": [KVCache(k, v)]}]`` with k / v of shape
+(16, B, T_max, K, hd) — the structure the pool layout depends on.
+
+Caches are updated IN PLACE (the reference donates them): ``prefill``
+writes the prompt's k / v at t = 0, ``decode_step`` writes one position
+per sequence.  MoE, mamba, rwkv and MLA blocks come with their slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention, common
+from repro_torch.models.params import ParamDesc, tree_map_descs
+from repro_torch.utils.convert import torch_dtype
+from repro_torch.utils.tree import tree_map
+
+
+# ---------------------------------------------------------------------------
+# Layer grouping
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LayerGroup:
+    kinds: Tuple[Tuple[str, str], ...]    # per position: (mixer, mlp)
+    n_repeats: int
+
+
+def layer_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
+    return [(cfg.layer_kind(l), cfg.mlp_kind(l)) for l in range(cfg.n_layers)]
+
+
+def layer_groups(cfg: ModelConfig) -> List[LayerGroup]:
+    """(prefix of singletons) + one periodic group covering the rest."""
+    kinds = layer_kinds(cfg)
+    L = len(kinds)
+    for prefix in range(0, L):
+        rest = kinds[prefix:]
+        n = len(rest)
+        for p in range(1, min(16, n) + 1):
+            if n % p:
+                continue
+            if all(rest[i] == rest[i % p] for i in range(n)):
+                groups = [LayerGroup((kinds[i],), 1) for i in range(prefix)]
+                groups.append(LayerGroup(tuple(rest[:p]), n // p))
+                return groups
+    return [LayerGroup((k,), 1) for k in kinds]
+
+
+# ---------------------------------------------------------------------------
+# Param / cache descriptors
+# ---------------------------------------------------------------------------
+
+def _not_ported(what: str, ref: str):
+    return NotImplementedError(f"{what} is not ported yet (reference: {ref})")
+
+
+def block_descs(cfg: ModelConfig, kind: Tuple[str, str]):
+    mixer, mlp = kind
+    if mixer != "attn" or cfg.mla is not None:
+        raise _not_ported(f"mixer {mixer!r}", "repro.models.lm._mixer_descs")
+    if mlp != "dense":
+        raise _not_ported(f"mlp {mlp!r}", "repro.models.moe")
+    return {"norm1": common.norm_descs(cfg),
+            "attn": attention.gqa_descs(cfg),
+            "norm2": common.norm_descs(cfg),
+            "mlp": common.mlp_descs(cfg)}
+
+
+def _stack(descs, n: int):
+    if n == 1:
+        return descs
+    return tree_map_descs(
+        lambda p: ParamDesc((n,) + p.shape, ("layers",) + p.logical,
+                            dtype=p.dtype, init=p.init,
+                            init_scale=p.init_scale), descs)
+
+
+def model_descs(cfg: ModelConfig) -> Dict[str, Any]:
+    out: Dict[str, Any] = {"embed": common.embed_descs(cfg)}
+    out["groups"] = [
+        {"blocks": [_stack(block_descs(cfg, kind), g.n_repeats)
+                    for kind in g.kinds]}
+        for g in layer_groups(cfg)]
+    out["final_norm"] = common.norm_descs(cfg)
+    return out
+
+
+def cache_descs(cfg: ModelConfig, batch: int, t_max: int):
+    for g in layer_groups(cfg):
+        for mixer, _ in g.kinds:
+            if mixer != "attn" or cfg.mla is not None:
+                raise _not_ported(f"{mixer!r} cache",
+                                  "repro.models.lm._block_cache_desc")
+    return [
+        {"blocks": [_stack(attention.gqa_cache_desc(cfg, batch, t_max),
+                           g.n_repeats)
+                    for _ in g.kinds]}
+        for g in layer_groups(cfg)]
+
+
+# ---------------------------------------------------------------------------
+# Block forward
+# ---------------------------------------------------------------------------
+
+def block_forward(cfg: ModelConfig, p, x, positions, *, cache=None,
+                  pos=None, decode: bool = False):
+    """One dense transformer block.  Returns ``(x, cache)``; a given cache
+    is written in place (prefill: the prompt at t = 0; decode: one token
+    at ``pos``)."""
+    h = common.apply_norm(cfg, p["norm1"], x)
+    if decode:
+        y, cache = attention.gqa_decode(cfg, p["attn"], h, cache, pos)
+    else:
+        q, k, v = attention.project_qkv(cfg, p["attn"], h, positions)
+        y = attention.gqa_forward(cfg, p["attn"], h, positions,
+                                  qkv=(q, k, v))
+        if cache is not None:           # prefill: write the cache at t = 0
+            S = k.shape[1]
+            cache.k[:, :S] = k.to(cache.k.dtype)
+            cache.v[:, :S] = v.to(cache.v.dtype)
+    x = x + y
+    h2 = common.apply_norm(cfg, p["norm2"], x)
+    x = x + common.apply_mlp(cfg, p["mlp"], h2)
+    return x, cache
+
+
+def _run_groups(cfg: ModelConfig, params, x, positions, *, caches=None,
+                pos=None, decode: bool = False):
+    """Apply all layer groups; the stacked (repeats,) dim is a loop."""
+    for gi, g in enumerate(layer_groups(cfg)):
+        gp = params["groups"][gi]["blocks"]
+        gc = caches[gi]["blocks"] if caches is not None else None
+        for r in range(g.n_repeats):
+            for pi, _ in enumerate(g.kinds):
+                bp, bc = gp[pi], (gc[pi] if gc is not None else None)
+                if g.n_repeats > 1:
+                    bp = tree_map(lambda a: a[r], bp)
+                    if bc is not None:
+                        bc = tree_map(lambda a: a[r], bc)
+                x, _ = block_forward(cfg, bp, x, positions, cache=bc,
+                                     pos=pos, decode=decode)
+    return x
+
+
+def embed_inputs(cfg: ModelConfig, params, tokens):
+    return common.embed_tokens(params["embed"], tokens,
+                               torch_dtype(cfg.compute_dtype))
+
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+
+
+def forward(cfg: ModelConfig, params, tokens):
+    """Full forward (train / prefill without cache): (B, S, V) logits in
+    ``cfg.logit_dtype``."""
+    B, S = tokens.shape[:2]
+    x = embed_inputs(cfg, params, tokens)
+    x = _run_groups(cfg, params, x, _positions(B, S, tokens.device))
+    x = common.apply_norm(cfg, params["final_norm"], x)
+    logits = common.unembed(cfg, params["embed"], x)
+    return logits.to(torch_dtype(cfg.logit_dtype))
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + single-token decode
+# ---------------------------------------------------------------------------
+
+class ServeState(NamedTuple):
+    caches: Any            # list of group cache dicts
+    pos: torch.Tensor      # next position to write: scalar or (B,)
+
+
+def prefill(cfg: ModelConfig, params, tokens, caches):
+    """Run the prompt through the model, writing the caches at t = 0.
+    Returns (last-token logits (B, V), ServeState)."""
+    B, S = tokens.shape[:2]
+    x = embed_inputs(cfg, params, tokens)
+    x = _run_groups(cfg, params, x, _positions(B, S, tokens.device),
+                    caches=caches)
+    x = common.apply_norm(cfg, params["final_norm"], x[:, -1:])
+    logits = common.unembed(cfg, params["embed"], x)
+    return (logits[:, 0].to(torch_dtype(cfg.logit_dtype)),
+            ServeState(caches, torch.tensor(S, dtype=torch.int32,
+                                            device=tokens.device)))
+
+
+def decode_step(cfg: ModelConfig, params, tokens, state: ServeState):
+    """One decode step. tokens: (B, 1) int; ``state.pos`` a scalar or one
+    position per sequence.  Returns (logits (B, V), state)."""
+    x = embed_inputs(cfg, params, tokens)
+    x = _run_groups(cfg, params, x, None, caches=state.caches,
+                    pos=state.pos, decode=True)
+    x = common.apply_norm(cfg, params["final_norm"], x)
+    logits = common.unembed(cfg, params["embed"], x)
+    return (logits[:, 0].to(torch_dtype(cfg.logit_dtype)),
+            ServeState(state.caches, state.pos + 1))

@@ -1,0 +1,317 @@
+"""ServeEngine: continuous batching + HBM KV lanes + durable sessions — the
+port of ``repro.serve.engine``.
+
+The serving loop per decode tick (``tick()``; ``run()`` loops it):
+
+1. **admit** — free slots refill FIFO from the scheduler; each admission
+   prefills ONE sequence (B = 1; on the card its attention is the Hopper
+   flash kernel, 16 launches per olmo-1b prefill), writes its cache into
+   the slot lane and emits its first token;
+2. **decode** — one slot-masked batched decode step advances every running
+   slot at its own position (``train.step.make_slot_decode_step``);
+3. **retire** — sequences that hit their budget free their slot in the
+   same tick; their block frames return to the allocator and their staged
+   blocks leave the host tier;
+4. **commit** (every ``commit_every`` ticks, durable pools only) — the
+   PAGED layout: only the token blocks each session touched since the last
+   commit are copied to the host, staged and flushed; the manifest carries
+   every clean block by reference (serve.sessions).
+
+Crash recovery: a restarted server calls ``resume()`` — finished sessions
+come back as results; running sessions re-enter the queue AHEAD of fresh
+requests with their committed cache restored into a lane
+(``restore_mode="cache"``) or replayed from the prompt
+(``restore_mode="replay"``).  Both are bit-identical to the uninterrupted
+run: the restored bytes ARE the committed lane bytes, and every step is
+deterministic with fixed shapes.
+
+Not ported yet: the static-batch baseline (``run_static``), prefix reuse,
+live migration and the legacy whole-lane commit layout.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.serve.kvcache import TieredKVCache
+from repro_torch.serve.paging import (BlockAllocator, BlockPager,
+                                      BlockRef, BlockTable, STATE_BLOCK)
+from repro_torch.serve.scheduler import Request, SlotScheduler
+from repro_torch.serve.sessions import Session, SessionStore
+from repro_torch.train.step import make_serve_steps, make_slot_decode_step
+from repro_torch.utils.tree import tree_leaves
+
+
+@dataclasses.dataclass
+class ServeResult:
+    outputs: Dict[str, List[int]]     # rid -> emitted token ids
+    decode_ticks: int
+    prefills: int
+    emitted_tokens: int
+    mode: str
+    resumed_step: Optional[int] = None
+    resumed_sessions: int = 0
+    commits: int = 0
+
+
+class ServeEngine:
+    def __init__(self, bundle, params, *, n_slots: int = 4,
+                 t_max: int = 96,
+                 store: Optional[SessionStore] = None,
+                 commit_every: int = 0,
+                 restore_mode: str = "cache",
+                 retire_done: bool = False):
+        if restore_mode not in ("cache", "replay"):
+            raise ValueError(restore_mode)
+        if bundle.cfg.is_encdec:
+            raise ValueError("the serving subsystem is decoder-only")
+        self.bundle = bundle
+        self.params = params
+        self.device = bundle.device
+        self.n_slots = n_slots
+        self.t_max = t_max
+        self.store = store
+        self.commit_every = commit_every if store is not None else 0
+        self.restore_mode = restore_mode
+        self.retire_done = retire_done
+
+        self._prefill, _ = make_serve_steps(bundle)
+        self._slot_decode = make_slot_decode_step(bundle)
+        self.kv = TieredKVCache(bundle, n_slots, t_max,
+                                tiers=store.tiers if store else None)
+        #: single-sequence prefill cache, zeroed before every prefill (the
+        #: reference prefills into fresh zeros: positions past the prompt
+        #: must be zero in the lane, and so in every committed block)
+        self._caches1 = bundle.init_caches(1, t_max)
+        self.sched = SlotScheduler(n_slots)
+        self.sessions: Dict[str, Session] = {}
+        self.results: Dict[str, List[int]] = {}
+        self._resume_cache: Dict[str, Any] = {}
+        if store is not None:
+            self.pager = BlockPager(bundle, t_max)
+            frames = n_slots * (self.pager.n_blocks(t_max) + 1) + 8
+            self.allocator = BlockAllocator(max(64, 4 * frames))
+            self.tables: Dict[str, BlockTable] = {}
+        # host-side slot state
+        self.pos = np.zeros(n_slots, np.int32)
+        self.last_token = np.zeros(n_slots, np.int32)
+        self.active = np.zeros(n_slots, bool)
+        self._tick = 0
+        self._resumed_step: Optional[int] = None
+        self._n_resumed = 0
+        self._n_prefills = 0
+        self._n_commits = 0
+
+    # -- request intake ------------------------------------------------------
+    def submit(self, requests: Sequence[Request]):
+        fresh = []
+        for r in requests:
+            if len(r.prompt) + r.max_new_tokens > self.t_max:
+                raise ValueError(f"{r.rid}: prompt {len(r.prompt)} + "
+                                 f"budget {r.max_new_tokens} > t_max "
+                                 f"{self.t_max}")
+            if r.rid in self.sessions or r.rid in self.results:
+                continue    # recovered, resuming or retired
+            fresh.append(r)
+        self.sched.submit(fresh)
+
+    # -- crash recovery ------------------------------------------------------
+    def resume(self) -> Optional[int]:
+        """Recover the newest session commit from the pool.  Finished
+        sessions become results; unfinished ones are queued AHEAD of any
+        fresh request.  Returns the recovered tick or None (cold pool)."""
+        if self.store is None:
+            return None
+        rec = self.store.recover(self.pager)
+        if rec is None:
+            return None
+        for rid, s in rec.sessions.items():
+            if s.migrated_to is not None:
+                raise NotImplementedError(
+                    f"{rid} was migrated to engine {s.migrated_to}: fleet "
+                    f"handoffs are not ported yet (reference: "
+                    f"repro.serve.fleet)")
+            self.sessions[rid] = s
+            if s.done:
+                self.results[rid] = list(s.emitted)
+            else:
+                self._resume_cache[rid] = rec.caches.get(rid)
+                if rid in rec.tables:
+                    self.tables[rid] = rec.tables[rid]
+                    for bid in rec.tables[rid].bids():
+                        self.allocator.adopt(bid)
+                self._n_resumed += 1
+                self.sched.submit([Request(rid, s.prompt,
+                                           s.max_new_tokens)])
+        self._resumed_step = rec.step
+        self._tick = rec.step + 1
+        return rec.step
+
+    # -- the continuous-batching loop ---------------------------------------
+    def tick(self):
+        """One scheduler round: admit, decode, commit-on-cadence."""
+        for slot, req in self.sched.admit():
+            self._admit(slot, req)
+        if self.sched.n_running:
+            self._decode_tick()
+        self._tick += 1
+        if self.commit_every and self._tick % self.commit_every == 0:
+            self._commit()
+
+    def run(self, requests: Optional[Sequence[Request]] = None
+            ) -> ServeResult:
+        if requests:
+            self.submit(requests)
+        ticks0 = self._tick
+        while not self.sched.done:
+            self.tick()
+        return self.finish(ticks0)
+
+    def finish(self, ticks0: int = 0) -> ServeResult:
+        """Final commit + drain, then the result record."""
+        if self.store is not None:
+            self._commit()            # final table (all sessions done)
+            self.store.drain()
+        return ServeResult(
+            outputs=dict(self.results),
+            decode_ticks=self._tick - ticks0,
+            prefills=self._n_prefills,
+            emitted_tokens=sum(len(v) for v in self.results.values()),
+            mode="continuous",
+            resumed_step=self._resumed_step,
+            resumed_sessions=self._n_resumed,
+            commits=self._n_commits)
+
+    def _admit(self, slot: int, req: Request):
+        rid = req.rid
+        s = self.sessions.get(rid)
+        if s is not None and not s.done:
+            cache1 = self._resume_cache.pop(rid, None)
+            if (self.restore_mode == "cache" and cache1 is not None
+                    and s.emitted):
+                # fast-forward: committed cache bytes back into a lane
+                self.kv.write_slot(slot, cache1)
+                self.pos[slot] = s.pos
+                self.last_token[slot] = s.emitted[-1]
+                self.active[slot] = True
+                return
+            s.emitted = []            # replay: re-decode from the prompt
+        else:
+            s = Session(rid, tuple(req.prompt), req.max_new_tokens)
+            self.sessions[rid] = s
+        for leaf in tree_leaves(self._caches1):
+            leaf.zero_()
+        tokens = torch.tensor([s.prompt], dtype=torch.long,
+                              device=self.device)
+        logits, st = self._prefill(self.params, {"tokens": tokens},
+                                   self._caches1)
+        self._n_prefills += 1
+        tok0 = int(torch.argmax(logits, -1)[0])
+        self.kv.write_slot(slot, st.caches)
+        self.pos[slot] = len(s.prompt)
+        self.last_token[slot] = tok0
+        self.active[slot] = True
+        s.emitted.append(tok0)
+        if len(s.emitted) >= s.max_new_tokens:
+            self._finish(rid, slot)
+
+    def _decode_tick(self):
+        dev = self.device
+        next_toks, _, _, new_pos = self._slot_decode(
+            self.params,
+            torch.from_numpy(self.last_token[:, None]).long().to(dev),
+            self.kv.caches,
+            torch.from_numpy(self.pos).to(dev),
+            torch.from_numpy(self.active).to(dev))
+        self.pos = new_pos.cpu().numpy().astype(np.int32)
+        toks = next_toks.cpu().numpy()
+        for rid, slot in list(self.sched.running.items()):
+            s = self.sessions[rid]
+            tok = int(toks[slot])
+            s.emitted.append(tok)
+            self.last_token[slot] = tok
+            if len(s.emitted) >= s.max_new_tokens:
+                self._finish(rid, slot)
+
+    def _finish(self, rid: str, slot: int):
+        self.sched.release(rid)
+        self.active[slot] = False
+        s = self.sessions[rid]
+        s.done = True
+        self.results[rid] = list(s.emitted)
+        if self.store is not None:
+            t = self.tables.pop(rid, None)
+            if t is not None:
+                for bid in t.bids():
+                    self.allocator.free(bid)
+            self.store.discard_session_blocks(rid)
+
+    def _stage_paged(self, rid: str, cache1: Any):
+        """Stage a running session's DIRTY blocks for the next commit."""
+        s = self.sessions[rid]
+        table = self.tables.setdefault(rid, BlockTable())
+        for blk, leaves in self.pager.slice_dirty(
+                cache1, s.pos, table, self.store.tiers.to_host).items():
+            ref = table.refs.get(blk)
+            if ref is None:
+                ref = BlockRef(blk=blk, bid=self.allocator.alloc(),
+                               tokens=0,
+                               name=self.store.block_name(rid, blk))
+                table.refs[blk] = ref
+            if blk != STATE_BLOCK:
+                ref.tokens = self.pager.tokens_in_block(blk, s.pos)
+            self.store.stage_block(s, ref, leaves)
+
+    def _commit(self):
+        for rid, slot in self.sched.running.items():
+            self._stage_paged(rid, self.kv.read_slot(slot))
+        self.store.commit_paged(self.sessions, self.tables, self._tick,
+                                block_tokens=self.pager.block_tokens)
+        self._n_commits += 1
+        if self.retire_done:
+            # done sessions were durable in the table just committed;
+            # retire them so commit cost stays O(live sessions)
+            for rid in [r for r, s in self.sessions.items() if s.done]:
+                del self.sessions[rid]
+
+    def close(self):
+        if self.store is not None:
+            self.store.close()
+
+
+def build_serve_engine(arch: str = "olmo-1b", *, smoke: bool = True,
+                       n_slots: int = 4, t_max: int = 96,
+                       pool_path: Optional[str] = None,
+                       commit_every: int = 0,
+                       restore_mode: str = "cache",
+                       retire_done: bool = False, seed: int = 0,
+                       bundle=None, params=None, device="cuda"):
+    """Config -> bundle -> params -> optional durable session store ->
+    engine.  Returns (engine, cfg).
+
+    Params come from a ``torch.Generator`` seeded with ``seed`` on
+    ``device``, so two processes built with the same arguments on the same
+    card hold bit-identical weights (they differ from the JAX package's
+    ``jax.random`` weights).  Pass ``bundle`` + ``params`` to share one
+    weight set across engines or to carry the reference's weights over
+    (``models.params.from_reference``).  ``pool_path`` turns on durable
+    sessions: a ``SessionStore`` over that pool, committed with the sync
+    schedule every ``commit_every`` ticks."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models.registry import build as build_model
+
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if bundle is None:
+        bundle = build_model(cfg, dec_pos_len=t_max, device=device)
+    if params is None:
+        params = bundle.init_params(
+            torch.Generator(bundle.device).manual_seed(seed))
+    store = SessionStore(pool_path) if pool_path is not None else None
+    engine = ServeEngine(
+        bundle, params, n_slots=n_slots, t_max=t_max, store=store,
+        commit_every=commit_every, restore_mode=restore_mode,
+        retire_done=retire_done)
+    return engine, cfg

@@ -1,0 +1,102 @@
+"""The port on the card: the hand-written Hopper kernel and the path that
+runs it.  Every test here needs a CUDA device and skips without one.
+
+This file imports neither JAX nor the JAX package, so it runs on the
+machine with the card, where there is no JAX:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+
+* the flash-attention kernel against its plain version at small ragged,
+  GQA, ``hd_v != hd`` and non-causal shapes (bf16; max abs error 2e-2 =
+  bf16 output rounding, one ulp near 1 is 7.8e-3), one launch counted per
+  call;
+* the dispatcher refuses what the kernel does not take (it never falls
+  back to the plain version for a CUDA tensor);
+* a serving run of the olmo-1b smoke config on the card launches the
+  kernel once per layer per prefill.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.attention import ops
+
+CASES = [
+    # B, H, K, Sq, Sk, hd, hd_v, causal
+    (1, 2, 2, 37, 37, 16, 16, True),        # ragged, causal
+    (2, 4, 2, 40, 40, 16, 16, True),        # GQA
+    (1, 4, 1, 24, 24, 32, 16, True),        # hd_v != hd, K=1
+    (2, 2, 2, 20, 33, 16, 16, False),       # non-causal, Sq != Sk
+    (1, 4, 2, 33, 33, 8, 24, False),        # hd_v > hd, GQA
+    (1, 2, 1, 130, 200, 128, 128, True),    # several tiles, Sq < Sk
+]
+IDS = [f"B{c[0]}H{c[1]}K{c[2]}S{c[3]}x{c[4]}hd{c[5]}v{c[6]}"
+       f"{'c' if c[7] else 'f'}" for c in CASES]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the Hopper kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(case, device, seed):
+    """bf16 inputs in the model layout: q (B,S,K,G,hd), k/v (B,T,K,hd)."""
+    B, H, K, Sq, Sk, hd, hd_v, _ = case
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Sq, K, H // K, hd), np.float32)
+    k = rng.standard_normal((B, Sk, K, hd), np.float32)
+    v = rng.standard_normal((B, Sk, K, hd_v), np.float32)
+    return [torch.from_numpy(a).to(device, torch.bfloat16) for a in (q, k, v)]
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_kernel_matches_plain_version(case, cuda):
+    B, H, K, Sq, Sk, hd, hd_v, causal = case
+    q, k, v = _inputs(case, cuda, seed=3)
+    before = ops.LAUNCHES
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == before + 1
+    assert out.shape == (B, Sq, K, H // K, hd_v) and out.dtype == torch.bfloat16
+    ref = ops.plain_attention(q.float(), k.float(), v.float(), causal=causal)
+    assert float((out.float() - ref).abs().max()) <= 2e-2
+
+
+def test_kernel_is_deterministic(cuda):
+    q, k, v = _inputs(CASES[-1], cuda, seed=4)
+    a = ops.flash_attention(q, k, v, causal=True)
+    b = ops.flash_attention(q, k, v, causal=True)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bad", ["float32", "strided", "hd_not_mult_8"])
+def test_dispatcher_raises_on_what_the_kernel_does_not_take(bad, cuda):
+    q, k, v = _inputs(CASES[0], cuda, seed=5)
+    if bad == "float32":
+        q, k, v = q.float(), k.float(), v.float()
+        err = TypeError
+    elif bad == "strided":
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+        err = ValueError
+    else:
+        q, k = q[..., :12].contiguous(), k[..., :12].contiguous()
+        err = ValueError
+    before = ops.LAUNCHES
+    with pytest.raises(err):
+        ops.flash_attention(q, k, v, causal=True)
+    assert ops.LAUNCHES == before
+
+
+def test_serving_prefills_run_the_kernel(cuda):
+    from repro_torch.serve.engine import build_serve_engine
+    from repro_torch.serve.trace import synthetic_trace, trace_t_max
+    trace = synthetic_trace(5, prompt_lens=(20,), new_tokens=(2, 5))
+    engine, cfg = build_serve_engine("olmo-1b", smoke=True, n_slots=2,
+                                     t_max=trace_t_max(trace), device=cuda)
+    before = ops.LAUNCHES
+    res = engine.run(trace)
+    assert res.prefills == len(trace)
+    assert ops.LAUNCHES - before == cfg.n_layers * res.prefills
+    assert all(len(res.outputs[r.rid]) == r.max_new_tokens for r in trace)

@@ -1,0 +1,70 @@
+"""The PyTorch port imports neither JAX nor the JAX package.
+
+``repro_torch`` keeps its own copy of everything it needs, so it runs on
+the machine with the card, where there is no JAX; ``chip_smoke.py`` drives
+it there.  Checked two ways: what importing every submodule actually
+loads (in a fresh interpreter), and what the sources say.
+"""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+             or m == "repro" or m.startswith("repro."))
+print("N=%d" % len(names))
+print("BAD=" + ",".join(bad))
+"""
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+jaxlib\b|from\s+jaxlib\b"
+    r"|import\s+repro\b(?!_)|from\s+repro\b(?!_)|import\s+ml_dtypes\b"
+    r"|from\s+ml_dtypes\b)", re.M)
+
+
+def test_importing_every_submodule_loads_no_jax_and_no_repro():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = dict(l.split("=", 1) for l in out.stdout.splitlines()
+                 if l.startswith(("N=", "BAD=")))
+    assert int(lines["N"]) >= 30              # every module was imported
+    assert lines["BAD"] == "", f"port loaded {lines['BAD']}"
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_source_has_no_jax_repro_or_ml_dtypes_import(path):
+    src = (ROOT / path).read_text()
+    hits = [m.group(0).strip() for m in _FORBIDDEN.finditer(src)]
+    assert not hits, f"{path}: {hits}"
+
+
+def test_cuda_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the raise path is for hosts "
+                    "without one")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.registry import build
+    from repro_torch.serve.engine import build_serve_engine
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build(get_smoke_config("olmo-1b"))            # device="cuda" default
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_serve_engine("olmo-1b", smoke=True)

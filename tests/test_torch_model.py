@@ -1,0 +1,194 @@
+"""The port's dense LM (olmo-1b smoke, fp32) against the JAX package's.
+
+Weights are the reference's own ``jax.random`` params carried across with
+``models.params.from_reference``, so both packages compute the same
+function; inputs are numpy from a seed.  Tolerance: atol 1e-4 in fp32
+(the same arithmetic summed in another order, through 2 layers and a
+vocab projection).  The serving steps are compared too: prefill (last
+logits AND cache contents), three single-token decodes, and the
+continuous-batching slot decode with slots at different positions — plus
+slot independence: which lane holds which session changes nothing.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as ref_smoke_config
+from repro.models.lm import ServeState as RefServeState
+from repro.models.registry import build as ref_build
+from repro.train.step import make_slot_decode_step as ref_slot_decode_step
+from repro_torch.configs import get_smoke_config
+from repro_torch.models.lm import ServeState
+from repro_torch.models.params import from_reference
+from repro_torch.models.registry import build
+from repro_torch.train.step import make_slot_decode_step
+from repro_torch.utils.tree import tree_flatten
+
+ATOL = 1e-4
+FP32 = dict(param_dtype="float32", compute_dtype="float32")
+T_MAX = 24
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def models():
+    rb = ref_build(ref_smoke_config("olmo-1b").with_(**FP32))
+    rp = rb.init_params(jax.random.PRNGKey(0))
+    b = build(get_smoke_config("olmo-1b").with_(**FP32), device="cpu")
+    p = from_reference(jax.tree_util.tree_map(np.asarray, rp), "cpu")
+    return rb, rp, b, p
+
+
+def _tokens(shape, seed=0, vocab=256):
+    return np.random.default_rng(seed).integers(0, vocab, shape, np.int32)
+
+
+def _port_caches(b, ref_caches, batch):
+    """The reference's cache pytree as the port's (same leaf order)."""
+    leaves, td = tree_flatten(b.init_caches(batch, T_MAX))
+    ref_leaves = jax.tree_util.tree_leaves(ref_caches)
+    assert len(ref_leaves) == len(leaves)
+    return td.unflatten([torch.from_numpy(np.array(l)) for l in ref_leaves])
+
+
+def _assert_caches_close(ours, theirs):
+    ol = tree_flatten(ours)[0]
+    tl = jax.tree_util.tree_leaves(theirs)
+    assert len(ol) == len(tl) == 2
+    for a, bb in zip(ol, tl):
+        np.testing.assert_allclose(a.numpy(), np.asarray(bb), atol=ATOL)
+
+
+def test_params_and_caches_have_the_reference_structure(models):
+    rb, rp, b, p = models
+    assert [tuple(l.shape) for l in tree_flatten(p)[0]] == \
+        [l.shape for l in jax.tree_util.tree_leaves(rp)]
+    ours = b.init_caches(3, T_MAX)
+    theirs = rb.init_caches(jax.random.PRNGKey(0), 3, T_MAX)
+    assert [tuple(l.shape) for l in tree_flatten(ours)[0]] == \
+        [l.shape for l in jax.tree_util.tree_leaves(theirs)]
+    assert type(ours[0]["blocks"][0]).__name__ == "KVCache"
+
+
+def test_forward_logits_match_reference(models):
+    rb, rp, b, p = models
+    toks = _tokens((2, 20))
+    theirs, _ = rb.forward(rp, jnp.asarray(toks))
+    ours = b.forward(p, torch.from_numpy(toks).long())
+    np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), atol=ATOL)
+
+
+def test_prefill_and_three_decode_steps_match_reference(models):
+    rb, rp, b, p = models
+    toks = _tokens((1, 13), seed=1)
+    r_logits, r_st = rb.prefill(rp, {"tokens": jnp.asarray(toks)},
+                                rb.init_caches(jax.random.PRNGKey(0), 1,
+                                               T_MAX))
+    logits, st = b.prefill(p, {"tokens": torch.from_numpy(toks).long()},
+                           b.init_caches(1, T_MAX))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(r_logits),
+                               atol=ATOL)
+    _assert_caches_close(st.caches, r_st.caches)
+    assert int(st.pos) == int(r_st.pos) == 13
+    for _ in range(3):
+        nxt = np.asarray(jnp.argmax(r_logits, -1)).astype(np.int32)[:, None]
+        r_logits, r_st = rb.decode(rp, jnp.asarray(nxt), r_st)
+        logits, st = b.decode(p, torch.from_numpy(nxt).long(), st)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(r_logits),
+                                   atol=ATOL)
+        _assert_caches_close(st.caches, r_st.caches)
+        assert int(st.pos) == int(r_st.pos)
+
+
+def _slot_state(models, prompt_lens, seed=2):
+    """Per-slot caches after prefilling prompts of different lengths."""
+    rb, rp, _, _ = models
+    lanes, last = [], []
+    for i, L in enumerate(prompt_lens):
+        lg, st = rb.prefill(rp, {"tokens": jnp.asarray(
+            _tokens((1, L), seed + i))},
+            rb.init_caches(jax.random.PRNGKey(0), 1, T_MAX))
+        lanes.append(st.caches)
+        last.append(int(jnp.argmax(lg, -1)[0]))
+    caches = jax.tree_util.tree_map(lambda *a: jnp.concatenate(a, 1),
+                                    *lanes)        # batch axis 1 (stacked)
+    return caches, np.asarray(last, np.int32), np.asarray(prompt_lens,
+                                                          np.int32)
+
+
+def test_slot_decode_at_different_positions_matches_reference(models):
+    rb, rp, b, p = models
+    caches, last, pos = _slot_state(models, [5, 9, 13, 7])
+    active = np.asarray([True, True, False, True])
+    r_step = jax.jit(ref_slot_decode_step(rb))
+    ours_step = make_slot_decode_step(b)
+    pc = _port_caches(b, caches, 4)
+    tp = torch.from_numpy(pos)
+    tok_r, tok_p = last[:, None], torch.from_numpy(last[:, None]).long()
+    for _ in range(2):
+        r_next, r_logits, caches, r_pos = r_step(
+            rp, jnp.asarray(tok_r), caches, jnp.asarray(pos),
+            jnp.asarray(active))
+        p_next, p_logits, pc, tp = ours_step(
+            p, tok_p, pc, tp, torch.from_numpy(active))
+        np.testing.assert_allclose(p_logits.numpy(), np.asarray(r_logits),
+                                   atol=ATOL)
+        np.testing.assert_array_equal(tp.numpy(), np.asarray(r_pos))
+        np.testing.assert_array_equal(p_next.numpy(), np.asarray(r_next))
+        _assert_caches_close(pc, caches)
+        pos = np.asarray(r_pos)
+        tok_r = np.asarray(r_next)[:, None]
+        tok_p = p_next[:, None].long()
+
+
+def test_slot_independence_under_permutation(models):
+    """Permuting which lane holds which session leaves every session's
+    logits, next token and cache bit-identical."""
+    _, _, b, p = models
+    caches, last, pos = _slot_state(models, [5, 9, 13, 7], seed=5)
+    step = make_slot_decode_step(b)
+    active = torch.ones(4, dtype=torch.bool)
+
+    def run(order):
+        pc = _port_caches(b, caches, 4)
+        pc = [{"blocks": [type(pc[0]["blocks"][0])(
+            *(l[:, order].contiguous() for l in pc[0]["blocks"][0]))]}]
+        tok = torch.from_numpy(last[order][:, None]).long()
+        tp = torch.from_numpy(pos[order])
+        outs = []
+        for _ in range(3):
+            nxt, logits, pc, tp = step(p, tok, pc, tp, active)
+            outs.append((nxt.clone(), logits.clone()))
+            tok = nxt[:, None].long()
+        return outs, pc, order
+
+    base, base_c, _ = run(np.arange(4))
+    perm = np.asarray([2, 0, 3, 1])
+    got, got_c, _ = run(perm)
+    for (bn, bl), (gn, gl) in zip(base, got):
+        for lane, sess in enumerate(perm):
+            assert torch.equal(gl[lane], bl[sess])
+            assert int(gn[lane]) == int(bn[sess])
+    for bl, gl in zip(tree_flatten(base_c)[0], tree_flatten(got_c)[0]):
+        assert torch.equal(gl, bl[:, perm])
+
+
+def test_init_params_is_a_function_of_the_generator_seed(models):
+    _, _, b, _ = models
+    a = b.init_params(torch.Generator().manual_seed(3))
+    c = b.init_params(torch.Generator().manual_seed(3))
+    d = b.init_params(torch.Generator().manual_seed(4))
+    la, lc, ld = (tree_flatten(x)[0] for x in (a, c, d))
+    assert all(torch.equal(x, y) for x, y in zip(la, lc))
+    assert not all(torch.equal(x, y) for x, y in zip(la, ld))
+    assert [tuple(x.shape) for x in la] == [
+        tuple(s.shape) for s in tree_flatten(b.abstract_params())[0]]

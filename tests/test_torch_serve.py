@@ -1,0 +1,221 @@
+"""The port's durable continuous-batching server against the JAX package's.
+
+* same weights (the reference's, carried across), same ``synthetic_trace``
+  (the port's copy gives the same requests): the port's ``ServeEngine``
+  emits exactly the reference engine's tokens on the fp32 smoke config;
+* crash after a tick that is not a commit tick, then resume from the pool
+  (committed cache blocks restored, or the prompt replayed): tokens
+  bit-identical to the uninterrupted run; with ``retire_done`` the same
+  tokens, and finished sessions leave the committed table;
+* pools cross over: the reference's ``SessionStore.recover`` reads a pool
+  the port committed (same sessions, same block tables, same cache bytes)
+  and the port reads the reference's;
+* the launcher runs end to end on the CPU and resumes from its pool.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as ref_smoke_config
+from repro.dsm.pool import DSMPool as RefPool
+from repro.models.registry import build as ref_build
+from repro.serve.engine import build_serve_engine as ref_build_engine
+from repro.serve.paging import BlockPager as RefPager
+from repro.serve.sessions import SessionStore as RefStore
+from repro.serve.trace import synthetic_trace as ref_trace
+from repro_torch.configs import get_smoke_config
+from repro_torch.dsm.pool import DSMPool
+from repro_torch.models.params import from_reference
+from repro_torch.models.registry import build
+from repro_torch.serve.engine import build_serve_engine
+from repro_torch.serve.paging import BlockPager
+from repro_torch.serve.sessions import SessionStore
+from repro_torch.serve.trace import synthetic_trace, trace_t_max
+from repro_torch.utils.convert import raw_numpy
+from repro_torch.utils.tree import tree_leaves
+
+ROOT = Path(__file__).resolve().parents[1]
+FP32 = dict(param_dtype="float32", compute_dtype="float32")
+TRACE_KW = dict(prompt_lens=(12,), new_tokens=(3, 6, 9))
+N_REQ = 7
+COMMIT_EVERY = 3
+CRASH_AFTER = 7                    # ticks; 7 % 3 != 0: not a commit tick
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    cfg = get_smoke_config("olmo-1b").with_(**FP32)
+    trace = synthetic_trace(N_REQ, vocab_size=cfg.vocab_size, **TRACE_KW)
+    t_max = trace_t_max(trace)
+    rb = ref_build(ref_smoke_config("olmo-1b").with_(**FP32),
+                   dec_pos_len=t_max)
+    rp = rb.init_params(jax.random.PRNGKey(0))
+    b = build(cfg, device="cpu")
+    p = from_reference(jax.tree_util.tree_map(np.asarray, rp), "cpu")
+    return dict(trace=trace, t_max=t_max, rb=rb, rp=rp, b=b, p=p)
+
+
+def _port_engine(s, **kw):
+    e, _ = build_serve_engine("olmo-1b", smoke=True, n_slots=4,
+                              t_max=s["t_max"], bundle=s["b"],
+                              params=s["p"], device="cpu", **kw)
+    return e
+
+
+def _ref_engine(s, **kw):
+    e, _ = ref_build_engine("olmo-1b", smoke=True, n_slots=4,
+                            t_max=s["t_max"], bundle=s["rb"],
+                            params=s["rp"], **kw)
+    return e
+
+
+@pytest.fixture(scope="module")
+def reference_outputs(setup):
+    return _ref_engine(setup).run(setup["trace"]).outputs
+
+
+def test_trace_is_the_reference_trace(setup):
+    import dataclasses
+    assert [dataclasses.astuple(r) for r in setup["trace"]] == \
+        [dataclasses.astuple(r)
+         for r in ref_trace(N_REQ, vocab_size=256, **TRACE_KW)]
+
+
+def test_engine_emits_the_reference_tokens(setup, reference_outputs):
+    res = _port_engine(setup).run(setup["trace"])
+    assert res.outputs == reference_outputs
+    assert res.prefills == N_REQ
+    assert res.emitted_tokens == sum(len(v) for v in
+                                     reference_outputs.values())
+
+
+@pytest.mark.parametrize("restore_mode", ["cache", "replay"])
+def test_crash_after_a_non_commit_tick_resumes_bit_identically(
+        setup, reference_outputs, tmp_path, restore_mode):
+    pool = str(tmp_path / "pool")
+    e = _port_engine(setup, pool_path=pool, commit_every=COMMIT_EVERY)
+    e.submit(setup["trace"])
+    for _ in range(CRASH_AFTER):
+        e.tick()
+    assert e._n_commits == CRASH_AFTER // COMMIT_EVERY
+    e.store.ctx.crash()                      # dropped without finish()
+    del e
+    e2 = _port_engine(setup, pool_path=pool, commit_every=COMMIT_EVERY,
+                      restore_mode=restore_mode)
+    step = e2.resume()
+    assert step == CRASH_AFTER - CRASH_AFTER % COMMIT_EVERY
+    n_done = len(e2.results)                 # finished by the commit
+    res = e2.run(setup["trace"])
+    assert res.outputs == reference_outputs
+    assert res.resumed_sessions > 0
+    if restore_mode == "cache":
+        # resumed sessions came back from their committed cache blocks
+        assert res.prefills == N_REQ - n_done - res.resumed_sessions
+    else:
+        # replay re-prefills every unfinished session from its prompt
+        assert res.prefills == N_REQ - n_done
+
+
+def test_retire_done_drops_finished_sessions_from_later_tables(
+        setup, reference_outputs, tmp_path):
+    pool = str(tmp_path / "pool")
+    res = _port_engine(setup, pool_path=pool, commit_every=COMMIT_EVERY,
+                       retire_done=True).run(setup["trace"])
+    assert res.outputs == reference_outputs
+    last = DSMPool(pool).latest_manifest()["meta"]["sessions"]
+    # sessions retired at an earlier commit are gone from the last table;
+    # the ones it still holds finished after that commit
+    assert 0 < len(last) < N_REQ
+    again = _port_engine(setup, pool_path=pool, commit_every=COMMIT_EVERY,
+                         retire_done=True)
+    assert again.resume() is not None
+    assert all(s.done for s in again.sessions.values())
+
+
+def _bits(x):
+    return raw_numpy(x)[0].tobytes()
+
+
+def _assert_recovered_equal(ours, theirs):
+    assert ours.step == theirs.step and ours.seq == theirs.seq
+    assert {r: s.to_meta() for r, s in ours.sessions.items()} == \
+        {r: s.to_meta() for r, s in theirs.sessions.items()}
+    assert {r: t.to_meta() for r, t in ours.tables.items()} == \
+        {r: t.to_meta() for r, t in theirs.tables.items()}
+    assert sorted(ours.caches) == sorted(theirs.caches)
+    assert ours.caches                        # some session was running
+    for rid in theirs.caches:
+        ol = tree_leaves(ours.caches[rid])
+        tl = jax.tree_util.tree_leaves(theirs.caches[rid])
+        assert [_bits(a) for a in ol] == [_bits(np.asarray(a)) for a in tl]
+
+
+def _recover_both(setup, pool):
+    theirs = RefStore(RefPool(pool), mode="sync").recover(
+        setup["rb"].abstract_caches(1, setup["t_max"]),
+        pager=RefPager(setup["rb"], setup["t_max"]))
+    ours = SessionStore(pool).recover(
+        BlockPager(setup["b"], setup["t_max"]))
+    return ours, theirs
+
+
+def test_reference_recovers_the_pool_the_port_committed(setup, tmp_path):
+    pool = str(tmp_path / "pool")
+    e = _port_engine(setup, pool_path=pool, commit_every=COMMIT_EVERY)
+    e.submit(setup["trace"])
+    for _ in range(CRASH_AFTER):
+        e.tick()
+    ours, theirs = _recover_both(setup, pool)
+    _assert_recovered_equal(ours, theirs)
+
+
+def test_port_recovers_the_pool_the_reference_committed(setup, tmp_path):
+    pool = str(tmp_path / "pool")
+    e = _ref_engine(setup, pool_path=pool, commit_every=COMMIT_EVERY)
+    e.submit(setup["trace"])
+    for _ in range(CRASH_AFTER):
+        e.tick()
+    ours, theirs = _recover_both(setup, pool)
+    _assert_recovered_equal(ours, theirs)
+
+
+def test_launcher_serves_and_resumes_on_cpu(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--device",
+           "cpu", "--smoke", "--requests", "5", "--prompt-len", "8",
+           "--new-tokens", "2,5", "--pool", str(tmp_path / "pool"),
+           "--commit-every", "2"]
+    first = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                           timeout=300)
+    assert first.returncode == 0, first.stderr
+    assert "5 requests" in first.stdout and "session commits" in first.stdout
+    again = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                           timeout=300)
+    assert again.returncode == 0, again.stderr
+    assert "resumed from committed tick" in again.stdout
+    assert "0 prefills" in again.stdout       # every session came back done
+
+
+@pytest.mark.parametrize("flag", [["--engines", "2"], ["--mode", "static"],
+                                  ["--commit-mode", "sharded-async"],
+                                  ["--topology", "cxl20-switched-pool"]])
+def test_launcher_refuses_flags_of_unported_features(flag, capsys):
+    from repro_torch.launch.serve import main
+    with pytest.raises(SystemExit) as ei:
+        main(["--device", "cpu", "--smoke"] + flag)
+    assert ei.value.code == 2
+    assert "not yet ported" in capsys.readouterr().err
