@@ -3,40 +3,59 @@
 
     python3 chip_smoke.py [--json PATH]
 
-Drives the port's serving path at the full width of olmo-1b and prints
-one line per phase:
+Drives the port's serving path at the full width of olmo-1b and of
+olmoe-1b-7b and prints one line per phase:
 
 1. environment — the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions;
-2. build — compiles the path's kernel from ``src/repro_torch/csrc`` and
-   shows ptxas's register / shared-memory report;
-3. kernel — the flash-attention kernel against its plain PyTorch version
-   on the card, bf16, at the path's shape (1, 16, 512, 128) causal and at
-   ragged, GQA, hd_v != hd and non-causal shapes: max abs error against
-   the fp32 plain version (limit 2e-2: bf16 output rounding, one ulp near
-   1 is 7.8e-3), kernel / plain / SDPA times (CUDA events, after warm-up)
+2. build — compiles both kernels of the paths from ``src/repro_torch/csrc``
+   (one ``nvcc`` each, started together) and shows ptxas's register /
+   shared-memory report;
+3. kernels — each kernel against its plain PyTorch version on the card,
+   bf16, with kernel / plain / library times (CUDA events, after warm-up)
    and the least time the card could take (bytes at 3.35 TB/s vs
-   operations at 989 TFLOP/s);
-4. path — ``build_serve_engine("olmo-1b", smoke=False)`` with random
-   weights from a torch.Generator seeded 0: 4 slots, 16 requests of 512
-   prompt tokens and budgets 4,8,16,32,48, a pool in a temp dir committed
-   every 4 ticks (schedule sync), run to completion.  The flash kernel's
-   launch count must equal 16 x prefills.  Then ``torch.profiler`` over
-   8 ticks of the same path on a fresh pool: device time by kernel name
-   against the window's wall time;
-5. crash and resume — the same trace on a fresh pool for 10 ticks (not a
+   operations at 989 TFLOP/s):
+   * flash attention at the path's shape (1, 16, 512, 128) causal and at
+     ragged, GQA, hd_v != hd and non-causal shapes: max abs error against
+     the fp32 plain version (limit 2e-2: bf16 output rounding, one ulp
+     near 1 is 7.8e-3); library: SDPA;
+   * the grouped matmul at the olmoe path's four shapes (prefill up/gate
+     (64, 80, 2048) @ (64, 2048, 1024) and down, decode up/gate (64, 32,
+     2048) @ (64, 2048, 1024) and down) and at ragged shapes (C 37 and C 1
+     with D 200, F 72; D 1000, not a multiple of 64): elementwise
+     |kernel - plain_fp32| <= 1e-2 * max|plain_fp32| (one rounding to
+     bf16 is half an ulp, 3.9e-3 relative); library: ``torch.bmm``;
+4. olmo-1b path — ``build_serve_engine("olmo-1b", smoke=False)`` with
+   random weights from a torch.Generator seeded 0: 4 slots, 16 requests
+   of 512 prompt tokens and budgets 4,8,16,32,48, a pool in a temp dir
+   committed every 4 ticks (schedule sync), run to completion.  The flash
+   kernel's launch count must equal 16 x prefills.  Then
+   ``torch.profiler`` over 8 ticks of the same path on a fresh pool:
+   device time by kernel name against the window's wall time.  Then crash
+   and resume — the same trace on a fresh pool for 10 ticks (not a
    multiple of the commit cadence), the engine dropped without ``finish``
    and ``ctx.crash()``; a new engine on that pool resumes and runs to
-   completion; every session's tokens must equal phase 4's bit for bit.
+   completion; every session's tokens must equal the uninterrupted run's
+   bit for bit;
+5. olmoe-1b-7b path — the same trace, schedule, profile and crash-resume
+   at full width and full depth (16 layers, 64 experts top-8, d_model
+   2048, d_ff_expert 1024, vocab 50304, bf16, 6.9e9 parameters), after
+   the olmo-1b engine is freed.  The grouped matmul must run 48 times per
+   prefill and per decode tick (3 products x 16 layers), the flash kernel
+   16 times per prefill; the schedule (97 ticks, 16 prefills, 25 commits)
+   and the D2H bytes must equal olmo-1b's, as the KV lanes are the same.
 
-Then a ``{"kernels": [...]}`` line, the card line again, and as the last
-line ``{"ok": true, "device": {...}}``.  Any failed check raises and the
-script exits non-zero; without a CUDA device, or without the repo's
-``src/repro_torch`` beside it, it exits non-zero and prints no result.
+Each path is driven with every launch count set to 0 just before it and
+read just after.  Then a ``{"kernels": [...]}`` line, the card line again,
+and as the last line ``{"ok": true, "device": {...}}``.  Any failed check
+raises and the script exits non-zero; without a CUDA device, or without
+the repo's ``src/repro_torch`` beside it, it exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import shutil
@@ -48,10 +67,17 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 TOL = 2e-2
+GMM_REL_TOL = 1e-2
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
-KERNEL_REPLACES = "src/repro/kernels/attention/kernel.py:89"
-KERNEL_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/attention/kernel.py:89"),
+    "grouped_matmul": ("src/repro_torch/csrc/grouped_matmul.cu",
+                       "src/repro/kernels/moe_gmm/kernel.py:45"),
+}
+PATH_KW = dict(n_slots=4, commit_every=4)
+OLMO_D2H_BYTES = 5_431_623_680     # olmo-1b's 25 commits of this trace
 
 
 class CheckFailed(Exception):
@@ -133,7 +159,7 @@ def attention_bound_ms(B, H, K, Sq, Sk, hd, hd_v, causal) -> tuple:
 
 
 def phase_kernel(torch, ops):
-    """Phase 3: the kernel against its plain version on the card."""
+    """Phase 3: the flash kernel against its plain version on the card."""
     import torch.nn.functional as F
     from repro_torch.kernels.attention import kernel
     cases = [  # (name, B, H, K, Sq, Sk, hd, hd_v, causal)
@@ -219,6 +245,67 @@ class PhaseTimer:
         return timed
 
 
+def gmm_bound_ms(E, C, D, F) -> tuple:
+    """Least time for the work: x, w read once and out written once
+    (bf16), vs the E*C*D*F multiply-adds."""
+    nbytes = 2 * (E * C * D + E * D * F + E * C * F)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * E * C * D * F / BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def phase_gmm(torch, gmm_ops):
+    """Phase 3: the grouped-matmul kernel against its plain version on the
+    card, timed at the olmoe path's four shapes."""
+    from repro_torch.kernels.moe_gmm import kernel
+    from repro_torch.kernels.moe_gmm.ref import grouped_matmul_ref
+    cases = [  # (name, E, C, D, F, timed)
+        ("prefill_up", 64, 80, 2048, 1024, True),
+        ("prefill_down", 64, 80, 1024, 2048, True),
+        ("decode_up", 64, 32, 2048, 1024, True),
+        ("decode_down", 64, 32, 1024, 2048, True),
+        ("ragged_c37", 3, 37, 200, 72, False),
+        ("ragged_c1", 3, 1, 200, 72, False),
+        ("d1000", 8, 48, 1000, 256, False),
+    ]
+    gen = torch.Generator("cuda").manual_seed(4321)
+    rows = {}
+    for name, E, C, D, F, timed in cases:
+        x = torch.randn((E, C, D), generator=gen, device="cuda"
+                        ).to(torch.bfloat16)
+        w = (torch.randn((E, D, F), generator=gen, device="cuda")
+             * 0.02).to(torch.bfloat16)
+        out = gmm_ops.grouped_matmul(x, w)
+        torch.cuda.synchronize()
+        ref = grouped_matmul_ref(x.float(), w.float())
+        err = float((out.float() - ref).abs().max())
+        limit = GMM_REL_TOL * float(ref.abs().max())
+        check(bool(torch.isfinite(out).all()), f"gmm {name}: non-finite")
+        check(err <= limit, f"gmm {name}: max abs err {err} > {limit}")
+        row = dict(shape=[E, C, D, F], max_abs_err=err, limit=limit)
+        msg = (f"kernel grouped_matmul {name}: E={E} C={C} D={D} F={F} "
+               f"max_abs_err={err:.3e} (limit {limit:.3e})")
+        if timed:
+            kernel_ms = device_ms(lambda: kernel.grouped_matmul_fwd(x, w,
+                                                                    out))
+            kernel_call_ms = call_ms(lambda: gmm_ops.grouped_matmul(x, w))
+            plain_ms = device_ms(lambda: grouped_matmul_ref(x, w), reps=5)
+            library_ms = device_ms(lambda: torch.bmm(x, w))
+            bound_ms, bound_by = gmm_bound_ms(E, C, D, F)
+            row.update(kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms,
+                       plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
+            msg += (f" kernel_ms={kernel_ms:.5f} (per eager call "
+                    f"{kernel_call_ms:.5f}) plain_ms={plain_ms:.5f} "
+                    f"library_ms(bmm)={library_ms:.5f} "
+                    f"bound_ms={bound_ms:.5f} ({bound_by})")
+        rows[name] = row
+        print(msg, flush=True)
+        del x, w, out, ref
+    return rows
+
+
 def phase_profile(torch, engine, trace, ticks: int = 8) -> dict:
     """Where a serving window's device time goes: ``torch.profiler`` over
     ``ticks`` ticks of the path after the first admissions (prefills,
@@ -239,29 +326,156 @@ def phase_profile(torch, engine, trace, ticks: int = 8) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
+    ours = {"flash_fwd_kernel": [], "gmm_bf16_kernel": []}
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
             by_name[ev.name] = (by_name.get(ev.name, 0.0)
                                 + ev.device_time_total / 1e3)
+            for k in ours:
+                if k in ev.name:
+                    ours[k].append(ev.device_time_total)
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    flash_us = [ev.device_time_total for ev in prof.events()
-                if ev.device_type == DeviceType.CUDA
-                and "flash_fwd_kernel" in ev.name]
+    kern = "; ".join(
+        f"{k} {len(us)} launches, mean {sum(us) / len(us):.1f} us, "
+        f"{sum(us) / 1e3:.1f} ms = {100 * sum(us) / 1e3 / wall_ms:.1f}% "
+        f"of the window" for k, us in ours.items() if us)
     print(f"profile: {ticks} ticks ({timer.n['admit']} prefills, "
           f"{timer.n['decode']} decodes, {timer.n['commit']} commits) in "
           f"{wall_ms:.1f} ms wall, device busy {busy_ms:.1f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}%); flash kernel "
-          f"{len(flash_us)} launches, mean "
-          f"{sum(flash_us) / max(len(flash_us), 1):.1f} us; host ms in admit "
+          f"({100 * busy_ms / wall_ms:.1f}%); {kern}; host ms in admit "
           f"{timer.t['admit'] * 1e3:.1f} decode {timer.t['decode'] * 1e3:.1f}"
           f" commit {timer.t['commit'] * 1e3:.1f}", flush=True)
     for name, ms in top:
         print(f"profile: {ms:9.3f} ms  {name[:90]}", flush=True)
     return dict(ticks=ticks, wall_ms=wall_ms, device_busy_ms=busy_ms,
-                flash_launch_us=flash_us,
-                host_s=timer.t, steps=timer.n,
+                kernel_launch_us=ours, host_s=timer.t, steps=timer.n,
                 top=[[n, ms] for n, ms in top])
+
+
+def phase_path(torch, arch, trace, t_max, counters) -> dict:
+    """Phases 4 and 5: one architecture's serving path at full width,
+    then its profile window, then crash and resume.  ``counters`` maps a
+    kernel name to its dispatcher module (``LAUNCHES``); every count is
+    set to 0 just before the path runs and read just after."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import build_serve_engine
+    cfg = get_config(arch)
+    n_moe = sum(cfg.mlp_kind(l) == "moe" for l in range(cfg.n_layers))
+    pools = [tempfile.mkdtemp(prefix="chip_smoke_pool_") for _ in range(3)]
+    try:
+        t0 = time.perf_counter()
+        engine, _ = build_serve_engine(
+            arch, smoke=False, t_max=t_max, pool_path=pools[0], seed=0,
+            device="cuda", **PATH_KW)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        bundle, params = engine.bundle, engine.params
+        # the full-width prefill gives finite logits of the vocab's width
+        logits, _ = bundle.prefill(
+            params, {"tokens": torch.tensor([trace[0].prompt],
+                                            device="cuda")},
+            bundle.init_caches(1, t_max))
+        check(tuple(logits.shape) == (1, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"{arch}: prefill logits {tuple(logits.shape)} not "
+              f"finite/shaped")
+        del logits
+        timer = PhaseTimer(engine)
+        torch.cuda.synchronize()
+        for mod in counters.values():
+            mod.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = engine.run(trace)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: mod.LAUNCHES for k, mod in counters.items()}
+        d2h = engine.store.tiers.d2h_gather_bytes
+        engine.close()
+        check(sorted(res.outputs) == sorted(r.rid for r in trace),
+              f"{arch}: not every request finished")
+        for r in trace:
+            toks = res.outputs[r.rid]
+            check(len(toks) == r.max_new_tokens
+                  and all(0 <= t < cfg.vocab_size for t in toks),
+                  f"{arch} {r.rid}: bad output {toks}")
+        check(timer.n["decode"] == res.decode_ticks,
+              f"{arch}: {timer.n['decode']} decode steps in "
+              f"{res.decode_ticks} ticks")
+        check(launches["flash_attention"] == cfg.n_layers * res.prefills,
+              f"{arch}: flash kernel launches "
+              f"{launches['flash_attention']} != {cfg.n_layers} x "
+              f"{res.prefills} prefills")
+        want_gmm = 3 * n_moe * (res.prefills + res.decode_ticks)
+        check(launches["grouped_matmul"] == want_gmm,
+              f"{arch}: grouped-matmul launches "
+              f"{launches['grouped_matmul']} != 3 x {n_moe} MoE layers x "
+              f"({res.prefills} prefills + {res.decode_ticks} decode ticks)")
+        path = dict(arch=arch, n_params=bundle.n_params(), init_s=init_s,
+                    emitted_tokens=res.emitted_tokens, wall_s=dt,
+                    tokens_per_s=res.emitted_tokens / dt,
+                    decode_ticks=res.decode_ticks, prefills=res.prefills,
+                    commits=res.commits, d2h_bytes=d2h, launches=launches,
+                    phase_s=timer.t, t_max=t_max,
+                    peak_mem_bytes=torch.cuda.max_memory_allocated())
+        print(f"path: {arch} full width (L={cfg.n_layers} d={cfg.d_model} "
+              f"H={cfg.n_heads} hd={cfg.head_dim} V={cfg.vocab_size}"
+              + (f" E={cfg.moe.n_experts} top-{cfg.moe.top_k} "
+                 f"d_ff_e={cfg.moe.d_ff_expert}" if n_moe else "")
+              + f", {bundle.n_params()} params, init {init_s:.1f}s) "
+              f"4 slots 16 requests prompt 512: {res.emitted_tokens} tokens "
+              f"in {dt:.3f}s = {res.emitted_tokens / dt:.1f} tok/s, "
+              f"{res.decode_ticks} decode ticks, {res.prefills} prefills, "
+              f"{res.commits} commits, D2H {d2h} bytes, launches "
+              f"{launches}; host s in admit {timer.t['admit']:.3f} decode "
+              f"{timer.t['decode']:.3f} commit {timer.t['commit']:.3f}; "
+              f"peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+              flush=True)
+
+        def engine_on(pool):
+            return build_serve_engine(
+                arch, smoke=False, t_max=t_max, pool_path=pool,
+                bundle=bundle, params=params, device="cuda", **PATH_KW)[0]
+
+        # -- profile: where the path's device time goes ---------------------
+        e_prof = engine_on(pools[2])
+        path["profile"] = phase_profile(torch, e_prof, trace)
+        e_prof.close()
+        del e_prof
+
+        # -- crash and resume --------------------------------------------
+        crash_ticks = 10
+        e2 = engine_on(pools[1])
+        e2.submit(trace)
+        for _ in range(crash_ticks):
+            e2.tick()
+        e2.store.ctx.crash()
+        del e2
+        e3 = engine_on(pools[1])
+        step = e3.resume()
+        res3 = e3.run(trace)
+        e3.close()
+        del e3
+        check(step == crash_ticks - crash_ticks % 4,
+              f"{arch}: resumed at tick {step}, expected the last commit "
+              f"{crash_ticks - crash_ticks % 4}")
+        diff = [rid for rid in res.outputs
+                if res3.outputs.get(rid) != res.outputs[rid]]
+        check(not diff, f"{arch}: resumed tokens differ for {diff}")
+        path["resume"] = dict(crash_after_ticks=crash_ticks,
+                              resumed_tick=step,
+                              sessions_resumed=res3.resumed_sessions,
+                              prefills_after_resume=res3.prefills)
+        print(f"resume: {arch} crashed after {crash_ticks} ticks, resumed "
+              f"from committed tick {step}, {res3.resumed_sessions} "
+              f"sessions resumed, {res3.prefills} prefills after resume, "
+              f"all {len(res.outputs)} sessions' tokens bit-identical to "
+              f"the uninterrupted run", flush=True)
+        return path
+    finally:
+        for p in pools:
+            shutil.rmtree(p, ignore_errors=True)
 
 
 def main(argv=None) -> int:
@@ -280,13 +494,15 @@ def main(argv=None) -> int:
               f"checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.launch.serve import set_determinism
     set_determinism()
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels.attention import ops
-    from repro_torch.serve.engine import build_serve_engine
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
     from repro_torch.serve.trace import synthetic_trace, trace_t_max
+    counters = {"flash_attention": ops, "grouped_matmul": gmm_ops}
 
     report = {}
     # -- 1. environment ------------------------------------------------------
@@ -298,131 +514,65 @@ def main(argv=None) -> int:
           f"{sys.version.split()[0]}", flush=True)
     report["card"] = card
 
-    # -- 2. build -------------------------------------------------------------
+    # -- 2. build: one nvcc per source, all started together ----------------
     t0 = time.perf_counter()
-    lib = build.build("flash_attention")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        libs = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
     build_s = time.perf_counter() - t0
-    ptxas = [l.strip() for l in build.build_log("flash_attention").splitlines()
-             if "registers" in l or "spill" in l]
-    print(f"build: flash_attention in {build_s:.1f}s -> {lib}", flush=True)
-    for l in ptxas:
-        print(f"build: ptxas {l}", flush=True)
+    print(f"build: {', '.join(KERNELS)} in {build_s:.1f}s (in parallel)",
+          flush=True)
+    for name, lib in libs.items():
+        print(f"build: {name} -> {lib}", flush=True)
+        for l in build.build_log(name).splitlines():
+            if "registers" in l or "spill" in l:
+                print(f"build: {name} ptxas {l.strip()}", flush=True)
     report["build_s"] = build_s
 
-    # -- 3. kernel -------------------------------------------------------------
-    rows = phase_kernel(torch, ops)
-    report["kernel_cases"] = rows
+    # -- 3. kernels against their plain versions ----------------------------
+    report["kernel_cases"] = phase_kernel(torch, ops)
+    report["gmm_cases"] = phase_gmm(torch, gmm_ops)
 
-    # -- 4. path ---------------------------------------------------------------
-    cfg = get_config("olmo-1b")
+    # -- 4. and 5. the two serving paths ------------------------------------
     trace = synthetic_trace(16, seed=0, prompt_lens=(512,),
                             new_tokens=(4, 8, 16, 32, 48),
-                            vocab_size=cfg.vocab_size)
+                            vocab_size=get_config("olmo-1b").vocab_size)
     t_max = trace_t_max(trace)
-    pools = [tempfile.mkdtemp(prefix="chip_smoke_pool_")
-             for _ in range(3)]
-    try:
-        engine, _ = build_serve_engine(
-            "olmo-1b", smoke=False, n_slots=4, t_max=t_max,
-            pool_path=pools[0], commit_every=4, seed=0, device="cuda")
-        bundle, params = engine.bundle, engine.params
-        # the full-width prefill gives finite logits of the vocab's width
-        logits, _ = bundle.prefill(
-            params, {"tokens": torch.tensor([trace[0].prompt],
-                                            device="cuda")},
-            bundle.init_caches(1, t_max))
-        check(tuple(logits.shape) == (1, cfg.vocab_size)
-              and bool(torch.isfinite(logits).all()),
-              f"prefill logits {tuple(logits.shape)} not finite/shaped")
-        timer = PhaseTimer(engine)
-        torch.cuda.synchronize()
-        ops.LAUNCHES = 0
-        t0 = time.perf_counter()
-        res = engine.run(trace)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launches = ops.LAUNCHES
-        d2h = engine.store.tiers.d2h_gather_bytes
-        engine.close()
-        check(sorted(res.outputs) == sorted(r.rid for r in trace),
-              "not every request finished")
-        for r in trace:
-            toks = res.outputs[r.rid]
-            check(len(toks) == r.max_new_tokens
-                  and all(0 <= t < cfg.vocab_size for t in toks),
-                  f"{r.rid}: bad output {toks}")
-        check(launches == cfg.n_layers * res.prefills,
-              f"flash kernel launches {launches} != {cfg.n_layers} x "
-              f"{res.prefills} prefills")
-        path = dict(emitted_tokens=res.emitted_tokens, wall_s=dt,
-                    tokens_per_s=res.emitted_tokens / dt,
-                    decode_ticks=res.decode_ticks, prefills=res.prefills,
-                    commits=res.commits, d2h_bytes=d2h,
-                    flash_launches=launches, phase_s=timer.t,
-                    t_max=t_max)
-        report["path"] = path
-        print(f"path: olmo-1b full width (L={cfg.n_layers} d={cfg.d_model} "
-              f"H={cfg.n_heads} hd={cfg.head_dim} V={cfg.vocab_size}) "
-              f"4 slots 16 requests prompt 512: {res.emitted_tokens} tokens "
-              f"in {dt:.3f}s = {res.emitted_tokens / dt:.1f} tok/s, "
-              f"{res.decode_ticks} decode ticks, {res.prefills} prefills, "
-              f"{res.commits} commits, D2H {d2h} bytes, flash launches "
-              f"{launches} = {cfg.n_layers} x {res.prefills} prefills; "
-              f"host s in admit {timer.t['admit']:.3f} decode "
-              f"{timer.t['decode']:.3f} commit {timer.t['commit']:.3f}",
-              flush=True)
+    paths = {}
+    for arch in ("olmo-1b", "olmoe-1b-7b"):
+        gc.collect()          # the previous path's engines hold cycles
+        torch.cuda.empty_cache()            # ... and its weights
+        torch.cuda.reset_peak_memory_stats()
+        paths[arch] = phase_path(torch, arch, trace, t_max, counters)
+    report["paths"] = paths
+    olmo, olmoe = paths["olmo-1b"], paths["olmoe-1b-7b"]
+    check(olmo["launches"]["grouped_matmul"] == 0,
+          "olmo-1b (dense) launched the grouped matmul")
+    check(olmoe["launches"]["grouped_matmul"] > 0,
+          "olmoe-1b-7b never launched the grouped matmul")
+    for key in ("decode_ticks", "prefills", "commits", "d2h_bytes"):
+        check(olmoe[key] == olmo[key],
+              f"olmoe {key} {olmoe[key]} != olmo-1b's {olmo[key]}")
+    check((olmo["decode_ticks"], olmo["prefills"], olmo["commits"],
+           olmo["d2h_bytes"]) == (97, 16, 25, OLMO_D2H_BYTES),
+          f"schedule {olmo['decode_ticks']} ticks, {olmo['prefills']} "
+          f"prefills, {olmo['commits']} commits, {olmo['d2h_bytes']} D2H "
+          f"bytes; expected 97, 16, 25, {OLMO_D2H_BYTES}")
 
-        def engine_on(pool):
-            return build_serve_engine(
-                "olmo-1b", smoke=False, n_slots=4, t_max=t_max,
-                pool_path=pool, commit_every=4, bundle=bundle,
-                params=params, device="cuda")[0]
-
-        # -- profile: where the path's device time goes ---------------------
-        e_prof = engine_on(pools[2])
-        report["profile"] = phase_profile(torch, e_prof, trace)
-        e_prof.close()
-        del e_prof
-
-        # -- 5. crash and resume --------------------------------------------
-        crash_ticks = 10
-        e2 = engine_on(pools[1])
-        e2.submit(trace)
-        for _ in range(crash_ticks):
-            e2.tick()
-        e2.store.ctx.crash()
-        del e2
-        e3 = engine_on(pools[1])
-        step = e3.resume()
-        res3 = e3.run(trace)
-        e3.close()
-        check(step == crash_ticks - crash_ticks % 4,
-              f"resumed at tick {step}, expected the last commit "
-              f"{crash_ticks - crash_ticks % 4}")
-        diff = [rid for rid in res.outputs
-                if res3.outputs.get(rid) != res.outputs[rid]]
-        check(not diff, f"resumed tokens differ for {diff}")
-        report["resume"] = dict(crash_after_ticks=crash_ticks,
-                                resumed_tick=step,
-                                sessions_resumed=res3.resumed_sessions,
-                                prefills_after_resume=res3.prefills)
-        print(f"resume: crashed after {crash_ticks} ticks, resumed from "
-              f"committed tick {step}, {res3.resumed_sessions} sessions "
-              f"resumed, {res3.prefills} prefills after resume, all "
-              f"{len(res.outputs)} sessions' tokens bit-identical to the "
-              f"uninterrupted run", flush=True)
-    finally:
-        for p in pools:
-            shutil.rmtree(p, ignore_errors=True)
-
-    main_row = rows["path_s512"]
-    kernels = {"kernels": [{
-        "name": "flash_attention", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches, "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]}
+    mains = {"flash_attention": report["kernel_cases"]["path_s512"],
+             "grouped_matmul": report["gmm_cases"]["decode_up"]}
+    kernels = {"kernels": []}
+    for name, (source, replaces) in KERNELS.items():
+        row = mains[name]
+        kernels["kernels"].append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": sum(p["launches"][name] for p in paths.values()),
+            "launches_by_path": {a: p["launches"][name]
+                                 for a, p in paths.items()},
+            "shape": row["shape"],
+            "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     report.update(kernels)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),

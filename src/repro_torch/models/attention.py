@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.attention.ops import flash_attention
-from repro_torch.models.common import rope
+from repro_torch.models.common import rms_head_norm, rope
 from repro_torch.models.params import ParamDesc
 from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -102,9 +102,8 @@ def gqa_descs(cfg: ModelConfig):
         "wo": ParamDesc((K, G, hd, d), ("kv_heads", "q_per_kv", "head_dim", "embed")),
     }
     if cfg.qk_norm:
-        raise NotImplementedError(
-            "qk-norm (repro.models.common.rms_head_norm) comes with the "
-            "chameleon / olmoe slices")
+        out["q_norm"] = ParamDesc((hd,), ("head_dim",), init="ones")
+        out["k_norm"] = ParamDesc((hd,), ("head_dim",), init="ones")
     return out
 
 
@@ -123,12 +122,17 @@ def gqa_cache_desc(cfg: ModelConfig, batch: int, t_max: int):
 
 
 def project_qkv(cfg: ModelConfig, p, x, positions):
-    """x (B, S, D) -> q (B,S,K,G,hd), k (B,S,K,hd), v (B,S,K,hd), roped."""
+    """x (B, S, D) -> q (B,S,K,G,hd), k (B,S,K,hd), v (B,S,K,hd): q and k
+    qk-normed (where the config has it) and then roped, as the reference
+    orders them."""
     B, S, D = x.shape
     wq, wk, wv = p["wq"], p["wk"], p["wv"]
     q = (x @ wq.reshape(D, -1)).reshape((B, S) + tuple(wq.shape[1:]))
     k = (x @ wk.reshape(D, -1)).reshape((B, S) + tuple(wk.shape[1:]))
     v = (x @ wv.reshape(D, -1)).reshape((B, S) + tuple(wv.shape[1:]))
+    if cfg.qk_norm:
+        q = rms_head_norm(q, p["q_norm"])
+        k = rms_head_norm(k, p["k_norm"])
     if cfg.use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)

@@ -1,4 +1,5 @@
-"""Shared layers: norms (incl. OLMo non-parametric LN), RoPE, MLP/SwiGLU,
+"""Shared layers: norms (incl. OLMo non-parametric LN, qk-norm), RoPE,
+MLP/SwiGLU,
 embedding and the tied unembedding — counterparts of
 ``repro.models.common`` with the same numerics (fp32 statistics and
 angles, casts back to the activation dtype at the same places)."""
@@ -43,6 +44,14 @@ def apply_norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     if cfg.norm == "layernorm":
         y = y * p["scale"].float() + p["bias"].float()
     return y.to(x.dtype)
+
+
+def rms_head_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """QK-norm over the trailing head_dim (chameleon / OLMoE): fp32 RMS,
+    times the scale, cast back."""
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + EPS)
+    return (y * scale.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Decoder-only LM assembly, dense path — the port of ``repro.models.lm``.
+"""Decoder-only LM assembly, attention blocks with a dense or MoE channel
+mixer — the port of ``repro.models.lm``.
 
 Layer stacking follows the reference exactly (``layer_groups``): a prefix
 of singleton groups plus one periodic group whose params are stacked with
@@ -11,7 +12,10 @@ pytree is ``[{"blocks": [KVCache(k, v)]}]`` with k / v of shape
 
 Caches are updated IN PLACE (the reference donates them): ``prefill``
 writes the prompt's k / v at t = 0, ``decode_step`` writes one position
-per sequence.  MoE, mamba, rwkv and MLA blocks come with their slices.
+per sequence.  olmoe-1b-7b has the same structure with a MoE channel
+mixer in every block (``models.moe``; its aux loss is returned by
+``block_forward`` as in the reference, and discarded by serving).  Mamba,
+rwkv and MLA blocks come with their slices.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ from typing import Any, Dict, List, NamedTuple, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, common
+from repro_torch.models import attention, common, moe
 from repro_torch.models.params import ParamDesc, tree_map_descs
 from repro_torch.utils.convert import torch_dtype
 from repro_torch.utils.tree import tree_map
@@ -70,12 +74,16 @@ def block_descs(cfg: ModelConfig, kind: Tuple[str, str]):
     mixer, mlp = kind
     if mixer != "attn" or cfg.mla is not None:
         raise _not_ported(f"mixer {mixer!r}", "repro.models.lm._mixer_descs")
-    if mlp != "dense":
-        raise _not_ported(f"mlp {mlp!r}", "repro.models.moe")
-    return {"norm1": common.norm_descs(cfg),
-            "attn": attention.gqa_descs(cfg),
-            "norm2": common.norm_descs(cfg),
-            "mlp": common.mlp_descs(cfg)}
+    out = {"norm1": common.norm_descs(cfg),
+           "attn": attention.gqa_descs(cfg),
+           "norm2": common.norm_descs(cfg)}
+    if mlp == "dense":
+        out["mlp"] = common.mlp_descs(cfg)
+    elif mlp == "moe":
+        out["moe"] = moe.moe_descs(cfg)
+    else:
+        raise ValueError(mlp)
+    return out
 
 
 def _stack(descs, n: int):
@@ -116,9 +124,13 @@ def cache_descs(cfg: ModelConfig, batch: int, t_max: int):
 
 def block_forward(cfg: ModelConfig, p, x, positions, *, cache=None,
                   pos=None, decode: bool = False):
-    """One dense transformer block.  Returns ``(x, cache)``; a given cache
-    is written in place (prefill: the prompt at t = 0; decode: one token
-    at ``pos``)."""
+    """One transformer block (attention, then a dense or MoE channel
+    mixer).  Returns ``(x, cache, aux)``: a given cache is written in place
+    (prefill: the prompt at t = 0; decode: one token at ``pos``), and
+    ``aux`` is the MoE load-balance loss (0 for a dense block).  A decode
+    routes each sequence's token through the MoE on its own, as the
+    reference's serving decode (a per-slot ``vmap``) does; a forward or
+    prefill of B sequences shares one routing, as the reference's does."""
     h = common.apply_norm(cfg, p["norm1"], x)
     if decode:
         y, cache = attention.gqa_decode(cfg, p["attn"], h, cache, pos)
@@ -132,13 +144,17 @@ def block_forward(cfg: ModelConfig, p, x, positions, *, cache=None,
             cache.v[:, :S] = v.to(cache.v.dtype)
     x = x + y
     h2 = common.apply_norm(cfg, p["norm2"], x)
-    x = x + common.apply_mlp(cfg, p["mlp"], h2)
-    return x, cache
+    if "moe" in p:
+        y2, aux = moe.moe_forward(cfg, p["moe"], h2, per_sequence=decode)
+    else:
+        y2, aux = common.apply_mlp(cfg, p["mlp"], h2), 0.0
+    return x + y2, cache, aux
 
 
 def _run_groups(cfg: ModelConfig, params, x, positions, *, caches=None,
                 pos=None, decode: bool = False):
-    """Apply all layer groups; the stacked (repeats,) dim is a loop."""
+    """Apply all layer groups; the stacked (repeats,) dim is a loop.
+    Serving discards the MoE aux loss (training will sum it)."""
     for gi, g in enumerate(layer_groups(cfg)):
         gp = params["groups"][gi]["blocks"]
         gc = caches[gi]["blocks"] if caches is not None else None
@@ -149,8 +165,8 @@ def _run_groups(cfg: ModelConfig, params, x, positions, *, caches=None,
                     bp = tree_map(lambda a: a[r], bp)
                     if bc is not None:
                         bc = tree_map(lambda a: a[r], bc)
-                x, _ = block_forward(cfg, bp, x, positions, cache=bc,
-                                     pos=pos, decode=decode)
+                x, _, _ = block_forward(cfg, bp, x, positions, cache=bc,
+                                        pos=pos, decode=decode)
     return x
 
 
@@ -199,7 +215,8 @@ def prefill(cfg: ModelConfig, params, tokens, caches):
 
 def decode_step(cfg: ModelConfig, params, tokens, state: ServeState):
     """One decode step. tokens: (B, 1) int; ``state.pos`` a scalar or one
-    position per sequence.  Returns (logits (B, V), state)."""
+    position per sequence; each sequence's token is routed through the MoE
+    on its own (``block_forward``).  Returns (logits (B, V), state)."""
     x = embed_inputs(cfg, params, tokens)
     x = _run_groups(cfg, params, x, None, caches=state.caches,
                     pos=state.pos, decode=True)

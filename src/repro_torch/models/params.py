@@ -82,8 +82,10 @@ def init_params(descs, generator: torch.Generator, default_dtype: str):
         else:
             fan_in = d.shape[0] if len(d.shape) > 1 else max(d.shape[-1], 1)
             scale = d.init_scale if d.init_scale else 1.0 / math.sqrt(fan_in)
-            v = (torch.randn(d.shape, generator=generator, device=device)
-                 * scale).to(dt)
+            # scaled in place: the largest leaf (olmoe-1b-7b's stacked
+            # experts, 2.1e9 elements) needs one fp32 copy, not two
+            v = torch.randn(d.shape, generator=generator,
+                            device=device).mul_(scale).to(dt)
         out.append(v)
     return treedef.unflatten(out)
 

@@ -6,10 +6,12 @@ advances by one token at its OWN position.  The reference builds it as a
 ``vmap`` of single-sequence decode, so a slot's tokens never depend on the
 other slots or on its lane index — the property crash-resume bit-identity
 rests on.  Here it is one batched decode with per-slot positions (rope at
-``pos[b]``, k / v written at ``pos[b]``, mask ``kv_pos <= pos[b]``); the
-batch shape is fixed at ``n_slots``, so the card runs the same kernels
-with the same shapes every tick, and each row's arithmetic is the same
-whatever the other rows hold.
+``pos[b]``, k / v written at ``pos[b]``, mask ``kv_pos <= pos[b]``, and
+MoE routing per slot: each slot's token gets its own capacity and its own
+rows of the expert buffers, as a single-sequence decode would); the batch
+shape is fixed at ``n_slots``, so the card runs the same kernels with the
+same shapes every tick, and each row's arithmetic is the same whatever the
+other rows hold.
 """
 from __future__ import annotations
 

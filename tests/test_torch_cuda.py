@@ -1,5 +1,5 @@
-"""The port on the card: the hand-written Hopper kernel and the path that
-runs it.  Every test here needs a CUDA device and skips without one.
+"""The port on the card: the hand-written Hopper kernels and the paths that
+run them.  Every test here needs a CUDA device and skips without one.
 
 This file imports neither JAX nor the JAX package, so it runs on the
 machine with the card, where there is no JAX:
@@ -13,13 +13,22 @@ machine with the card, where there is no JAX:
 * the dispatcher refuses what the kernel does not take (it never falls
   back to the plain version for a CUDA tensor);
 * a serving run of the olmo-1b smoke config on the card launches the
-  kernel once per layer per prefill.
+  kernel once per layer per prefill;
+* the grouped-matmul kernel against its plain version at small ragged
+  shapes (bf16; limit 1e-2 * max|plain| elementwise: one rounding of the
+  fp32 sum to bf16 is half an ulp, 3.9e-3 relative), a row's output
+  bit-identical wherever the row sits, the dispatcher's refusals, and an
+  olmoe-1b-7b smoke serving run that launches it 3 times per MoE block
+  per forward (6 = 3 x 2 blocks, prefills and decode ticks alike) while
+  the flash kernel runs once per layer per prefill.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.attention import ops
+from repro_torch.kernels.moe_gmm import ops as gmm_ops
+from repro_torch.kernels.moe_gmm.ref import grouped_matmul_ref
 
 CASES = [
     # B, H, K, Sq, Sk, hd, hd_v, causal
@@ -99,4 +108,89 @@ def test_serving_prefills_run_the_kernel(cuda):
     res = engine.run(trace)
     assert res.prefills == len(trace)
     assert ops.LAUNCHES - before == cfg.n_layers * res.prefills
+    assert all(len(res.outputs[r.rid]) == r.max_new_tokens for r in trace)
+
+
+GMM_CASES = [  # E, C, D, F
+    (3, 37, 200, 72),       # ragged C, D % 64 != 0, F < one tile
+    (3, 1, 200, 72),        # one row
+    (2, 70, 136, 264),      # two C tiles, ragged F over three tiles
+    (4, 32, 256, 128),      # the decode layout at small width
+    (1, 8, 8, 8),           # the smallest shape the kernel takes
+]
+
+
+def _gmm_inputs(case, device, seed):
+    E, C, D, F = case
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((E, C, D), np.float32)
+    w = rng.standard_normal((E, D, F), np.float32) * 0.1
+    return [torch.from_numpy(a).to(device, torch.bfloat16) for a in (x, w)]
+
+
+@pytest.mark.parametrize("case", GMM_CASES,
+                         ids=lambda c: "E%dC%dD%dF%d" % c)
+def test_grouped_matmul_kernel_matches_plain_version(case, cuda):
+    x, w = _gmm_inputs(case, cuda, seed=6)
+    before = gmm_ops.LAUNCHES
+    out = gmm_ops.grouped_matmul(x, w)
+    torch.cuda.synchronize()
+    assert gmm_ops.LAUNCHES == before + 1
+    E, C, D, F = case
+    assert out.shape == (E, C, F) and out.dtype == torch.bfloat16
+    ref = grouped_matmul_ref(x.float(), w.float())
+    err = float((out.float() - ref).abs().max())
+    assert err <= 1e-2 * float(ref.abs().max())
+
+
+def test_grouped_matmul_row_bits_do_not_depend_on_where_the_row_sits(cuda):
+    x, w = _gmm_inputs((2, 70, 136, 264), cuda, seed=7)
+    out = gmm_ops.grouped_matmul(x, w)
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(70)).to(cuda)
+    moved = gmm_ops.grouped_matmul(x[:, perm].contiguous(), w)
+    assert torch.equal(moved, out[:, perm])
+    # the same rows in a buffer of another capacity give the same bits
+    part = gmm_ops.grouped_matmul(x[:, 3:11].contiguous(), w)
+    assert torch.equal(part, out[:, 3:11])
+    assert torch.equal(gmm_ops.grouped_matmul(x, w), out)
+
+
+@pytest.mark.parametrize("bad", ["float32", "strided", "d_not_mult_8",
+                                 "w_on_cpu"])
+def test_grouped_matmul_dispatcher_raises_on_what_the_kernel_does_not_take(
+        bad, cuda):
+    x, w = _gmm_inputs((2, 16, 64, 32), cuda, seed=8)
+    if bad == "float32":
+        x, w = x.float(), w.float()
+        err = TypeError
+    elif bad == "strided":
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+        err = ValueError
+    elif bad == "d_not_mult_8":
+        x, w = x[..., :60].contiguous(), w[:, :60].contiguous()
+        err = ValueError
+    else:
+        w = w.cpu()
+        err = ValueError
+    before = gmm_ops.LAUNCHES
+    with pytest.raises(err):
+        gmm_ops.grouped_matmul(x, w)
+    assert gmm_ops.LAUNCHES == before
+
+
+def test_olmoe_serving_runs_both_kernels(cuda):
+    from repro_torch.serve.engine import build_serve_engine
+    from repro_torch.serve.trace import synthetic_trace, trace_t_max
+    trace = synthetic_trace(5, prompt_lens=(20,), new_tokens=(2, 5))
+    engine, cfg = build_serve_engine("olmoe-1b-7b", smoke=True, n_slots=2,
+                                     t_max=trace_t_max(trace), device=cuda)
+    decodes = []
+    step = engine._slot_decode
+    engine._slot_decode = lambda *a: decodes.append(1) or step(*a)
+    flash0, gmm0 = ops.LAUNCHES, gmm_ops.LAUNCHES
+    res = engine.run(trace)
+    assert res.prefills == len(trace) and decodes
+    assert ops.LAUNCHES - flash0 == cfg.n_layers * res.prefills
+    assert gmm_ops.LAUNCHES - gmm0 == \
+        3 * cfg.n_layers * (res.prefills + len(decodes))
     assert all(len(res.outputs[r.rid]) == r.max_new_tokens for r in trace)

@@ -1,4 +1,6 @@
-"""The port's dense LM (olmo-1b smoke, fp32) against the JAX package's.
+"""The port's LM against the JAX package's, on two smoke configs in fp32:
+olmo-1b (dense) and olmoe-1b-7b (MoE in every block, qk-norm, RMSNorm,
+untied unembedding).
 
 Weights are the reference's own ``jax.random`` params carried across with
 ``models.params.from_reference``, so both packages compute the same
@@ -7,7 +9,9 @@ function; inputs are numpy from a seed.  Tolerance: atol 1e-4 in fp32
 vocab projection).  The serving steps are compared too: prefill (last
 logits AND cache contents), three single-token decodes, and the
 continuous-batching slot decode with slots at different positions — plus
-slot independence: which lane holds which session changes nothing.
+slot independence: which lane holds which session changes nothing (for
+olmoe that includes per-slot MoE routing: a slot's token is routed alone,
+as in the reference's per-slot ``vmap``).
 """
 import jax
 import jax.numpy as jnp
@@ -29,6 +33,7 @@ from repro_torch.utils.tree import tree_flatten
 ATOL = 1e-4
 FP32 = dict(param_dtype="float32", compute_dtype="float32")
 T_MAX = 24
+ARCHS = ["olmo-1b", "olmoe-1b-7b"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -39,11 +44,11 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope="module")
-def models():
-    rb = ref_build(ref_smoke_config("olmo-1b").with_(**FP32))
+@pytest.fixture(scope="module", params=ARCHS)
+def models(request):
+    rb = ref_build(ref_smoke_config(request.param).with_(**FP32))
     rp = rb.init_params(jax.random.PRNGKey(0))
-    b = build(get_smoke_config("olmo-1b").with_(**FP32), device="cpu")
+    b = build(get_smoke_config(request.param).with_(**FP32), device="cpu")
     p = from_reference(jax.tree_util.tree_map(np.asarray, rp), "cpu")
     return rb, rp, b, p
 
@@ -192,3 +197,40 @@ def test_init_params_is_a_function_of_the_generator_seed(models):
     assert not all(torch.equal(x, y) for x, y in zip(la, ld))
     assert [tuple(x.shape) for x in la] == [
         tuple(s.shape) for s in tree_flatten(b.abstract_params())[0]]
+
+
+
+def test_a_slot_is_unchanged_when_the_other_lanes_hold_other_sessions(
+        models):
+    """Lane 0 holds the same session in two batches whose other three
+    lanes hold different sessions: lane 0's logits, tokens and cache stay
+    bit-identical (for olmoe: each slot's token is routed through the
+    experts alone, with its own capacity rows)."""
+    _, _, b, p = models
+    step = make_slot_decode_step(b)
+    active = torch.ones(4, dtype=torch.bool)
+
+    def run(seed_of_others):
+        caches, last, pos = _slot_state(models, [6, 9, 13, 7],
+                                        seed=seed_of_others)
+        lane0, last0, pos0 = _slot_state(models, [6], seed=11)
+        caches = jax.tree_util.tree_map(
+            lambda a, a0: a.at[:, :1].set(a0), caches, lane0)
+        last[0], pos[0] = last0[0], pos0[0]
+        pc = _port_caches(b, caches, 4)
+        tok = torch.from_numpy(last[:, None]).long()
+        tp = torch.from_numpy(pos)
+        outs = []
+        for _ in range(3):
+            nxt, logits, pc, tp = step(p, tok, pc, tp, active)
+            outs.append((nxt.clone(), logits.clone()))
+            tok = nxt[:, None].long()
+        return outs, pc
+
+    base, base_c = run(20)
+    other, other_c = run(40)
+    assert not torch.equal(base[0][1][1:], other[0][1][1:])
+    for (bn, bl), (on, ol) in zip(base, other):
+        assert torch.equal(bl[0], ol[0]) and int(bn[0]) == int(on[0])
+    for bc, oc in zip(tree_flatten(base_c)[0], tree_flatten(other_c)[0]):
+        assert torch.equal(bc[:, 0], oc[:, 0])

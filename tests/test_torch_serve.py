@@ -1,4 +1,5 @@
-"""The port's durable continuous-batching server against the JAX package's.
+"""The port's durable continuous-batching server against the JAX package's,
+on the olmo-1b and olmoe-1b-7b smoke configs (fp32).
 
 * same weights (the reference's, carried across), same ``synthetic_trace``
   (the port's copy gives the same requests): the port's ``ServeEngine``
@@ -46,6 +47,7 @@ TRACE_KW = dict(prompt_lens=(12,), new_tokens=(3, 6, 9))
 N_REQ = 7
 COMMIT_EVERY = 3
 CRASH_AFTER = 7                    # ticks; 7 % 3 != 0: not a commit tick
+ARCHS = ["olmo-1b", "olmoe-1b-7b"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -56,28 +58,29 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope="module")
-def setup():
-    cfg = get_smoke_config("olmo-1b").with_(**FP32)
+@pytest.fixture(scope="module", params=ARCHS)
+def setup(request):
+    arch = request.param
+    cfg = get_smoke_config(arch).with_(**FP32)
     trace = synthetic_trace(N_REQ, vocab_size=cfg.vocab_size, **TRACE_KW)
     t_max = trace_t_max(trace)
-    rb = ref_build(ref_smoke_config("olmo-1b").with_(**FP32),
-                   dec_pos_len=t_max)
+    rb = ref_build(ref_smoke_config(arch).with_(**FP32), dec_pos_len=t_max)
     rp = rb.init_params(jax.random.PRNGKey(0))
     b = build(cfg, device="cpu")
     p = from_reference(jax.tree_util.tree_map(np.asarray, rp), "cpu")
-    return dict(trace=trace, t_max=t_max, rb=rb, rp=rp, b=b, p=p)
+    return dict(arch=arch, trace=trace, t_max=t_max, rb=rb, rp=rp, b=b,
+                p=p)
 
 
 def _port_engine(s, **kw):
-    e, _ = build_serve_engine("olmo-1b", smoke=True, n_slots=4,
+    e, _ = build_serve_engine(s["arch"], smoke=True, n_slots=4,
                               t_max=s["t_max"], bundle=s["b"],
                               params=s["p"], device="cpu", **kw)
     return e
 
 
 def _ref_engine(s, **kw):
-    e, _ = ref_build_engine("olmo-1b", smoke=True, n_slots=4,
+    e, _ = ref_build_engine(s["arch"], smoke=True, n_slots=4,
                             t_max=s["t_max"], bundle=s["rb"],
                             params=s["rp"], **kw)
     return e
@@ -193,10 +196,12 @@ def test_port_recovers_the_pool_the_reference_committed(setup, tmp_path):
     _assert_recovered_equal(ours, theirs)
 
 
-def test_launcher_serves_and_resumes_on_cpu(tmp_path):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_launcher_serves_and_resumes_on_cpu(tmp_path, arch):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--device",
-           "cpu", "--smoke", "--requests", "5", "--prompt-len", "8",
+           "cpu", "--arch", arch, "--smoke", "--requests", "5",
+           "--prompt-len", "8",
            "--new-tokens", "2,5", "--pool", str(tmp_path / "pool"),
            "--commit-every", "2"]
     first = subprocess.run(cmd, env=env, capture_output=True, text=True,
