@@ -3,14 +3,14 @@
 
     python3 chip_smoke.py [--json PATH]
 
-Drives the port's serving path at the full width of olmo-1b and of
-olmoe-1b-7b and prints one line per phase:
+Drives the port's serving path at the full width of olmo-1b, of
+olmoe-1b-7b and of rwkv6-7b and prints one line per phase:
 
 1. environment — the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions;
-2. build — compiles both kernels of the paths from ``src/repro_torch/csrc``
-   (one ``nvcc`` each, started together) and shows ptxas's register /
-   shared-memory report;
+2. build — compiles the three kernels of the paths from
+   ``src/repro_torch/csrc`` (one ``nvcc`` each, started together) and
+   shows ptxas's register / shared-memory report;
 3. kernels — each kernel against its plain PyTorch version on the card,
    bf16, with kernel / plain / library times (CUDA events, after warm-up)
    and the least time the card could take (bytes at 3.35 TB/s vs
@@ -25,6 +25,17 @@ olmoe-1b-7b and prints one line per phase:
      with D 200, F 72; D 1000, not a multiple of 64): elementwise
      |kernel - plain_fp32| <= 1e-2 * max|plain_fp32| (one rounding to
      bf16 is half an ulp, 3.9e-3 relative); library: ``torch.bmm``;
+   * the WKV-6 recurrence at the rwkv6-7b path's two shapes (prefill
+     (1, 512, 64, 64), decode (4, 1, 64, 64)), at ragged T and at the
+     reference's sweep shapes: y and S against the fp32 step-by-step
+     oracle ``wkv6_ref`` on the same bf16-valued inputs, elementwise within
+     1e-3 x max|oracle| (fp32 sums in another order); plain: the
+     dispatcher's plain version (chunked form, Q = 256; the direct
+     recurrence at T = 1); bound: the larger of the bytes (r, k, v bf16,
+     logw, u, y fp32, S in and out) at 3.35 TB/s and the operations of
+     the chunked closed form at Q = 16 (its products at the 495 TFLOP/s
+     TF32 tensor-core peak, its decays at 67 TFLOP/s); library: none, no
+     one PyTorch call computes WKV-6;
 4. olmo-1b path — ``build_serve_engine("olmo-1b", smoke=False)`` with
    random weights from a torch.Generator seeded 0: 4 slots, 16 requests
    of 512 prompt tokens and budgets 4,8,16,32,48, a pool in a temp dir
@@ -43,7 +54,16 @@ olmoe-1b-7b and prints one line per phase:
    the olmo-1b engine is freed.  The grouped matmul must run 48 times per
    prefill and per decode tick (3 products x 16 layers), the flash kernel
    16 times per prefill; the schedule (97 ticks, 16 prefills, 25 commits)
-   and the D2H bytes must equal olmo-1b's, as the KV lanes are the same.
+   and the D2H bytes must equal olmo-1b's, as the KV lanes are the same;
+6. rwkv6-7b path — the same trace, schedule, profile and crash-resume at
+   full width and full depth (32 layers, d_model 4096, 64 WKV heads of 64,
+   d_ff 14336, vocab 65536, bf16, 7.58e9 parameters), after the olmoe
+   engine is freed.  The WKV kernel must run once per layer per prefill
+   and per decode tick (32 x (16 + 97) = 3,616), the flash kernel and the
+   grouped matmul never; the schedule must equal olmo-1b's, and the D2H
+   bytes must be olmo-1b's count of lane copies times the rwkv lane's
+   34,078,720 bytes (the state S, 32 x 64 x 64 x 64 fp32, and the two
+   token-shift rows).
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.  Then a ``{"kernels": [...]}`` line, the card line again,
@@ -70,14 +90,21 @@ TOL = 2e-2
 GMM_REL_TOL = 1e-2
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
+TF32_FLOPS = 495e12                # dense TF32 tensor-core peak
+FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
+WKV_REL_TOL = 1e-3
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/attention/kernel.py:89"),
     "grouped_matmul": ("src/repro_torch/csrc/grouped_matmul.cu",
                        "src/repro/kernels/moe_gmm/kernel.py:45"),
+    "wkv6": ("src/repro_torch/csrc/wkv6.cu",
+             "src/repro/kernels/rwkv6/kernel.py:91"),
 }
+ARCHS = ("olmo-1b", "olmoe-1b-7b", "rwkv6-7b")
 PATH_KW = dict(n_slots=4, commit_every=4)
 OLMO_D2H_BYTES = 5_431_623_680     # olmo-1b's 25 commits of this trace
+RWKV_LANE_BYTES = 34_078_720       # one rwkv6-7b slot's cache
 
 
 class CheckFailed(Exception):
@@ -245,6 +272,21 @@ class PhaseTimer:
         return timed
 
 
+def pool_objects(pool: str) -> dict:
+    """Count the object versions on disk in the pool at ``pool``: token
+    blocks ``kv/<rid>/b<k>`` (empty lists for a cache with no token axis)
+    and recurrent-state objects ``kv/<rid>/state``.  Serving runs no
+    retention GC, so a run's flushes are the difference of two counts."""
+    counts = {"blocks": 0, "states": 0}
+    for dirpath, _, filenames in os.walk(os.path.join(pool, "objects")):
+        rel = os.path.relpath(dirpath, pool).split(os.sep)
+        if len(rel) != 4 or rel[1] != "kv":
+            continue
+        n = sum(f.endswith(".cxl0") for f in filenames)
+        counts["states" if rel[3] == "state" else "blocks"] += n
+    return counts
+
+
 def gmm_bound_ms(E, C, D, F) -> tuple:
     """Least time for the work: x, w read once and out written once
     (bf16), vs the E*C*D*F multiply-adds."""
@@ -306,6 +348,86 @@ def phase_gmm(torch, gmm_ops):
     return rows
 
 
+def wkv_bound_ms(B, T, H, n, Q=16) -> tuple:
+    """Least time for the work: r, k, v (bf16), logw (fp32) and u read
+    once, y (fp32) written once, S read and written once, vs the
+    operations of the chunked closed form, the form with the least work.
+    Per step and head, a chunk of Q steps does 4n^2 + 4Qn flops of
+    products (r S, the state update, the (Q, Q) scores and their product
+    with v) on the TF32 tensor cores, and n^2/Q + Qn decays (S at the
+    chunk's end, the masked (Q, Q, n) weights) in fp32.  Q = 16 is the
+    least row count of a TF32 tensor-core product."""
+    nbytes = (3 * 2 + 4 + 4) * B * T * H * n + 4 * H * n + 2 * 4 * B * H * n * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    steps = B * T * H
+    t_ops = (steps * (4 * n * n + 4 * Q * n) / TF32_FLOPS
+             + steps * (n * n / Q + Q * n) / FP32_FLOPS) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def phase_wkv(torch, wkv_ops):
+    """Phase 3: the WKV-6 kernel against its plain versions on the card,
+    timed at the rwkv6-7b path's two shapes."""
+    from repro_torch.kernels.rwkv6 import kernel
+    from repro_torch.kernels.rwkv6.ref import wkv6_ref
+    cases = [  # (name, B, T, H, n, timed)
+        ("prefill", 1, 512, 64, 64, True),
+        ("decode", 4, 1, 64, 64, True),
+        ("ragged_t37", 2, 37, 8, 64, False),
+        ("sweep_n32", 2, 128, 2, 32, False),
+        ("sweep_n64", 1, 96, 4, 64, False),
+        ("sweep_n16", 2, 100, 2, 16, False),
+        ("sweep_t33", 1, 33, 1, 64, False),
+    ]
+    gen = torch.Generator("cuda").manual_seed(5678)
+    rows = {}
+    for name, B, T, H, n, timed in cases:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        r, v = randn(B, T, H, n).bfloat16(), randn(B, T, H, n).bfloat16()
+        k = (randn(B, T, H, n) * 0.5).bfloat16()
+        logw = -torch.exp(randn(B, T, H, n) * 0.5)
+        u, S0 = randn(H, n) * 0.3, randn(B, H, n, n) * 0.1
+        y, S = wkv_ops.wkv6(r, k, v, logw, u, S0)
+        torch.cuda.synchronize()
+        y_ref, S_ref = wkv6_ref(r, k, v, logw, u, S0)
+        errs = {}
+        for what, got, want in (("y", y, y_ref), ("S", S, S_ref)):
+            err = float((got - want).abs().max())
+            limit = WKV_REL_TOL * float(want.abs().max())
+            check(bool(torch.isfinite(got).all()),
+                  f"wkv6 {name}: non-finite {what}")
+            check(err <= limit, f"wkv6 {name}: {what} max abs err {err} > "
+                                f"{limit}")
+            errs[what] = (err, limit)
+        row = dict(shape=[B, T, H, n], max_abs_err=max(errs["y"][0],
+                                                       errs["S"][0]),
+                   errs={w: list(e) for w, e in errs.items()})
+        msg = (f"kernel wkv6 {name}: B={B} T={T} H={H} n={n} y max_abs_err="
+               f"{errs['y'][0]:.3e} (limit {errs['y'][1]:.3e}) S max_abs_err="
+               f"{errs['S'][0]:.3e} (limit {errs['S'][1]:.3e})")
+        if timed:
+            yb, Sb = torch.empty_like(y), torch.empty_like(S)
+            kernel_ms = device_ms(lambda: kernel.wkv6_fwd(
+                r, k, v, logw, u, S0, yb, Sb))
+            kernel_call_ms = call_ms(lambda: wkv_ops.wkv6(r, k, v, logw, u,
+                                                          S0))
+            plain_ms = device_ms(lambda: wkv_ops.plain_wkv6(
+                r, k, v, logw, u, S0), reps=2, replays=5)
+            bound_ms, bound_by = wkv_bound_ms(B, T, H, n)
+            row.update(kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms,
+                       plain_ms=plain_ms, library_ms=None,
+                       bound_ms=bound_ms, bound_by=bound_by)
+            msg += (f" kernel_ms={kernel_ms:.5f} (per eager call "
+                    f"{kernel_call_ms:.5f}) plain_ms={plain_ms:.5f} "
+                    f"library_ms=none bound_ms={bound_ms:.5f} ({bound_by})")
+        rows[name] = row
+        print(msg, flush=True)
+        del r, k, v, logw, u, S0, y, S, y_ref, S_ref
+    return rows
+
+
 def phase_profile(torch, engine, trace, ticks: int = 8) -> dict:
     """Where a serving window's device time goes: ``torch.profiler`` over
     ``ticks`` ticks of the path after the first admissions (prefills,
@@ -326,7 +448,8 @@ def phase_profile(torch, engine, trace, ticks: int = 8) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
-    ours = {"flash_fwd_kernel": [], "gmm_bf16_kernel": []}
+    ours = {"flash_fwd_kernel": [], "gmm_bf16_kernel": [],
+            "wkv6_fwd_kernel": []}
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
             by_name[ev.name] = (by_name.get(ev.name, 0.0)
@@ -354,14 +477,18 @@ def phase_profile(torch, engine, trace, ticks: int = 8) -> dict:
 
 
 def phase_path(torch, arch, trace, t_max, counters) -> dict:
-    """Phases 4 and 5: one architecture's serving path at full width,
+    """Phases 4 to 6: one architecture's serving path at full width,
     then its profile window, then crash and resume.  ``counters`` maps a
     kernel name to its dispatcher module (``LAUNCHES``); every count is
     set to 0 just before the path runs and read just after."""
     from repro_torch.configs import get_config
     from repro_torch.serve.engine import build_serve_engine
+    from repro_torch.utils.tree import tree_leaves
     cfg = get_config(arch)
-    n_moe = sum(cfg.mlp_kind(l) == "moe" for l in range(cfg.n_layers))
+    kinds = [cfg.layer_kind(l) for l in range(cfg.n_layers)]
+    n_attn, n_rwkv = kinds.count("attn"), kinds.count("rwkv")
+    n_moe = sum(cfg.mlp_kind(l) == "moe" for l in range(cfg.n_layers)
+                if kinds[l] != "rwkv")
     pools = [tempfile.mkdtemp(prefix="chip_smoke_pool_") for _ in range(3)]
     try:
         t0 = time.perf_counter()
@@ -382,6 +509,7 @@ def phase_path(torch, arch, trace, t_max, counters) -> dict:
               f"finite/shaped")
         del logits
         timer = PhaseTimer(engine)
+        before = pool_objects(pools[0])
         torch.cuda.synchronize()
         for mod in counters.values():
             mod.LAUNCHES = 0
@@ -392,6 +520,8 @@ def phase_path(torch, arch, trace, t_max, counters) -> dict:
         launches = {k: mod.LAUNCHES for k, mod in counters.items()}
         d2h = engine.store.tiers.d2h_gather_bytes
         engine.close()
+        flushed = {k: n - before[k]
+                   for k, n in pool_objects(pools[0]).items()}
         check(sorted(res.outputs) == sorted(r.rid for r in trace),
               f"{arch}: not every request finished")
         for r in trace:
@@ -402,31 +532,44 @@ def phase_path(torch, arch, trace, t_max, counters) -> dict:
         check(timer.n["decode"] == res.decode_ticks,
               f"{arch}: {timer.n['decode']} decode steps in "
               f"{res.decode_ticks} ticks")
-        check(launches["flash_attention"] == cfg.n_layers * res.prefills,
+        check(launches["flash_attention"] == n_attn * res.prefills,
               f"{arch}: flash kernel launches "
-              f"{launches['flash_attention']} != {cfg.n_layers} x "
-              f"{res.prefills} prefills")
+              f"{launches['flash_attention']} != {n_attn} attention layers "
+              f"x {res.prefills} prefills")
         want_gmm = 3 * n_moe * (res.prefills + res.decode_ticks)
         check(launches["grouped_matmul"] == want_gmm,
               f"{arch}: grouped-matmul launches "
               f"{launches['grouped_matmul']} != 3 x {n_moe} MoE layers x "
               f"({res.prefills} prefills + {res.decode_ticks} decode ticks)")
+        want_wkv = n_rwkv * (res.prefills + res.decode_ticks)
+        check(launches["wkv6"] == want_wkv,
+              f"{arch}: wkv6 launches {launches['wkv6']} != {n_rwkv} rwkv "
+              f"layers x ({res.prefills} prefills + {res.decode_ticks} "
+              f"decode ticks)")
+        lane_bytes = sum(s.nbytes for s in tree_leaves(
+            bundle.abstract_caches(1, t_max)))
         path = dict(arch=arch, n_params=bundle.n_params(), init_s=init_s,
                     emitted_tokens=res.emitted_tokens, wall_s=dt,
                     tokens_per_s=res.emitted_tokens / dt,
                     decode_ticks=res.decode_ticks, prefills=res.prefills,
                     commits=res.commits, d2h_bytes=d2h, launches=launches,
+                    lane_bytes=lane_bytes, flushed=flushed,
                     phase_s=timer.t, t_max=t_max,
                     peak_mem_bytes=torch.cuda.max_memory_allocated())
         print(f"path: {arch} full width (L={cfg.n_layers} d={cfg.d_model} "
               f"H={cfg.n_heads} hd={cfg.head_dim} V={cfg.vocab_size}"
               + (f" E={cfg.moe.n_experts} top-{cfg.moe.top_k} "
                  f"d_ff_e={cfg.moe.d_ff_expert}" if n_moe else "")
+              + (f" rwkv n={cfg.rwkv.head_dim} d_ff={cfg.d_ff}"
+                 if n_rwkv else "")
               + f", {bundle.n_params()} params, init {init_s:.1f}s) "
               f"4 slots 16 requests prompt 512: {res.emitted_tokens} tokens "
               f"in {dt:.3f}s = {res.emitted_tokens / dt:.1f} tok/s, "
               f"{res.decode_ticks} decode ticks, {res.prefills} prefills, "
-              f"{res.commits} commits, D2H {d2h} bytes, launches "
+              f"{res.commits} commits flushing {flushed['blocks']} token-block "
+              f"and {flushed['states']} state objects, D2H {d2h} bytes "
+              f"({lane_bytes} a lane), "
+              f"launches "
               f"{launches}; host s in admit {timer.t['admit']:.3f} decode "
               f"{timer.t['decode']:.3f} commit {timer.t['commit']:.3f}; "
               f"peak device memory "
@@ -501,8 +644,10 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.attention import ops
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
     from repro_torch.serve.trace import synthetic_trace, trace_t_max
-    counters = {"flash_attention": ops, "grouped_matmul": gmm_ops}
+    counters = {"flash_attention": ops, "grouped_matmul": gmm_ops,
+                "wkv6": wkv_ops}
 
     report = {}
     # -- 1. environment ------------------------------------------------------
@@ -531,27 +676,38 @@ def main(argv=None) -> int:
     # -- 3. kernels against their plain versions ----------------------------
     report["kernel_cases"] = phase_kernel(torch, ops)
     report["gmm_cases"] = phase_gmm(torch, gmm_ops)
+    report["wkv_cases"] = phase_wkv(torch, wkv_ops)
 
-    # -- 4. and 5. the two serving paths ------------------------------------
+    # -- 4. to 6. the three serving paths -----------------------------------
     trace = synthetic_trace(16, seed=0, prompt_lens=(512,),
                             new_tokens=(4, 8, 16, 32, 48),
                             vocab_size=get_config("olmo-1b").vocab_size)
     t_max = trace_t_max(trace)
     paths = {}
-    for arch in ("olmo-1b", "olmoe-1b-7b"):
+    for arch in ARCHS:
         gc.collect()          # the previous path's engines hold cycles
         torch.cuda.empty_cache()            # ... and its weights
         torch.cuda.reset_peak_memory_stats()
         paths[arch] = phase_path(torch, arch, trace, t_max, counters)
     report["paths"] = paths
-    olmo, olmoe = paths["olmo-1b"], paths["olmoe-1b-7b"]
+    olmo, olmoe, rw = (paths[a] for a in ARCHS)
     check(olmo["launches"]["grouped_matmul"] == 0,
           "olmo-1b (dense) launched the grouped matmul")
     check(olmoe["launches"]["grouped_matmul"] > 0,
           "olmoe-1b-7b never launched the grouped matmul")
+    check(rw["launches"]["wkv6"] > 0, "rwkv6-7b never launched the wkv6 "
+                                      "kernel")
     for key in ("decode_ticks", "prefills", "commits", "d2h_bytes"):
         check(olmoe[key] == olmo[key],
               f"olmoe {key} {olmoe[key]} != olmo-1b's {olmo[key]}")
+    for key in ("decode_ticks", "prefills", "commits"):
+        check(rw[key] == olmo[key],
+              f"rwkv6-7b {key} {rw[key]} != olmo-1b's {olmo[key]}")
+    lane_copies = olmo["d2h_bytes"] // olmo["lane_bytes"]
+    check(rw["lane_bytes"] == RWKV_LANE_BYTES
+          and rw["d2h_bytes"] == lane_copies * RWKV_LANE_BYTES,
+          f"rwkv6-7b D2H {rw['d2h_bytes']} bytes, lane {rw['lane_bytes']}: "
+          f"expected {lane_copies} lane copies x {RWKV_LANE_BYTES}")
     check((olmo["decode_ticks"], olmo["prefills"], olmo["commits"],
            olmo["d2h_bytes"]) == (97, 16, 25, OLMO_D2H_BYTES),
           f"schedule {olmo['decode_ticks']} ticks, {olmo['prefills']} "
@@ -559,7 +715,8 @@ def main(argv=None) -> int:
           f"bytes; expected 97, 16, 25, {OLMO_D2H_BYTES}")
 
     mains = {"flash_attention": report["kernel_cases"]["path_s512"],
-             "grouped_matmul": report["gmm_cases"]["decode_up"]}
+             "grouped_matmul": report["gmm_cases"]["decode_up"],
+             "wkv6": report["wkv_cases"]["prefill"]}
     kernels = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
         row = mains[name]

@@ -16,6 +16,7 @@ from repro_torch.configs.base import (  # noqa: F401
 _ARCH_MODULES: Dict[str, str] = {
     "olmo-1b": "repro_torch.configs.olmo_1b",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

@@ -1,5 +1,5 @@
 """Decoder-only LM assembly, attention blocks with a dense or MoE channel
-mixer — the port of ``repro.models.lm``.
+mixer and rwkv blocks — the port of ``repro.models.lm``.
 
 Layer stacking follows the reference exactly (``layer_groups``): a prefix
 of singleton groups plus one periodic group whose params are stacked with
@@ -14,8 +14,11 @@ Caches are updated IN PLACE (the reference donates them): ``prefill``
 writes the prompt's k / v at t = 0, ``decode_step`` writes one position
 per sequence.  olmoe-1b-7b has the same structure with a MoE channel
 mixer in every block (``models.moe``; its aux loss is returned by
-``block_forward`` as in the reference, and discarded by serving).  Mamba,
-rwkv and MLA blocks come with their slices.
+``block_forward`` as in the reference, and discarded by serving).
+rwkv6-7b is one group of 32 rwkv blocks (``models.rwkv``: time mix, then
+its own channel mix, no ``mlp``), whose cache is ``RWKVCache(last_tm,
+last_cm, S)`` with no token axis: prefill and decode both overwrite it
+whole.  Mamba and MLA blocks come with their slices.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from typing import Any, Dict, List, NamedTuple, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, common, moe
+from repro_torch.models import attention, common, moe, rwkv
 from repro_torch.models.params import ParamDesc, tree_map_descs
 from repro_torch.utils.convert import torch_dtype
 from repro_torch.utils.tree import tree_map
@@ -72,6 +75,10 @@ def _not_ported(what: str, ref: str):
 
 def block_descs(cfg: ModelConfig, kind: Tuple[str, str]):
     mixer, mlp = kind
+    if mixer == "rwkv":                 # rwkv has its own channel mix
+        return {"norm1": common.norm_descs(cfg),
+                "norm2": common.norm_descs(cfg),
+                "rwkv": rwkv.rwkv_descs(cfg)}
     if mixer != "attn" or cfg.mla is not None:
         raise _not_ported(f"mixer {mixer!r}", "repro.models.lm._mixer_descs")
     out = {"norm1": common.norm_descs(cfg),
@@ -105,16 +112,21 @@ def model_descs(cfg: ModelConfig) -> Dict[str, Any]:
     return out
 
 
+def _block_cache_desc(cfg: ModelConfig, mixer: str, batch: int,
+                      t_max: int):
+    if mixer == "rwkv":
+        return rwkv.rwkv_cache_desc(cfg, batch)
+    if mixer != "attn" or cfg.mla is not None:
+        raise _not_ported(f"{mixer!r} cache",
+                          "repro.models.lm._block_cache_desc")
+    return attention.gqa_cache_desc(cfg, batch, t_max)
+
+
 def cache_descs(cfg: ModelConfig, batch: int, t_max: int):
-    for g in layer_groups(cfg):
-        for mixer, _ in g.kinds:
-            if mixer != "attn" or cfg.mla is not None:
-                raise _not_ported(f"{mixer!r} cache",
-                                  "repro.models.lm._block_cache_desc")
     return [
-        {"blocks": [_stack(attention.gqa_cache_desc(cfg, batch, t_max),
+        {"blocks": [_stack(_block_cache_desc(cfg, mixer, batch, t_max),
                            g.n_repeats)
-                    for _ in g.kinds]}
+                    for mixer, _ in g.kinds]}
         for g in layer_groups(cfg)]
 
 
@@ -130,7 +142,11 @@ def block_forward(cfg: ModelConfig, p, x, positions, *, cache=None,
     ``aux`` is the MoE load-balance loss (0 for a dense block).  A decode
     routes each sequence's token through the MoE on its own, as the
     reference's serving decode (a per-slot ``vmap``) does; a forward or
-    prefill of B sequences shares one routing, as the reference's does."""
+    prefill of B sequences shares one routing, as the reference's does.
+    An rwkv block (time mix, channel mix) overwrites its cache whole:
+    the state in place inside the WKV, then last_tm / last_cm."""
+    if "rwkv" in p:
+        return _rwkv_block(cfg, p, x, cache)
     h = common.apply_norm(cfg, p["norm1"], x)
     if decode:
         y, cache = attention.gqa_decode(cfg, p["attn"], h, cache, pos)
@@ -149,6 +165,18 @@ def block_forward(cfg: ModelConfig, p, x, positions, *, cache=None,
     else:
         y2, aux = common.apply_mlp(cfg, p["mlp"], h2), 0.0
     return x + y2, cache, aux
+
+
+def _rwkv_block(cfg: ModelConfig, p, x, cache):
+    h = common.apply_norm(cfg, p["norm1"], x)
+    y, (last_tm, _) = rwkv.rwkv_time_mix(cfg, p["rwkv"], h, cache)
+    x = x + y
+    h2 = common.apply_norm(cfg, p["norm2"], x)
+    y2, last_cm = rwkv.rwkv_channel_mix(cfg, p["rwkv"], h2, cache)
+    if cache is not None:
+        cache.last_tm.copy_(last_tm)
+        cache.last_cm.copy_(last_cm)
+    return x + y2, cache, 0.0
 
 
 def _run_groups(cfg: ModelConfig, params, x, positions, *, caches=None,

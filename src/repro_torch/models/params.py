@@ -27,7 +27,7 @@ class ParamDesc:
     shape: Tuple[int, ...]
     logical: Tuple[Optional[str], ...]   # logical axis name per dim
     dtype: Optional[str] = None          # None -> model param_dtype
-    init: str = "normal"                 # normal | zeros | ones | uniform_small
+    init: str = "normal"   # normal | zeros | ones | uniform_small | decay_bias
     init_scale: float = 0.02
 
     def __post_init__(self):

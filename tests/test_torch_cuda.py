@@ -20,7 +20,15 @@ machine with the card, where there is no JAX:
   bit-identical wherever the row sits, the dispatcher's refusals, and an
   olmoe-1b-7b smoke serving run that launches it 3 times per MoE block
   per forward (6 = 3 x 2 blocks, prefills and decode ticks alike) while
-  the flash kernel runs once per layer per prefill.
+  the flash kernel runs once per layer per prefill;
+* the WKV-6 kernel against the fp32 step-by-step oracle on the same
+  bf16-valued inputs, on the reference's sweep shapes, the rwkv6-7b
+  path's two shapes (prefill (1, 512, 64, 64), decode (4, 1, 64, 64)) and
+  ragged T (y and S within 1e-3 x max|oracle|: fp32 sums in another
+  order), the state written in place over S0 with the same bits, a
+  (b, h) row bit-identical whatever B is and whatever the other rows
+  hold, the dispatcher's refusals, and an rwkv6-7b smoke serving run that
+  launches it once per layer per prefill and per decode tick.
 """
 import numpy as np
 import pytest
@@ -29,6 +37,8 @@ import torch
 from repro_torch.kernels.attention import ops
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.kernels.moe_gmm.ref import grouped_matmul_ref
+from repro_torch.kernels.rwkv6 import ops as wkv_ops
+from repro_torch.kernels.rwkv6.ref import wkv6_ref
 
 CASES = [
     # B, H, K, Sq, Sk, hd, hd_v, causal
@@ -193,4 +203,108 @@ def test_olmoe_serving_runs_both_kernels(cuda):
     assert ops.LAUNCHES - flash0 == cfg.n_layers * res.prefills
     assert gmm_ops.LAUNCHES - gmm0 == \
         3 * cfg.n_layers * (res.prefills + len(decodes))
+    assert all(len(res.outputs[r.rid]) == r.max_new_tokens for r in trace)
+
+
+WKV_CASES = [  # B, T, H, n
+    (2, 128, 2, 32), (1, 96, 4, 64), (2, 100, 2, 16), (1, 33, 1, 64),
+    (1, 512, 64, 64),       # the rwkv6-7b prefill
+    (4, 1, 64, 64),         # the rwkv6-7b decode tick
+    (3, 17, 3, 32),         # ragged: one full chunk of 16 steps and one step
+]
+
+
+def _wkv_inputs(case, device, seed):
+    """r, k, v bf16; logw, u, S0 fp32 — the kernel's types."""
+    B, T, H, n = case
+    g = np.random.default_rng(seed)
+    r = g.standard_normal((B, T, H, n), np.float32)
+    k = g.standard_normal((B, T, H, n), np.float32) * 0.5
+    v = g.standard_normal((B, T, H, n), np.float32)
+    logw = -np.exp(g.standard_normal((B, T, H, n), np.float32) * 0.5)
+    u = g.standard_normal((H, n), np.float32) * 0.3
+    S0 = g.standard_normal((B, H, n, n), np.float32) * 0.1
+    bf = [torch.from_numpy(a).to(device, torch.bfloat16) for a in (r, k, v)]
+    return bf + [torch.from_numpy(a).to(device) for a in (logw, u, S0)]
+
+
+@pytest.mark.parametrize("case", WKV_CASES, ids=lambda c: "B%dT%dH%dn%d" % c)
+def test_wkv6_kernel_matches_the_oracle(case, cuda):
+    r, k, v, logw, u, S0 = _wkv_inputs(case, cuda, seed=9)
+    before = wkv_ops.LAUNCHES
+    y, S = wkv_ops.wkv6(r, k, v, logw, u, S0)
+    torch.cuda.synchronize()
+    assert wkv_ops.LAUNCHES == before + 1
+    assert y.shape == r.shape and y.dtype == torch.float32
+    y_ref, S_ref = wkv6_ref(r, k, v, logw, u, S0)
+    for got, want in ((y, y_ref), (S, S_ref)):
+        assert bool(torch.isfinite(got).all())
+        err = float((got - want).abs().max())
+        assert err <= 1e-3 * float(want.abs().max())
+
+
+def test_wkv6_kernel_writes_the_state_in_place(cuda):
+    r, k, v, logw, u, S0 = _wkv_inputs((2, 40, 3, 64), cuda, seed=10)
+    y, S = wkv_ops.wkv6(r, k, v, logw, u, S0)
+    state = S0.clone()
+    y2, S2 = wkv_ops.wkv6(r, k, v, logw, u, state, state_out=state)
+    assert S2 is state
+    assert torch.equal(S2, S) and torch.equal(y2, y)
+
+
+def test_wkv6_row_bits_do_not_depend_on_the_batch(cuda):
+    r, k, v, logw, u, S0 = _wkv_inputs((4, 37, 4, 64), cuda, seed=11)
+    y, S = wkv_ops.wkv6(r, k, v, logw, u, S0)
+    one = wkv_ops.wkv6(*(t[2:3].contiguous() for t in (r, k, v, logw)), u,
+                       S0[2:3].contiguous())
+    assert torch.equal(one[0], y[2:3]) and torch.equal(one[1], S[2:3])
+    # row 2 again, the other rows holding other data
+    o = _wkv_inputs((4, 37, 4, 64), cuda, seed=12)
+    mixed = [torch.cat([b[:2], a[2:3], b[3:]]) for a, b in
+             zip((r, k, v, logw), o[:4])]
+    y3, S3 = wkv_ops.wkv6(*mixed, u, torch.cat([o[5][:2], S0[2:3],
+                                                o[5][3:]]))
+    assert torch.equal(y3[2], y[2]) and torch.equal(S3[2], S[2])
+
+
+@pytest.mark.parametrize("bad", ["r_float32", "logw_bf16", "strided",
+                                 "n48", "s0_on_cpu", "overlap"])
+def test_wkv6_dispatcher_raises_on_what_the_kernel_does_not_take(bad, cuda):
+    r, k, v, logw, u, S0 = _wkv_inputs((2, 8, 2, 32), cuda, seed=13)
+    state_out, err = None, ValueError
+    if bad == "r_float32":
+        r, err = r.float(), TypeError
+    elif bad == "logw_bf16":
+        logw, err = logw.to(torch.bfloat16), TypeError
+    elif bad == "strided":
+        k = k.transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "n48":
+        r, k, v, logw, u, S0 = _wkv_inputs((2, 8, 2, 48), cuda, seed=13)
+    elif bad == "s0_on_cpu":
+        S0 = S0.cpu()
+    else:                                  # state_out overlaps S0
+        big = torch.zeros(S0.numel() + 8, device=cuda)
+        S0, state_out = (big[:S0.numel()].view(S0.shape),
+                         big[8:].view(S0.shape))
+    before = wkv_ops.LAUNCHES
+    with pytest.raises(err):
+        wkv_ops.wkv6(r, k, v, logw, u, S0, state_out=state_out)
+    assert wkv_ops.LAUNCHES == before
+
+
+def test_rwkv_serving_runs_the_wkv_kernel(cuda):
+    from repro_torch.serve.engine import build_serve_engine
+    from repro_torch.serve.trace import synthetic_trace, trace_t_max
+    trace = synthetic_trace(5, prompt_lens=(20,), new_tokens=(2, 5))
+    engine, cfg = build_serve_engine("rwkv6-7b", smoke=True, n_slots=2,
+                                     t_max=trace_t_max(trace), device=cuda)
+    decodes = []
+    step = engine._slot_decode
+    engine._slot_decode = lambda *a: decodes.append(1) or step(*a)
+    flash0, wkv0 = ops.LAUNCHES, wkv_ops.LAUNCHES
+    res = engine.run(trace)
+    assert res.prefills == len(trace) and decodes
+    assert ops.LAUNCHES == flash0                  # attention-free
+    assert wkv_ops.LAUNCHES - wkv0 == \
+        cfg.n_layers * (res.prefills + len(decodes))
     assert all(len(res.outputs[r.rid]) == r.max_new_tokens for r in trace)

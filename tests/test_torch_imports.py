@@ -28,8 +28,18 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
              or m == "repro" or m.startswith("repro."))
 print("N=%d" % len(names))
+print("NAMES=" + ",".join(names))
 print("BAD=" + ",".join(bad))
 """
+
+#: modules each slice added, which the walk must have imported
+SLICE_MODULES = [
+    "repro_torch.kernels.attention.kernel", "repro_torch.models.attention",
+    "repro_torch.kernels.moe_gmm.kernel", "repro_torch.models.moe",
+    "repro_torch.configs.rwkv6_7b", "repro_torch.kernels.rwkv6.kernel",
+    "repro_torch.kernels.rwkv6.ops", "repro_torch.kernels.rwkv6.ref",
+    "repro_torch.models.rwkv",
+]
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+jaxlib\b|from\s+jaxlib\b"
@@ -43,8 +53,9 @@ def test_importing_every_submodule_loads_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     lines = dict(l.split("=", 1) for l in out.stdout.splitlines()
-                 if l.startswith(("N=", "BAD=")))
+                 if l.startswith(("N=", "NAMES=", "BAD=")))
     assert int(lines["N"]) >= 30              # every module was imported
+    assert set(SLICE_MODULES) <= set(lines["NAMES"].split(","))
     assert lines["BAD"] == "", f"port loaded {lines['BAD']}"
 
 
