@@ -4,25 +4,29 @@
     python3 chip_smoke.py [--json PATH]
 
 Drives the port's serving path at the full width of olmo-1b, of
-olmoe-1b-7b and of rwkv6-7b and prints one line per phase:
+olmoe-1b-7b, of rwkv6-7b and of jamba-1.5-large-398b (depth cut to 5
+layers) and prints one line per phase:
 
 1. environment — the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions;
-2. build — compiles the three kernels of the paths from
+2. build — compiles the four kernels of the paths from
    ``src/repro_torch/csrc`` (one ``nvcc`` each, started together) and
    shows ptxas's register / shared-memory report;
 3. kernels — each kernel against its plain PyTorch version on the card,
    bf16, with kernel / plain / library times (CUDA events, after warm-up)
    and the least time the card could take (bytes at 3.35 TB/s vs
    operations at 989 TFLOP/s):
-   * flash attention at the path's shape (1, 16, 512, 128) causal and at
+   * flash attention at the path's shape (1, 16, 512, 128) causal, at
+     jamba-1.5-large's (1, 64 heads over 8 kv heads, 512, 128) and at
      ragged, GQA, hd_v != hd and non-causal shapes: max abs error against
      the fp32 plain version (limit 2e-2: bf16 output rounding, one ulp
      near 1 is 7.8e-3); library: SDPA;
    * the grouped matmul at the olmoe path's four shapes (prefill up/gate
      (64, 80, 2048) @ (64, 2048, 1024) and down, decode up/gate (64, 32,
-     2048) @ (64, 2048, 1024) and down) and at ragged shapes (C 37 and C 1
-     with D 200, F 72; D 1000, not a multiple of 64): elementwise
+     2048) @ (64, 2048, 1024) and down), at the jamba-1.5-large path's
+     four ((16, 80 | 32, 8192) @ (16, 8192, 24576) and down) and at ragged
+     shapes (C 37 and C 1 with D 200, F 72; D 1000, not a multiple of 64):
+     elementwise
      |kernel - plain_fp32| <= 1e-2 * max|plain_fp32| (one rounding to
      bf16 is half an ulp, 3.9e-3 relative); library: ``torch.bmm``;
    * the WKV-6 recurrence at the rwkv6-7b path's two shapes (prefill
@@ -36,6 +40,15 @@ olmoe-1b-7b and of rwkv6-7b and prints one line per phase:
      the chunked closed form at Q = 16 (its products at the 495 TFLOP/s
      TF32 tensor-core peak, its decays at 67 TFLOP/s); library: none, no
      one PyTorch call computes WKV-6;
+   * the selective scan at the jamba-1.5-large path's two shapes (prefill
+     chunk (1, 256, 16384, 16), decode (4, 1, 16384, 16)), at ragged S (37,
+     100) and I (1000), at N 4, 8 and 6 (not a multiple of 4) and at the
+     reference's sweep shapes: y and h against the fp32 plain step
+     recurrence on the same fp32 inputs, elementwise within 1e-4 x
+     max|plain| (only the order of the sums differs); bound: the larger of
+     the bytes (dA, dBu, C, h0 read once, y and h written once, fp32) at
+     3.35 TB/s and 4 fp32 operations per (t, i, n) at 67 TFLOP/s; library:
+     none, no one PyTorch call computes a selective scan;
 4. olmo-1b path — ``build_serve_engine("olmo-1b", smoke=False)`` with
    random weights from a torch.Generator seeded 0: 4 slots, 16 requests
    of 512 prompt tokens and budgets 4,8,16,32,48, a pool in a temp dir
@@ -63,7 +76,21 @@ olmoe-1b-7b and of rwkv6-7b and prints one line per phase:
    grouped matmul never; the schedule must equal olmo-1b's, and the D2H
    bytes must be olmo-1b's count of lane copies times the rwkv lane's
    34,078,720 bytes (the state S, 32 x 64 x 64 x 64 fp32, and the two
-   token-shift rows).
+   token-shift rows);
+7. jamba-1.5-large-398b path — the same trace, schedule, profile and
+   crash-resume at full width (d_model 8192, 64 heads over 8 kv heads,
+   Mamba inner 16384 with d_state 16, 16 experts top-2 with d_ff 24576,
+   vocab 65536, bf16) with the depth cut from 72 layers to 5, the most
+   that one 80 GB card holds (24,045,707,264 parameters, 48.1 GB), after
+   the rwkv6-7b engine is freed.  Layers 0-4 hold every block kind jamba
+   has: mamba + dense MLP, mamba + MoE, attention + dense MLP.  The scan
+   must run once per mamba layer per prefill chunk of ``ssm_chunk`` (256)
+   tokens and per decode tick (4 x (2 x 16 + 97) = 516), the flash kernel
+   once per prefill (16), the grouped matmul 3 times per MoE layer per
+   prefill and per decode tick (678); the schedule must equal olmo-1b's,
+   the D2H bytes olmo-1b's count of lane copies times the jamba lane's
+   6,881,280 bytes, and the pool must take olmo-1b's token blocks plus one
+   state object per lane copy.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.  Then a ``{"kernels": [...]}`` line, the card line again,
@@ -93,6 +120,7 @@ BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
 TF32_FLOPS = 495e12                # dense TF32 tensor-core peak
 FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
 WKV_REL_TOL = 1e-3
+SCAN_REL_TOL = 1e-4
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/attention/kernel.py:89"),
@@ -100,11 +128,22 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                        "src/repro/kernels/moe_gmm/kernel.py:45"),
     "wkv6": ("src/repro_torch/csrc/wkv6.cu",
              "src/repro/kernels/rwkv6/kernel.py:91"),
+    "selective_scan": ("src/repro_torch/csrc/selective_scan.cu",
+                       "src/repro/kernels/mamba/kernel.py:70"),
 }
-ARCHS = ("olmo-1b", "olmoe-1b-7b", "rwkv6-7b")
+ARCHS = ("olmo-1b", "olmoe-1b-7b", "rwkv6-7b", "jamba-1.5-large-398b")
+#: the depth each path runs at (the rest of each config as published):
+#: jamba-1.5-large-398b is 797 GB in bf16 at its 72 layers; 5 hold 48.1 GB
+DEPTH = {"jamba-1.5-large-398b": 5}
 PATH_KW = dict(n_slots=4, commit_every=4)
 OLMO_D2H_BYTES = 5_431_623_680     # olmo-1b's 25 commits of this trace
 RWKV_LANE_BYTES = 34_078_720       # one rwkv6-7b slot's cache
+JAMBA_LANE_BYTES = 6_881_280       # one jamba-1.5-large (5 layers) slot's
+#: jamba-1.5-large at 5 layers: ``ModelConfig.param_count`` (the analytic
+#: count, equal to the reference's) and the descriptors the bundle holds,
+#: which add the 221,184 norm scales and conv / dt biases it leaves out
+JAMBA_PARAM_COUNT = 24_045_486_080
+JAMBA_PARAMS = 24_045_707_264
 
 
 class CheckFailed(Exception):
@@ -192,6 +231,7 @@ def phase_kernel(torch, ops):
     cases = [  # (name, B, H, K, Sq, Sk, hd, hd_v, causal)
         ("path_s128", 1, 16, 16, 128, 128, 128, 128, True),
         ("path_s512", 1, 16, 16, 512, 512, 128, 128, True),
+        ("jamba_h64_k8", 1, 64, 8, 512, 512, 128, 128, True),
         ("ragged_s1000", 1, 16, 16, 1000, 1000, 128, 128, True),
         ("gqa_h32_k8", 1, 32, 8, 512, 512, 128, 128, True),
         ("hdv64_hd128", 1, 16, 16, 384, 384, 128, 64, True),
@@ -299,7 +339,7 @@ def gmm_bound_ms(E, C, D, F) -> tuple:
 
 def phase_gmm(torch, gmm_ops):
     """Phase 3: the grouped-matmul kernel against its plain version on the
-    card, timed at the olmoe path's four shapes."""
+    card, timed at the olmoe and the jamba-1.5-large paths' four shapes."""
     from repro_torch.kernels.moe_gmm import kernel
     from repro_torch.kernels.moe_gmm.ref import grouped_matmul_ref
     cases = [  # (name, E, C, D, F, timed)
@@ -307,6 +347,10 @@ def phase_gmm(torch, gmm_ops):
         ("prefill_down", 64, 80, 1024, 2048, True),
         ("decode_up", 64, 32, 2048, 1024, True),
         ("decode_down", 64, 32, 1024, 2048, True),
+        ("jamba_prefill_up", 16, 80, 8192, 24576, True),
+        ("jamba_prefill_down", 16, 80, 24576, 8192, True),
+        ("jamba_decode_up", 16, 32, 8192, 24576, True),
+        ("jamba_decode_down", 16, 32, 24576, 8192, True),
         ("ragged_c37", 3, 37, 200, 72, False),
         ("ragged_c1", 3, 1, 200, 72, False),
         ("d1000", 8, 48, 1000, 256, False),
@@ -316,8 +360,8 @@ def phase_gmm(torch, gmm_ops):
     for name, E, C, D, F, timed in cases:
         x = torch.randn((E, C, D), generator=gen, device="cuda"
                         ).to(torch.bfloat16)
-        w = (torch.randn((E, D, F), generator=gen, device="cuda")
-             * 0.02).to(torch.bfloat16)
+        w = torch.randn((E, D, F), generator=gen, device="cuda"
+                        ).mul_(0.02).to(torch.bfloat16)
         out = gmm_ops.grouped_matmul(x, w)
         torch.cuda.synchronize()
         ref = grouped_matmul_ref(x.float(), w.float())
@@ -332,7 +376,10 @@ def phase_gmm(torch, gmm_ops):
             kernel_ms = device_ms(lambda: kernel.grouped_matmul_fwd(x, w,
                                                                     out))
             kernel_call_ms = call_ms(lambda: gmm_ops.grouped_matmul(x, w))
-            plain_ms = device_ms(lambda: grouped_matmul_ref(x, w), reps=5)
+            # the plain version makes an fp32 copy of w (12.9 GB at
+            # jamba's widths): one call a graph there
+            plain_ms = device_ms(lambda: grouped_matmul_ref(x, w),
+                                 reps=5 if E * D * F < 1e9 else 1)
             library_ms = device_ms(lambda: torch.bmm(x, w))
             bound_ms, bound_by = gmm_bound_ms(E, C, D, F)
             row.update(kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms,
@@ -428,6 +475,86 @@ def phase_wkv(torch, wkv_ops):
     return rows
 
 
+def scan_bound_ms(B, S, I, N) -> tuple:
+    """Least time for the work: dA, dBu, C and h0 read once, y and h
+    written once (fp32), vs 4 fp32 operations per (t, i, n) (the state's
+    multiply and add, the readout's)."""
+    nbytes = 4 * (2 * B * S * I * N + B * S * N + 2 * B * I * N + B * S * I)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * B * S * I * N / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def phase_scan(torch, scan_ops):
+    """Phase 3: the selective-scan kernel against its plain version on the
+    card, timed at the jamba-1.5-large path's two shapes.  At decode the
+    inputs (17 MB) stay in the 50 MB L2 between calls, as the path's
+    freshly computed dA / dBu do; at prefill they (556 MB) cannot."""
+    from repro_torch.kernels.mamba import kernel
+    from repro_torch.kernels.mamba.ref import selective_scan_ref
+    cases = [  # (name, B, S, I, N, timed)
+        ("prefill", 1, 256, 16384, 16, True),
+        ("decode", 4, 1, 16384, 16, True),
+        ("ragged_s37", 2, 37, 4096, 16, False),
+        ("ragged_s100", 1, 100, 2048, 16, False),
+        ("ragged_i1000", 2, 64, 1000, 16, False),
+        ("n4", 1, 64, 1024, 4, False),
+        ("n8", 1, 64, 1024, 8, False),
+        ("n6", 1, 20, 70, 6, False),
+        ("sweep_b2s128", 2, 128, 128, 16, False),
+        ("sweep_n8", 1, 100, 256, 8, False),
+        ("sweep_b2s64", 2, 64, 128, 16, False),
+        ("sweep_n4", 1, 37, 128, 4, False),
+    ]
+    gen = torch.Generator("cuda").manual_seed(8765)
+    rows = {}
+    for name, B, S, I, N, timed in cases:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        dA = torch.sigmoid(randn(B, S, I, N))
+        dBu, C, h0 = randn(B, S, I, N) * 0.3, randn(B, S, N), \
+            randn(B, I, N) * 0.1
+        y, h = scan_ops.selective_scan(dA, dBu, C, h0)
+        torch.cuda.synchronize()
+        y_ref, h_ref = selective_scan_ref(dA, dBu, C, h0)
+        errs = {}
+        for what, got, want in (("y", y, y_ref), ("h", h, h_ref)):
+            err = float((got - want).abs().max())
+            limit = SCAN_REL_TOL * float(want.abs().max())
+            check(bool(torch.isfinite(got).all()),
+                  f"scan {name}: non-finite {what}")
+            check(err <= limit, f"scan {name}: {what} max abs err {err} > "
+                                f"{limit}")
+            errs[what] = (err, limit)
+        row = dict(shape=[B, S, I, N], max_abs_err=max(errs["y"][0],
+                                                       errs["h"][0]),
+                   errs={w: list(e) for w, e in errs.items()})
+        msg = (f"kernel selective_scan {name}: B={B} S={S} I={I} N={N} y "
+               f"max_abs_err={errs['y'][0]:.3e} (limit {errs['y'][1]:.3e}) "
+               f"h max_abs_err={errs['h'][0]:.3e} (limit "
+               f"{errs['h'][1]:.3e})")
+        if timed:
+            yb, hb = torch.empty_like(y), torch.empty_like(h)
+            kernel_ms = device_ms(lambda: kernel.selective_scan_fwd(
+                dA, dBu, C, h0, yb, hb))
+            kernel_call_ms = call_ms(lambda: scan_ops.selective_scan(
+                dA, dBu, C, h0))
+            plain_ms = device_ms(lambda: selective_scan_ref(dA, dBu, C, h0),
+                                 reps=2, replays=5)
+            bound_ms, bound_by = scan_bound_ms(B, S, I, N)
+            row.update(kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms,
+                       plain_ms=plain_ms, library_ms=None,
+                       bound_ms=bound_ms, bound_by=bound_by)
+            msg += (f" kernel_ms={kernel_ms:.5f} (per eager call "
+                    f"{kernel_call_ms:.5f}) plain_ms={plain_ms:.5f} "
+                    f"library_ms=none bound_ms={bound_ms:.5f} ({bound_by})")
+        rows[name] = row
+        print(msg, flush=True)
+        del dA, dBu, C, h0, y, h, y_ref, h_ref
+    return rows
+
+
 def phase_profile(torch, engine, trace, ticks: int = 8) -> dict:
     """Where a serving window's device time goes: ``torch.profiler`` over
     ``ticks`` ticks of the path after the first admissions (prefills,
@@ -449,7 +576,7 @@ def phase_profile(torch, engine, trace, ticks: int = 8) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
     ours = {"flash_fwd_kernel": [], "gmm_bf16_kernel": [],
-            "wkv6_fwd_kernel": []}
+            "wkv6_fwd_kernel": [], "selective_scan_kernel": []}
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
             by_name[ev.name] = (by_name.get(ev.name, 0.0)
@@ -476,28 +603,36 @@ def phase_profile(torch, engine, trace, ticks: int = 8) -> dict:
                 top=[[n, ms] for n, ms in top])
 
 
-def phase_path(torch, arch, trace, t_max, counters) -> dict:
-    """Phases 4 to 6: one architecture's serving path at full width,
-    then its profile window, then crash and resume.  ``counters`` maps a
-    kernel name to its dispatcher module (``LAUNCHES``); every count is
-    set to 0 just before the path runs and read just after."""
-    from repro_torch.configs import get_config
+def phase_path(torch, cfg, trace, t_max, counters) -> dict:
+    """Phases 4 to 7: one architecture's serving path at full width (at
+    the depth ``cfg`` has), then its profile window, then crash and
+    resume.  The model is built from ``cfg`` and its weights drawn from a
+    torch.Generator seeded 0, then handed to ``build_serve_engine``.
+    ``counters`` maps a kernel name to its dispatcher module
+    (``LAUNCHES``); every count is set to 0 just before the path runs and
+    read just after."""
+    from repro_torch.models.registry import build
     from repro_torch.serve.engine import build_serve_engine
     from repro_torch.utils.tree import tree_leaves
-    cfg = get_config(arch)
+    arch = cfg.arch_id
     kinds = [cfg.layer_kind(l) for l in range(cfg.n_layers)]
     n_attn, n_rwkv = kinds.count("attn"), kinds.count("rwkv")
+    n_mamba = kinds.count("mamba")
     n_moe = sum(cfg.mlp_kind(l) == "moe" for l in range(cfg.n_layers)
                 if kinds[l] != "rwkv")
+    prompt = {len(r.prompt) for r in trace}
+    check(len(prompt) == 1, f"trace prompts of lengths {prompt}")
+    chunks = -(-prompt.pop() // cfg.ssm_chunk)   # scan launches a prefill
     pools = [tempfile.mkdtemp(prefix="chip_smoke_pool_") for _ in range(3)]
     try:
         t0 = time.perf_counter()
+        bundle = build(cfg, device="cuda")
+        params = bundle.init_params(torch.Generator("cuda").manual_seed(0))
         engine, _ = build_serve_engine(
-            arch, smoke=False, t_max=t_max, pool_path=pools[0], seed=0,
-            device="cuda", **PATH_KW)
+            arch, smoke=False, t_max=t_max, pool_path=pools[0],
+            bundle=bundle, params=params, device="cuda", **PATH_KW)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        bundle, params = engine.bundle, engine.params
         # the full-width prefill gives finite logits of the vocab's width
         logits, _ = bundle.prefill(
             params, {"tokens": torch.tensor([trace[0].prompt],
@@ -546,9 +681,16 @@ def phase_path(torch, arch, trace, t_max, counters) -> dict:
               f"{arch}: wkv6 launches {launches['wkv6']} != {n_rwkv} rwkv "
               f"layers x ({res.prefills} prefills + {res.decode_ticks} "
               f"decode ticks)")
+        want_scan = n_mamba * (chunks * res.prefills + res.decode_ticks)
+        check(launches["selective_scan"] == want_scan,
+              f"{arch}: selective_scan launches "
+              f"{launches['selective_scan']} != {n_mamba} mamba layers x "
+              f"({chunks} chunks x {res.prefills} prefills + "
+              f"{res.decode_ticks} decode ticks)")
         lane_bytes = sum(s.nbytes for s in tree_leaves(
             bundle.abstract_caches(1, t_max)))
-        path = dict(arch=arch, n_params=bundle.n_params(), init_s=init_s,
+        path = dict(arch=arch, n_params=bundle.n_params(),
+                    param_count=cfg.param_count(), init_s=init_s,
                     emitted_tokens=res.emitted_tokens, wall_s=dt,
                     tokens_per_s=res.emitted_tokens / dt,
                     decode_ticks=res.decode_ticks, prefills=res.prefills,
@@ -562,6 +704,10 @@ def phase_path(torch, arch, trace, t_max, counters) -> dict:
                  f"d_ff_e={cfg.moe.d_ff_expert}" if n_moe else "")
               + (f" rwkv n={cfg.rwkv.head_dim} d_ff={cfg.d_ff}"
                  if n_rwkv else "")
+              + (f" K={cfg.n_kv_heads} mamba inner="
+                 f"{cfg.mamba.expand * cfg.d_model} N={cfg.mamba.d_state} "
+                 f"{n_mamba} mamba / {n_attn} attention layers"
+                 if n_mamba else "")
               + f", {bundle.n_params()} params, init {init_s:.1f}s) "
               f"4 slots 16 requests prompt 512: {res.emitted_tokens} tokens "
               f"in {dt:.3f}s = {res.emitted_tokens / dt:.1f} tok/s, "
@@ -643,11 +789,12 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels.attention import ops
+    from repro_torch.kernels.mamba import ops as scan_ops
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
     from repro_torch.kernels.rwkv6 import ops as wkv_ops
     from repro_torch.serve.trace import synthetic_trace, trace_t_max
     counters = {"flash_attention": ops, "grouped_matmul": gmm_ops,
-                "wkv6": wkv_ops}
+                "wkv6": wkv_ops, "selective_scan": scan_ops}
 
     report = {}
     # -- 1. environment ------------------------------------------------------
@@ -677,8 +824,9 @@ def main(argv=None) -> int:
     report["kernel_cases"] = phase_kernel(torch, ops)
     report["gmm_cases"] = phase_gmm(torch, gmm_ops)
     report["wkv_cases"] = phase_wkv(torch, wkv_ops)
+    report["scan_cases"] = phase_scan(torch, scan_ops)
 
-    # -- 4. to 6. the three serving paths -----------------------------------
+    # -- 4. to 7. the four serving paths ------------------------------------
     trace = synthetic_trace(16, seed=0, prompt_lens=(512,),
                             new_tokens=(4, 8, 16, 32, 48),
                             vocab_size=get_config("olmo-1b").vocab_size)
@@ -688,9 +836,12 @@ def main(argv=None) -> int:
         gc.collect()          # the previous path's engines hold cycles
         torch.cuda.empty_cache()            # ... and its weights
         torch.cuda.reset_peak_memory_stats()
-        paths[arch] = phase_path(torch, arch, trace, t_max, counters)
+        cfg = get_config(arch)
+        if arch in DEPTH:
+            cfg = cfg.with_(n_layers=DEPTH[arch])
+        paths[arch] = phase_path(torch, cfg, trace, t_max, counters)
     report["paths"] = paths
-    olmo, olmoe, rw = (paths[a] for a in ARCHS)
+    olmo, olmoe, rw, jamba = (paths[a] for a in ARCHS)
     check(olmo["launches"]["grouped_matmul"] == 0,
           "olmo-1b (dense) launched the grouped matmul")
     check(olmoe["launches"]["grouped_matmul"] > 0,
@@ -708,6 +859,24 @@ def main(argv=None) -> int:
           and rw["d2h_bytes"] == lane_copies * RWKV_LANE_BYTES,
           f"rwkv6-7b D2H {rw['d2h_bytes']} bytes, lane {rw['lane_bytes']}: "
           f"expected {lane_copies} lane copies x {RWKV_LANE_BYTES}")
+    check((jamba["param_count"], jamba["n_params"])
+          == (JAMBA_PARAM_COUNT, JAMBA_PARAMS),
+          f"jamba-1.5-large at 5 layers counts {jamba['param_count']} params "
+          f"and holds {jamba['n_params']}, expected {JAMBA_PARAM_COUNT} and "
+          f"{JAMBA_PARAMS}")
+    for key in ("decode_ticks", "prefills", "commits"):
+        check(jamba[key] == olmo[key],
+              f"jamba {key} {jamba[key]} != olmo-1b's {olmo[key]}")
+    check(jamba["lane_bytes"] == JAMBA_LANE_BYTES
+          and jamba["d2h_bytes"] == lane_copies * JAMBA_LANE_BYTES,
+          f"jamba D2H {jamba['d2h_bytes']} bytes, lane "
+          f"{jamba['lane_bytes']}: expected {lane_copies} lane copies x "
+          f"{JAMBA_LANE_BYTES}")
+    check(jamba["flushed"] == {"blocks": olmo["flushed"]["blocks"],
+                               "states": lane_copies},
+          f"jamba flushed {jamba['flushed']}: expected olmo-1b's "
+          f"{olmo['flushed']['blocks']} token blocks and {lane_copies} "
+          f"state objects")
     check((olmo["decode_ticks"], olmo["prefills"], olmo["commits"],
            olmo["d2h_bytes"]) == (97, 16, 25, OLMO_D2H_BYTES),
           f"schedule {olmo['decode_ticks']} ticks, {olmo['prefills']} "
@@ -716,7 +885,8 @@ def main(argv=None) -> int:
 
     mains = {"flash_attention": report["kernel_cases"]["path_s512"],
              "grouped_matmul": report["gmm_cases"]["decode_up"],
-             "wkv6": report["wkv_cases"]["prefill"]}
+             "wkv6": report["wkv_cases"]["prefill"],
+             "selective_scan": report["scan_cases"]["prefill"]}
     kernels = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
         row = mains[name]

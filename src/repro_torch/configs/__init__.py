@@ -17,6 +17,7 @@ _ARCH_MODULES: Dict[str, str] = {
     "olmo-1b": "repro_torch.configs.olmo_1b",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
+    "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large_398b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

@@ -18,7 +18,11 @@ mixer in every block (``models.moe``; its aux loss is returned by
 rwkv6-7b is one group of 32 rwkv blocks (``models.rwkv``: time mix, then
 its own channel mix, no ``mlp``), whose cache is ``RWKVCache(last_tm,
 last_cm, S)`` with no token axis: prefill and decode both overwrite it
-whole.  Mamba and MLA blocks come with their slices.
+whole.  jamba-1.5-large's mamba blocks (``models.mamba``: the selective
+scan, then a dense or MoE channel mixer, as an attention block has) carry
+``MambaCache(conv, ssm)``, also with no token axis, beside the attention
+blocks' ``KVCache``: prefill and decode overwrite it whole, in place.
+MLA blocks come with their slice.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ from typing import Any, Dict, List, NamedTuple, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, common, moe, rwkv
+from repro_torch.models import attention, common, mamba, moe, rwkv
 from repro_torch.models.params import ParamDesc, tree_map_descs
 from repro_torch.utils.convert import torch_dtype
 from repro_torch.utils.tree import tree_map
@@ -79,11 +83,16 @@ def block_descs(cfg: ModelConfig, kind: Tuple[str, str]):
         return {"norm1": common.norm_descs(cfg),
                 "norm2": common.norm_descs(cfg),
                 "rwkv": rwkv.rwkv_descs(cfg)}
-    if mixer != "attn" or cfg.mla is not None:
+    if mixer == "mamba":
+        out = {"norm1": common.norm_descs(cfg),
+               "mamba": mamba.mamba_descs(cfg),
+               "norm2": common.norm_descs(cfg)}
+    elif mixer != "attn" or cfg.mla is not None:
         raise _not_ported(f"mixer {mixer!r}", "repro.models.lm._mixer_descs")
-    out = {"norm1": common.norm_descs(cfg),
-           "attn": attention.gqa_descs(cfg),
-           "norm2": common.norm_descs(cfg)}
+    else:
+        out = {"norm1": common.norm_descs(cfg),
+               "attn": attention.gqa_descs(cfg),
+               "norm2": common.norm_descs(cfg)}
     if mlp == "dense":
         out["mlp"] = common.mlp_descs(cfg)
     elif mlp == "moe":
@@ -116,6 +125,8 @@ def _block_cache_desc(cfg: ModelConfig, mixer: str, batch: int,
                       t_max: int):
     if mixer == "rwkv":
         return rwkv.rwkv_cache_desc(cfg, batch)
+    if mixer == "mamba":
+        return mamba.mamba_cache_desc(cfg, batch)
     if mixer != "attn" or cfg.mla is not None:
         raise _not_ported(f"{mixer!r} cache",
                           "repro.models.lm._block_cache_desc")
@@ -136,19 +147,25 @@ def cache_descs(cfg: ModelConfig, batch: int, t_max: int):
 
 def block_forward(cfg: ModelConfig, p, x, positions, *, cache=None,
                   pos=None, decode: bool = False):
-    """One transformer block (attention, then a dense or MoE channel
-    mixer).  Returns ``(x, cache, aux)``: a given cache is written in place
-    (prefill: the prompt at t = 0; decode: one token at ``pos``), and
-    ``aux`` is the MoE load-balance loss (0 for a dense block).  A decode
-    routes each sequence's token through the MoE on its own, as the
-    reference's serving decode (a per-slot ``vmap``) does; a forward or
-    prefill of B sequences shares one routing, as the reference's does.
-    An rwkv block (time mix, channel mix) overwrites its cache whole:
-    the state in place inside the WKV, then last_tm / last_cm."""
+    """One transformer block (attention or mamba, then a dense or MoE
+    channel mixer).  Returns ``(x, cache, aux)``: a given cache is written
+    in place (attention prefill: the prompt at t = 0; decode: one token at
+    ``pos``; mamba: the conv window and the state, whole), and ``aux`` is
+    the MoE load-balance loss (0 for a dense block).  A decode routes each
+    sequence's token through the MoE on its own, as the reference's serving
+    decode (a per-slot ``vmap``) does; a forward or prefill of B sequences
+    shares one routing, as the reference's does.  An rwkv block (time mix,
+    channel mix) overwrites its cache whole: the state in place inside the
+    WKV, then last_tm / last_cm."""
     if "rwkv" in p:
         return _rwkv_block(cfg, p, x, cache)
     h = common.apply_norm(cfg, p["norm1"], x)
-    if decode:
+    if "mamba" in p:
+        if decode:
+            y, cache = mamba.mamba_decode(cfg, p["mamba"], h, cache)
+        else:
+            y, _ = mamba.mamba_forward(cfg, p["mamba"], h, initial=cache)
+    elif decode:
         y, cache = attention.gqa_decode(cfg, p["attn"], h, cache, pos)
     else:
         q, k, v = attention.project_qkv(cfg, p["attn"], h, positions)

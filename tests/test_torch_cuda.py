@@ -28,13 +28,26 @@ machine with the card, where there is no JAX:
   order), the state written in place over S0 with the same bits, a
   (b, h) row bit-identical whatever B is and whatever the other rows
   hold, the dispatcher's refusals, and an rwkv6-7b smoke serving run that
-  launches it once per layer per prefill and per decode tick.
+  launches it once per layer per prefill and per decode tick;
+* the selective-scan kernel against the fp32 step recurrence on the
+  reference's sweep shapes (``SCAN_CASES``), the jamba-1.5-large path's
+  two shapes (prefill chunk (1, 256, 16384, 16), decode (4, 1, 16384, 16)),
+  ragged S and I and N in {4, 8, 16} and one not a multiple of 4 (y and h
+  within 1e-4 x max|plain|: the inputs are fp32, so only the order of the
+  sums differs), h written in place over h0 with the same bits, a (b, i)
+  row bit-identical whatever B and I are and whatever the other rows
+  hold, the dispatcher's refusals, and a jamba smoke serving run that
+  launches it once per mamba layer per prefill chunk and per decode tick,
+  the flash kernel once per attention layer per prefill and the grouped
+  matmul 3 times per MoE layer per forward.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.attention import ops
+from repro_torch.kernels.mamba import ops as scan_ops
+from repro_torch.kernels.mamba.ref import selective_scan_ref
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.kernels.moe_gmm.ref import grouped_matmul_ref
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
@@ -307,4 +320,125 @@ def test_rwkv_serving_runs_the_wkv_kernel(cuda):
     assert ops.LAUNCHES == flash0                  # attention-free
     assert wkv_ops.LAUNCHES - wkv0 == \
         cfg.n_layers * (res.prefills + len(decodes))
+    assert all(len(res.outputs[r.rid]) == r.max_new_tokens for r in trace)
+
+
+SCAN_CASES = [  # B, S, I, N
+    (2, 128, 128, 16), (1, 100, 256, 8), (2, 64, 128, 16), (1, 37, 128, 4),
+    (1, 256, 16384, 16),    # the jamba-1.5-large prefill chunk
+    (4, 1, 16384, 16),      # the jamba-1.5-large decode tick
+    (3, 9, 50, 16),         # ragged: one chunk of 8 steps and one step;
+    (2, 13, 37, 8),         # channels not a multiple of the block's
+    (1, 20, 70, 6),         # N not a multiple of 4
+]
+
+
+def _scan_inputs(case, device, seed):
+    """The reference sweep's distributions: dA in (0, 1), dBu * 0.3, C,
+    h0 * 0.1, all fp32 (the kernel's type)."""
+    B, S, I, N = case
+    g = np.random.default_rng(seed)
+    dA = 1 / (1 + np.exp(-g.standard_normal((B, S, I, N), np.float32)))
+    dBu = g.standard_normal((B, S, I, N), np.float32) * 0.3
+    C = g.standard_normal((B, S, N), np.float32)
+    h0 = g.standard_normal((B, I, N), np.float32) * 0.1
+    return [torch.from_numpy(a.astype(np.float32)).to(device)
+            for a in (dA, dBu, C, h0)]
+
+
+@pytest.mark.parametrize("case", SCAN_CASES, ids=lambda c: "B%dS%dI%dN%d" % c)
+def test_selective_scan_kernel_matches_the_plain_version(case, cuda):
+    dA, dBu, C, h0 = _scan_inputs(case, cuda, seed=21)
+    before = scan_ops.LAUNCHES
+    y, h = scan_ops.selective_scan(dA, dBu, C, h0)
+    torch.cuda.synchronize()
+    assert scan_ops.LAUNCHES == before + 1
+    B, S, I, N = case
+    assert y.shape == (B, S, I) and h.shape == (B, I, N)
+    y_ref, h_ref = selective_scan_ref(dA, dBu, C, h0)
+    for got, want in ((y, y_ref), (h, h_ref)):
+        assert bool(torch.isfinite(got).all())
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max())
+
+
+def test_selective_scan_writes_h_in_place(cuda):
+    dA, dBu, C, h0 = _scan_inputs((2, 19, 64, 16), cuda, seed=22)
+    y, h = scan_ops.selective_scan(dA, dBu, C, h0)
+    state = h0.clone()
+    y2, h2 = scan_ops.selective_scan(dA, dBu, C, state, h_out=state)
+    assert h2 is state
+    assert torch.equal(h2, h) and torch.equal(y2, y)
+
+
+def test_selective_scan_row_bits_do_not_depend_on_the_batch(cuda):
+    dA, dBu, C, h0 = _scan_inputs((4, 21, 96, 16), cuda, seed=23)
+    y, h = scan_ops.selective_scan(dA, dBu, C, h0)
+    one = scan_ops.selective_scan(dA[2:3].contiguous(), dBu[2:3].contiguous(),
+                                  C[2:3].contiguous(), h0[2:3].contiguous())
+    assert torch.equal(one[0], y[2:3]) and torch.equal(one[1], h[2:3])
+    # row 2's channels 40..79 alone (another I, another block split)
+    part = scan_ops.selective_scan(
+        dA[2:3, :, 40:80].contiguous(), dBu[2:3, :, 40:80].contiguous(),
+        C[2:3].contiguous(), h0[2:3, 40:80].contiguous())
+    assert torch.equal(part[0], y[2:3, :, 40:80])
+    assert torch.equal(part[1], h[2:3, 40:80])
+    # row 2 again, the other rows holding other data
+    o = _scan_inputs((4, 21, 96, 16), cuda, seed=24)
+    mixed = [torch.cat([b[:2], a[2:3], b[3:]]) for a, b in
+             zip((dA, dBu, C, h0), o)]
+    y3, h3 = scan_ops.selective_scan(*mixed)
+    assert torch.equal(y3[2], y[2]) and torch.equal(h3[2], h[2])
+
+
+@pytest.mark.parametrize("bad", ["bf16", "strided", "n65", "c_shape",
+                                 "h0_on_cpu", "overlap"])
+def test_selective_scan_dispatcher_raises_on_what_the_kernel_does_not_take(
+        bad, cuda):
+    dA, dBu, C, h0 = _scan_inputs((2, 8, 16, 8), cuda, seed=25)
+    h_out, err = None, ValueError
+    if bad == "bf16":
+        dA, err = dA.to(torch.bfloat16), TypeError
+    elif bad == "strided":
+        dBu = dBu.transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "n65":
+        dA, dBu, C, h0 = _scan_inputs((2, 8, 16, 65), cuda, seed=25)
+    elif bad == "c_shape":
+        C = C[:, :, :4].contiguous()
+    elif bad == "h0_on_cpu":
+        h0 = h0.cpu()
+    else:                                  # h_out overlaps h0
+        big = torch.zeros(h0.numel() + 8, device=cuda)
+        h0, h_out = (big[:h0.numel()].view(h0.shape),
+                     big[8:].view(h0.shape))
+    before = scan_ops.LAUNCHES
+    with pytest.raises(err):
+        scan_ops.selective_scan(dA, dBu, C, h0, h_out=h_out)
+    assert scan_ops.LAUNCHES == before
+
+
+def test_jamba_serving_runs_the_scan_flash_and_gmm_kernels(cuda):
+    from repro_torch.serve.engine import build_serve_engine
+    from repro_torch.serve.trace import synthetic_trace, trace_t_max
+    trace = synthetic_trace(5, prompt_lens=(20,), new_tokens=(2, 5))
+    engine, cfg = build_serve_engine("jamba-1.5-large-398b", smoke=True,
+                                     n_slots=2, t_max=trace_t_max(trace),
+                                     device=cuda)
+    decodes = []
+    step = engine._slot_decode
+    engine._slot_decode = lambda *a: decodes.append(1) or step(*a)
+    kinds = [(cfg.layer_kind(l), cfg.mlp_kind(l))
+             for l in range(cfg.n_layers)]
+    n_mamba = sum(k == "mamba" for k, _ in kinds)
+    n_attn = sum(k == "attn" for k, _ in kinds)
+    n_moe = sum(m == "moe" for _, m in kinds)
+    chunks = -(-20 // cfg.ssm_chunk)          # prompt 20, chunks of 16
+    flash0, gmm0, scan0 = ops.LAUNCHES, gmm_ops.LAUNCHES, scan_ops.LAUNCHES
+    res = engine.run(trace)
+    assert res.prefills == len(trace) and decodes
+    assert scan_ops.LAUNCHES - scan0 == \
+        n_mamba * (chunks * res.prefills + len(decodes))
+    assert ops.LAUNCHES - flash0 == n_attn * res.prefills
+    assert gmm_ops.LAUNCHES - gmm0 == \
+        3 * n_moe * (res.prefills + len(decodes))
     assert all(len(res.outputs[r.rid]) == r.max_new_tokens for r in trace)

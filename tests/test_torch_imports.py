@@ -39,6 +39,9 @@ SLICE_MODULES = [
     "repro_torch.configs.rwkv6_7b", "repro_torch.kernels.rwkv6.kernel",
     "repro_torch.kernels.rwkv6.ops", "repro_torch.kernels.rwkv6.ref",
     "repro_torch.models.rwkv",
+    "repro_torch.configs.jamba_1_5_large_398b",
+    "repro_torch.kernels.mamba.kernel", "repro_torch.kernels.mamba.ops",
+    "repro_torch.kernels.mamba.ref", "repro_torch.models.mamba",
 ]
 
 _FORBIDDEN = re.compile(

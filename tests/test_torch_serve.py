@@ -1,5 +1,6 @@
 """The port's durable continuous-batching server against the JAX package's,
-on the olmo-1b, olmoe-1b-7b and rwkv6-7b smoke configs (fp32).
+on the olmo-1b, olmoe-1b-7b, rwkv6-7b and jamba-1.5-large-398b smoke
+configs (fp32).
 
 * same weights (the reference's, carried across), same ``synthetic_trace``
   (the port's copy gives the same requests): the port's ``ServeEngine``
@@ -47,7 +48,7 @@ TRACE_KW = dict(prompt_lens=(12,), new_tokens=(3, 6, 9))
 N_REQ = 7
 COMMIT_EVERY = 3
 CRASH_AFTER = 7                    # ticks; 7 % 3 != 0: not a commit tick
-ARCHS = ["olmo-1b", "olmoe-1b-7b", "rwkv6-7b"]
+ARCHS = ["olmo-1b", "olmoe-1b-7b", "rwkv6-7b", "jamba-1.5-large-398b"]
 
 
 @pytest.fixture(autouse=True, scope="module")
