@@ -11,21 +11,30 @@ layers) and prints one line per phase:
    CUDA versions;
 2. build — compiles the four kernels of the paths from
    ``src/repro_torch/csrc`` (one ``nvcc`` each, started together) and
-   shows ptxas's register / shared-memory report;
+   shows ptxas's register / spill / static shared-memory report for each
+   kernel instantiation (template arguments kept); the dynamic shared
+   memory, ring stages and blocks of each flash and grouped-matmul launch
+   are printed with its case in phase 3;
 3. kernels — each kernel against its plain PyTorch version on the card,
    bf16, with kernel / plain / library times (CUDA events, after warm-up)
    and the least time the card could take (bytes at 3.35 TB/s vs
-   operations at 989 TFLOP/s):
-   * flash attention at the path's shape (1, 16, 512, 128) causal, at
-     jamba-1.5-large's (1, 64 heads over 8 kv heads, 512, 128) and at
-     ragged, GQA, hd_v != hd and non-causal shapes: max abs error against
-     the fp32 plain version (limit 2e-2: bf16 output rounding, one ulp
-     near 1 is 7.8e-3); library: SDPA;
-   * the grouped matmul at the olmoe path's four shapes (prefill up/gate
-     (64, 80, 2048) @ (64, 2048, 1024) and down, decode up/gate (64, 32,
-     2048) @ (64, 2048, 1024) and down), at the jamba-1.5-large path's
-     four ((16, 80 | 32, 8192) @ (16, 8192, 24576) and down) and at ragged
-     shapes (C 37 and C 1 with D 200, F 72; D 1000, not a multiple of 64):
+   operations at 989 TFLOP/s).  Where a library call exists, kernel and
+   library are timed in turns (library, kernel, kernel, library, twice)
+   and the median of each is kept, printed beside kernel/library and
+   kernel/bound; speed is printed, never checked:
+   * flash attention (two warpgroups splitting a 64-row q tile's kv tiles,
+     a cp.async ring each, ldmatrix into mma.sync) at the path's shape
+     (1, 16, 512, 128) causal, at jamba-1.5-large's (1, 64 heads over 8 kv
+     heads, 512, 128) and at ragged, GQA, hd_v != hd and non-causal
+     shapes: max abs error against the fp32 plain version (limit 2e-2:
+     bf16 output rounding, one ulp near 1 is 7.8e-3); library: SDPA;
+   * the grouped matmul (TMA ring, wgmma on out^T = w^T x^T, each weight
+     byte read once whatever C is, persistent blocks) at the olmoe path's
+     four shapes (prefill up/gate (64, 80, 2048) @ (64, 2048, 1024) and
+     down, decode up/gate (64, 32, 2048) @ (64, 2048, 1024) and down), at
+     the jamba-1.5-large path's four ((16, 80 | 32, 8192) @ (16, 8192,
+     24576) and down) and at ragged shapes (C 37 and C 1 with D 200, F 72;
+     D 1000, not a multiple of 64; C 300, two passes, with F 200):
      elementwise
      |kernel - plain_fp32| <= 1e-2 * max|plain_fp32| (one rounding to
      bf16 is half an ulp, 3.9e-3 relative); library: ``torch.bmm``;
@@ -106,6 +115,7 @@ import gc
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -209,6 +219,61 @@ def device_ms(fn, reps: int = 20, replays: int = 10) -> float:
     return ms
 
 
+def paired_ms(kernel_fn, library_fn, rounds: int = 2) -> tuple:
+    """Kernel and library times from one card, in turns (library, kernel,
+    kernel, library) ``rounds`` times, each a ``device_ms``; the median of
+    each, and every sample."""
+    ks, ls = [], []
+    for _ in range(rounds):
+        ls.append(device_ms(library_fn))
+        ks.append(device_ms(kernel_fn))
+        ks.append(device_ms(kernel_fn))
+        ls.append(device_ms(library_fn))
+    return statistics.median(ks), statistics.median(ls), ks, ls
+
+
+def launch_config(kernel_module, fn_name: str) -> list:
+    """The configuration the kernel library reports for its last launch
+    (4 ints: block shape, ring stages, dynamic shared memory in bytes,
+    blocks)."""
+    import ctypes
+    fn = getattr(kernel_module.library(), fn_name)
+    fn.argtypes, fn.restype = [ctypes.c_void_p], None
+    info = (ctypes.c_int * 4)()
+    fn(info)
+    return list(info)
+
+
+def ptxas_report(log: str):
+    """(kernel instantiation, ptxas line) for each 'Used ... registers'
+    line of an ``nvcc -Xptxas -v`` log, the instantiation read from the
+    preceding 'Compiling entry function' line (template arguments kept)."""
+    import re
+
+    def demangle(name):
+        # a mangled identifier is its length, then itself; the kernel's
+        # is the one that ends in "_kernel", its template arguments after
+        for m in re.finditer(r"\d+", name):
+            for j in range(len(m.group())):
+                n = int(m.group()[j:])
+                ident = name[m.end():m.end() + n]
+                rest = name[m.end() + n:]
+                if ident.endswith("_kernel") and len(ident) == n:
+                    args = re.match(r"I((?:Li\d+E)+)E", rest)
+                    return (f"{ident}<"
+                            f"{','.join(re.findall(r'Li(\d+)E', args.group(1)))}>"
+                            if args else ident)
+        return name
+
+    entry = "?"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = demangle(m.group(1))
+        elif "registers" in line or "spill" in line:
+            yield entry, line.strip()
+
+
 def attention_bound_ms(B, H, K, Sq, Sk, hd, hd_v, causal) -> tuple:
     """Least time for the work: each input read once and the output
     written once (bf16), vs the q·k and p·v multiply-adds the unmasked
@@ -249,6 +314,7 @@ def phase_kernel(torch, ops):
                         ).to(torch.bfloat16)
         out = ops.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        config = launch_config(kernel, "repro_flash_attention_last_launch")
         ref = ops.plain_attention(q.float(), k.float(), v.float(),
                                   causal=causal)
         err = float((out.float() - ref).abs().max())
@@ -262,15 +328,30 @@ def phase_kernel(torch, ops):
         # the kernel alone (raw binding, output allocated once), then the
         # dispatcher as the model calls it (checks, allocation, launch)
         buf = torch.empty_like(out)
-        kernel_ms = device_ms(lambda: kernel.flash_attention_fwd(
-            q, k, v, buf, causal=causal, scale=hd ** -0.5))
+        kernel_ms, library_ms, k_runs, l_runs = paired_ms(
+            lambda: kernel.flash_attention_fwd(q, k, v, buf, causal=causal,
+                                               scale=hd ** -0.5),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                   is_causal=causal))
+        # SDPA again with deterministic algorithms off: the serving path
+        # runs with them on (``set_determinism``), where SDPA takes a slower
+        # backend; this is the fastest SDPA the card offers
+        torch.use_deterministic_algorithms(False)
+        try:
+            _, fast_ms, _, _ = paired_ms(
+                lambda: kernel.flash_attention_fwd(q, k, v, buf,
+                                                   causal=causal,
+                                                   scale=hd ** -0.5),
+                lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                       is_causal=causal),
+                rounds=1)
+        finally:
+            torch.use_deterministic_algorithms(True)
         kernel_call_ms = call_ms(lambda: ops.flash_attention(q, k, v,
                                                              causal=causal))
         plain_ms = device_ms(lambda: ops.plain_attention(q, k, v,
                                                          causal=causal),
                              reps=5)
-        library_ms = device_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=causal))
         bound_ms, bound_by = attention_bound_ms(B, H, K, Sq, Sk, hd, hd_v,
                                                 causal)
         rows[name] = dict(shape=[B, H, K, Sq, Sk, hd, hd_v],
@@ -278,13 +359,27 @@ def phase_kernel(torch, ops):
                           kernel_ms=kernel_ms,
                           kernel_call_ms=kernel_call_ms, plain_ms=plain_ms,
                           library_ms=library_ms, bound_ms=bound_ms,
-                          bound_by=bound_by)
+                          bound_by=bound_by,
+                          kernel_over_library=kernel_ms / library_ms,
+                          kernel_over_bound=kernel_ms / bound_ms,
+                          kernel_runs_ms=k_runs, library_runs_ms=l_runs,
+                          library_nondeterministic_ms=fast_ms,
+                          launch=dict(warpgroups=config[0],
+                                      stages=config[1],
+                                      shared_bytes=config[2],
+                                      blocks=config[3]))
         print(f"kernel flash_attention {name}: B={B} H={H} K={K} Sq={Sq} "
               f"Sk={Sk} hd={hd} hd_v={hd_v} causal={causal} "
               f"max_abs_err={err:.3e} (tol {TOL}) kernel_ms={kernel_ms:.5f} "
               f"(per eager call {kernel_call_ms:.5f}) "
               f"plain_ms={plain_ms:.5f} library_ms(sdpa)={library_ms:.5f} "
-              f"bound_ms={bound_ms:.5f} ({bound_by})", flush=True)
+              f"bound_ms={bound_ms:.5f} ({bound_by}) kernel/library="
+              f"{kernel_ms / library_ms:.3f} kernel/bound="
+              f"{kernel_ms / bound_ms:.2f} sdpa without deterministic "
+              f"algorithms {fast_ms:.5f} (kernel/that "
+              f"{kernel_ms / fast_ms:.3f}); launch: {config[0]} warpgroups "
+              f"a block, {config[1]} stages, {config[2]} bytes of shared "
+              f"memory, {config[3]} blocks", flush=True)
     return rows
 
 
@@ -354,6 +449,7 @@ def phase_gmm(torch, gmm_ops):
         ("ragged_c37", 3, 37, 200, 72, False),
         ("ragged_c1", 3, 1, 200, 72, False),
         ("d1000", 8, 48, 1000, 256, False),
+        ("c300_f200", 4, 300, 512, 200, False),
     ]
     gen = torch.Generator("cuda").manual_seed(4321)
     rows = {}
@@ -364,31 +460,41 @@ def phase_gmm(torch, gmm_ops):
                         ).mul_(0.02).to(torch.bfloat16)
         out = gmm_ops.grouped_matmul(x, w)
         torch.cuda.synchronize()
+        config = launch_config(kernel, "repro_grouped_matmul_last_launch")
         ref = grouped_matmul_ref(x.float(), w.float())
         err = float((out.float() - ref).abs().max())
         limit = GMM_REL_TOL * float(ref.abs().max())
         check(bool(torch.isfinite(out).all()), f"gmm {name}: non-finite")
         check(err <= limit, f"gmm {name}: max abs err {err} > {limit}")
-        row = dict(shape=[E, C, D, F], max_abs_err=err, limit=limit)
+        row = dict(shape=[E, C, D, F], max_abs_err=err, limit=limit,
+                   launch=dict(chunks=config[0], stages=config[1],
+                               shared_bytes=config[2], blocks=config[3]))
         msg = (f"kernel grouped_matmul {name}: E={E} C={C} D={D} F={F} "
-               f"max_abs_err={err:.3e} (limit {limit:.3e})")
+               f"max_abs_err={err:.3e} (limit {limit:.3e}) launch: "
+               f"{config[0]} 16-row chunks, {config[1]} stages, {config[2]} "
+               f"bytes of shared memory, {config[3]} blocks")
         if timed:
-            kernel_ms = device_ms(lambda: kernel.grouped_matmul_fwd(x, w,
-                                                                    out))
+            kernel_ms, library_ms, k_runs, l_runs = paired_ms(
+                lambda: kernel.grouped_matmul_fwd(x, w, out),
+                lambda: torch.bmm(x, w))
             kernel_call_ms = call_ms(lambda: gmm_ops.grouped_matmul(x, w))
             # the plain version makes an fp32 copy of w (12.9 GB at
             # jamba's widths): one call a graph there
             plain_ms = device_ms(lambda: grouped_matmul_ref(x, w),
                                  reps=5 if E * D * F < 1e9 else 1)
-            library_ms = device_ms(lambda: torch.bmm(x, w))
             bound_ms, bound_by = gmm_bound_ms(E, C, D, F)
             row.update(kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms,
                        plain_ms=plain_ms, library_ms=library_ms,
-                       bound_ms=bound_ms, bound_by=bound_by)
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       kernel_over_library=kernel_ms / library_ms,
+                       kernel_over_bound=kernel_ms / bound_ms,
+                       kernel_runs_ms=k_runs, library_runs_ms=l_runs)
             msg += (f" kernel_ms={kernel_ms:.5f} (per eager call "
                     f"{kernel_call_ms:.5f}) plain_ms={plain_ms:.5f} "
                     f"library_ms(bmm)={library_ms:.5f} "
-                    f"bound_ms={bound_ms:.5f} ({bound_by})")
+                    f"bound_ms={bound_ms:.5f} ({bound_by}) kernel/library="
+                    f"{kernel_ms / library_ms:.3f} kernel/bound="
+                    f"{kernel_ms / bound_ms:.2f}")
         rows[name] = row
         print(msg, flush=True)
         del x, w, out, ref
@@ -815,9 +921,8 @@ def main(argv=None) -> int:
           flush=True)
     for name, lib in libs.items():
         print(f"build: {name} -> {lib}", flush=True)
-        for l in build.build_log(name).splitlines():
-            if "registers" in l or "spill" in l:
-                print(f"build: {name} ptxas {l.strip()}", flush=True)
+        for entry, line in ptxas_report(build.build_log(name)):
+            print(f"build: {name} {entry} ptxas {line}", flush=True)
     report["build_s"] = build_s
 
     # -- 3. kernels against their plain versions ----------------------------
@@ -887,9 +992,20 @@ def main(argv=None) -> int:
              "grouped_matmul": report["gmm_cases"]["decode_up"],
              "wkv6": report["wkv_cases"]["prefill"],
              "selective_scan": report["scan_cases"]["prefill"]}
+    timed = {"flash_attention": report["kernel_cases"],
+             "grouped_matmul": report["gmm_cases"],
+             "wkv6": report["wkv_cases"], "selective_scan": report["scan_cases"]}
     kernels = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
         row = mains[name]
+        cases = {c: {k: r[k] for k in ("kernel_ms", "library_ms", "bound_ms",
+                                       "kernel_over_bound")
+                     if k in r} for c, r in timed[name].items()
+                 if "kernel_ms" in r}
+        for c, r in timed[name].items():
+            if "kernel_ms" in r and r["library_ms"] is not None:
+                cases[c]["kernel_over_library"] = (r["kernel_ms"]
+                                                   / r["library_ms"])
         kernels["kernels"].append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
@@ -899,7 +1015,12 @@ def main(argv=None) -> int:
             "shape": row["shape"],
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "kernel_over_bound": row["kernel_ms"] / row["bound_ms"],
+            "kernel_over_library": (row["kernel_ms"] / row["library_ms"]
+                                    if row["library_ms"] is not None
+                                    else None),
+            "timed_cases": cases})
     report.update(kernels)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),

@@ -1,36 +1,67 @@
-// FlashAttention-2 forward for Hopper (sm_90a), bf16 in / bf16 out.
+// Flash-attention forward for Hopper (sm_90a), bf16 in / bf16 out.
 //
 // Replaces the TPU kernel repro/kernels/attention/kernel.py:flash_attention_kernel
 // (body _fa_kernel).  It computes what that kernel computes — online-softmax
 // attention with fp32 statistics and accumulator, GQA (q head h reads kv head
 // h / (H/KH); KV is never repeated), causal masking with top-left alignment,
-// kv tiles above the diagonal skipped, ragged Sq / Sk masked in-kernel, and
-// hd_v allowed to differ from hd — but not its block structure:
+// kv tiles above the diagonal skipped, ragged Sq / Sk masked in-kernel, hd_v
+// allowed to differ from hd (each bucketed to 64, 128 or 256), on the model's
+// strided layout — but not its block structure.
 //
-// * one CUDA block per (b, h, 64-row q tile); a loop over 64-row kv tiles inside
-//   the block replaces the TPU's sequential 4th grid axis and its VMEM scratch
-//   (running max / denominator / accumulator live in registers here);
-// * four warps, 16 q rows each; both products (Q·Kᵀ and P·V) run on the tensor
-//   cores through mma.sync.m16n8k16 (bf16 in, fp32 accumulate).  The score
-//   accumulators are re-packed in registers as the A operand of P·V (the
-//   FlashAttention-2 register trick), so P never touches shared memory;
-// * tiles are 64 x (hd padded to 64/128/256) bf16 in shared memory — 16 KB per
-//   64x128 tile, 52 KB for Q, K and V at hd = 128 — against the 1.5 MB of VMEM
-//   the TPU's 128x128 tiles need.
+// What bounds it on this card: at the serving paths' shapes, latency.  At
+// (1, 16, 512, 128) causal, q + k + v + o are 8.4 MB (2.5 us at 3.35 TB/s)
+// and the causal products 1.1 us at 989 TFLOP/s; at jamba-1.5-large's
+// (1, 64 q heads over 8 kv heads, 512, 128) 18.9 MB (5.6 us).  What costs
+// is the serial walk of the longest causal q tile over its kv tiles.
 //
-// Bound on this card at the serving path's shape: memory.  At (1, 16, 512, 128)
-// bf16, q + k + v + o = 4 * 16 * 512 * 128 * 2 B = 8.4 MB, about 2.5 us at
-// 3.35 TB/s, against about 1.1 us of causal tensor work at 989 TFLOP/s.  This
-// simple design reads each q tile once and each kv tile once per q tile
-// (L2-resident at this size), with 16-byte vector loads into padded
-// (bank-conflict-free) shared memory; it does not yet overlap the loads with
-// the math (no cp.async / TMA pipeline, no wgmma) — that is later work.
+// What held the first design back, on an H100 80GB HBM3 at 700 W as
+// chip_smoke.py timed it (0.05161 ms at (1,16,512,128) against SDPA's
+// 0.02897, 0.06742 against 0.03862 at jamba's shape): each kv tile went
+// global -> registers -> shared and through a __syncthreads before any math, so no
+// load overlapped the math and each of the longest tile's 8 steps paid a
+// full load latency; K fragments came from scalar 32-bit shared loads and V
+// fragments from four 16-bit loads and a pack an mma; and 128 blocks of 4
+// warps on 132 SMs left nothing to hide latency behind.
+//
+// This design (timed on an H100 80GB HBM3 at 700 W by chip_smoke.py;
+// PERF.md has the numbers):
+//
+// * one block per (b, h, 64-row q tile).  The blocks start longest causal
+//   walk first across all heads (heads vary fastest in the grid, q tiles
+//   from the last), so the longest walks do not start last;
+// * two block shapes, chosen at launch.  While there are no more q tiles
+//   than SMs, each block has two warpgroups that split the tile's kv tiles
+//   between them — warpgroup 0 the even ones, warpgroup 1 the odd — so the
+//   longest walk is half as long; at the end warpgroup 1 hands its (max,
+//   denominator, accumulator) to warpgroup 0 through shared memory, which
+//   merges them in that fixed order.  Past that, a block is one warpgroup
+//   and two blocks share an SM;
+// * TMA into an mbarrier ring of K / V tiles a warpgroup (3 stages with two
+//   warpgroups, 2 with one): 4-D tensor maps over the model's strided
+//   layout (d, position, head, batch), zero-filled past Sk, hd and hd_v, so
+//   no thread spends an instruction on a load or a mask of the ragged edge.
+//   Q is loaded once.  Tiles land in wgmma's 128-byte swizzle (64-column
+//   blocks of rows x 128 bytes);
+// * both products run on the tensor cores through wgmma (bf16 in, fp32
+//   accumulate), a warpgroup at a time: S = Q·Kᵀ with Q and K read from
+//   shared memory (K-major), O += P·V with P from registers — the score
+//   accumulators re-packed to bf16 are exactly wgmma's A fragment, so P
+//   never touches shared memory — and V read MN-major (d contiguous: the
+//   transpose bit).  An mma.sync version of this pipeline (a cp.async ring
+//   each warpgroup, ldmatrix for Q, K and V) was slower on the card;
+// * no ordinary instruction writes a register that an asynchronous product
+//   owns: the first product of S and of O ignores what the accumulator holds
+//   (scale-d 0) instead of zeroing it, or ptxas serializes the products.
 //
 // Deterministic: no atomics, and every sum is taken in a fixed order.
 //
-// C interface (loaded with ctypes): repro_flash_attention_fwd_bf16 returns the
-// cudaError_t of the launch (0 on success).  Strides are in elements.
+// C interface (loaded with ctypes): repro_flash_attention_fwd_bf16 returns a
+// cudaError_t (0 on success).  Strides are in elements and multiples of 8
+// (TMA takes 16-byte strides).  The tensor maps are encoded on the host at
+// each call, through cuTensorMapEncodeTiled from cudaGetDriverEntryPoint, so
+// the library needs no -lcuda.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -38,19 +69,54 @@
 
 namespace {
 
-constexpr int BQ = 64;   // q rows per block: 4 warps x 16 rows
-constexpr int BK = 64;   // kv rows per tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int PAD = 8;   // bf16 elements of row padding in shared memory
+constexpr int BQ = 64;       // q rows per block: 4 warps x 16 rows
 
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
+// ---- mbarriers and TMA -----------------------------------------------------
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// Wait for the phase of parity `parity` to complete.  A protocol fault traps
+// (the launch fails) after 10 s instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  uint64_t t0 = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    uint64_t now;
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+    if (t0 == 0) t0 = now;
+    else if (now - t0 > 10000000000ull) __trap();
+  }
+}
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2, int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// 2^x on the special-function unit (flush-to-zero; 2^-inf = 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Two floats -> one register of two bf16 (lo in the low half).
@@ -59,113 +125,232 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Two bf16 from shared memory -> one register (lo in the low half).
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16) |
-         static_cast<uint32_t>(__bfloat16_as_ushort(lo));
+// ---- wgmma -----------------------------------------------------------------
+// Shared-memory matrix descriptor, 128-byte swizzle: 8-row groups 1024 bytes
+// apart (SBO); for an MN-major operand, LBO is the stride between its
+// 64-wide MN blocks.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo_bytes) {
+  uint64_t d = static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16;
+  d |= static_cast<uint64_t>(1024 >> 4) << 32;
+  d |= static_cast<uint64_t>(1) << 62;
+  return d;
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving reads or writes of registers across the
+// asynchronous products that own them.
+template <typename T, int N>
+__device__ __forceinline__ void fence_regs(T (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (sizeof(T) == 4 && T(0.5) != T(0)) asm volatile("" : "+f"(r[i][e])::"memory");
+      else asm volatile("" : "+r"(r[i][e])::"memory");
+    }
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// S (64 q x N kv) [+]= Q (64 x 16 d, K-major) K^T (16 d x N kv, K-major);
+// O (64 q x N d) [+]= P (64 x 16 kv, registers) V (16 kv x N d, MN-major).
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[4][4], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// Copy a ROWS x COLS bf16 tile from global memory (row stride `ld` elements)
-// into shared memory (row stride `lds`), 16 bytes at a time, zero-filling rows
-// >= n_rows and columns >= n_cols.  n_cols and COLS are multiples of 8.
-template <int ROWS, int COLS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* smem, int lds,
-                                          const __nv_bfloat16* g, long long ld,
-                                          int n_rows, int n_cols) {
-  constexpr int CPR = COLS / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < ROWS * CPR; c += NTHREADS) {
-    const int r = c / CPR;
-    const int col = (c % CPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n_rows && col < n_cols)
-      val = *reinterpret_cast<const uint4*>(g + r * ld + col);
-    *reinterpret_cast<uint4*>(smem + r * lds + col) = val;
-  }
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-template <int DQK, int DV>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o,
-                 int group, int Sq, int Sk, int hd, int hd_v,
-                 long long sqb, long long sqh, long long sqs,
-                 long long skb, long long skh, long long sks,
-                 long long svb, long long svh, long long svs,
-                 long long sob, long long soh, long long sos,
-                 float scale_log2, int causal) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int LQ = DQK + PAD;
-  constexpr int LV = DV + PAD;
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BQ * LQ;
-  __nv_bfloat16* Vs = Ks + BK * LQ;
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
 
-  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
-  const int h = blockIdx.y;
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[32][4], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]), "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]), "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]), "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]), "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]), "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]), "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]), "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]), "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]), "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]), "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]), "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]), "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]), "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]), "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]), "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]), "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_qk(float (&d)[N / 8][4], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (N == 32) wgmma_ss_n32(d, da, db, scale_d);
+  else wgmma_ss_n64(d, da, db, scale_d);
+}
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&d)[N / 8][4], const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db, scale_d);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db, scale_d);
+  else wgmma_rs_n256(d, a, db, scale_d);
+}
+
+// Shared memory, from a 1024-aligned base: the Q tile, then each warpgroup's
+// ring of STAGES K / V tiles, then the barriers.  Every tile is in wgmma's
+// 128-byte swizzle as TMA writes it: 64-column blocks of rows x 128 bytes.
+// With two warpgroups, warpgroup 1's ring also carries its hand-over.
+template <int DQK, int DV, int NWG>
+struct Cfg {
+  static constexpr int BK = (DQK + DV > 256) ? 32 : 64;  // kv rows per tile
+  static constexpr int STAGES = NWG == 2 ? 3 : 2;  // one block an SM, or two
+  static constexpr int Q_BYTES = BQ * DQK * 2;
+  static constexpr int K_BYTES = BK * DQK * 2;
+  static constexpr int STAGE_BYTES = K_BYTES + BK * DV * 2;
+  static constexpr int RING_BYTES = STAGES * STAGE_BYTES;
+  // warpgroup 1's hand-over: the accumulator and (m, l) of two rows a thread
+  static constexpr int MERGE_BYTES = (DV / 2 + 4) * 128 * 4;
+  static constexpr int WG1_BYTES = RING_BYTES > MERGE_BYTES ? RING_BYTES : MERGE_BYTES;
+  static constexpr int BARS = Q_BYTES + RING_BYTES + (NWG == 2 ? WG1_BYTES : 0);
+  static constexpr size_t SMEM = 1024 + (size_t)BARS + 8 * (1 + NWG * STAGES);
+};
+
+template <int DQK, int DV, int NWG>
+__global__ void __launch_bounds__(NWG * 128, NWG == 1 ? 2 : 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
+                 const __grid_constant__ CUtensorMap tmv, __nv_bfloat16* __restrict__ o,
+                 int group, int Sq, int Sk, int hd_v, long long sob, long long soh,
+                 long long sos, float scale_log2, int causal) {
+  using K_ = Cfg<DQK, DV, NWG>;
+  constexpr int BK = K_::BK, STAGES = K_::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t Qs = (raw + 1023u) & ~1023u;  // swizzled tiles start 1024-aligned
+  const int wg = NWG == 1 ? 0 : threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const uint32_t ring = Qs + K_::Q_BYTES + wg * K_::RING_BYTES;
+  const uint32_t qbar = Qs + K_::BARS;
+  auto full = [&](int s) { return qbar + 8u * (1 + wg * STAGES + s); };
+
+  // Heads vary fastest and the last q tiles (the longest causal walks) come
+  // first, so the blocks start longest first across all heads.
+  const int h = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;
   const int b = blockIdx.z;
   const int kh = h / group;                   // GQA head map
   const int q0 = qt * BQ;
-  const int warp = threadIdx.x / 32;
+  const int warp = (threadIdx.x / 32) % 4;    // this warp's 16 rows of the tile
   const int lane = threadIdx.x % 32;
-  const int g = lane / 4;                     // mma group: rows g and g + 8
-  const int t = lane % 4;                     // mma thread-in-group: column pair
-
-  const __nv_bfloat16* kg = k + b * skb + kh * skh;
-  const __nv_bfloat16* vg = v + b * svb + kh * svh;
-  load_tile<BQ, DQK>(Qs, LQ, q + b * sqb + h * sqh + q0 * sqs, sqs, Sq - q0, hd);
-
-  float acc[DV / 8][4];
-#pragma unroll
-  for (int j = 0; j < DV / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};  // running max (log2 domain) of rows g, g+8
-  float l[2] = {0.f, 0.f};              // this lane's share of the running denominators
+  const int g = lane / 4;                     // rows g and g + 8 of the warp's 16
+  const int t = lane % 4;                     // column pair
 
   int n_kv = (Sk + BK - 1) / BK;
   if (causal) {  // skip kv tiles entirely above the diagonal (top-left aligned)
     const int q_last = min(q0 + BQ, Sq) - 1;
     n_kv = min(n_kv, q_last / BK + 1);
   }
+  const int n_mine = (n_kv - wg + NWG - 1) / NWG;  // kv tiles wg, wg + NWG, ...
+
+  // This warpgroup's i-th kv tile into ring slot i % STAGES, by one thread:
+  // K and V in 64-column boxes, zero-filled past Sk, hd and hd_v.
+  auto load_kv = [&](int i) {
+    const int k0 = (NWG * i + wg) * BK;
+    const uint32_t st = ring + (i % STAGES) * K_::STAGE_BYTES;
+    mbar_expect_tx(full(i % STAGES), K_::STAGE_BYTES);
+#pragma unroll
+    for (int c = 0; c < DQK / 64; ++c)
+      tma_load_4d(st + c * BK * 128, &tmk, full(i % STAGES), c * 64, k0, kh, b);
+#pragma unroll
+    for (int c = 0; c < DV / 64; ++c)
+      tma_load_4d(st + K_::K_BYTES + c * BK * 128, &tmv, full(i % STAGES), c * 64, k0, kh, b);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < NWG * STAGES; ++s) mbar_init(qbar + 8u * (1 + s), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // Q and each warpgroup's first kv tiles in flight together.
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(qbar, K_::Q_BYTES);
+#pragma unroll
+    for (int c = 0; c < DQK / 64; ++c) tma_load_4d(Qs + c * BQ * 128, &tmq, qbar, c * 64, q0, h, b);
+  }
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < STAGES - 1; ++i)
+      if (i < n_mine) load_kv(i);
+  }
+  mbar_wait(qbar, 0);
+
+  // acc holds nothing until the first P·V, which ignores it (scale-d 0): no
+  // ordinary instruction defines a register an asynchronous product owns
+  // (ptxas would serialize the products).
+  float acc[DV / 8][4];
+  uint32_t pa[BK / 16][4];
+  float m[2] = {-INFINITY, -INFINITY};  // running max (log2 domain) of rows g, g+8
+  float l[2] = {0.f, 0.f};              // this lane's share of the running denominators
   const int row0 = q0 + warp * 16 + g;
 
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // every warp is done with the previous K / V tile
-    load_tile<BK, DQK>(Ks, LQ, kg + k0 * sks, sks, Sk - k0, hd);
-    load_tile<BK, DV>(Vs, LV, vg + k0 * svs, svs, Sk - k0, hd_v);
-    __syncthreads();
+  for (int i = 0; i < n_mine; ++i) {
+    wgmma_wait_all();                   // this warp's P·V of tile i - 1 is done
+    fence_regs(acc);
+    named_sync(1 + wg, 128);            // ... every warp's: tile i - 1's slot is free
+    if (tid == 0 && i + STAGES - 1 < n_mine) load_kv(i + STAGES - 1);
+    mbar_wait(full(i % STAGES), (i / STAGES) & 1);  // tile i has landed
+    const int k0 = (NWG * i + wg) * BK;
+    const uint32_t Ks = ring + (i % STAGES) * K_::STAGE_BYTES;
+    const uint32_t Vs = Ks + K_::K_BYTES;
 
-    // S = Q Kᵀ for this warp's 16 rows x 64 kv columns (8 n-tiles of 8).
+    // S = Q Kᵀ: 64 q rows x BK kv columns, 16 d a step (the first ignores s).
     float s[BK / 8][4];
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DQK / 16; ++kk) {
-      const __nv_bfloat16* qa = Qs + (warp * 16 + g) * LQ + kk * 16 + t * 2;
-      const uint32_t a[4] = {ld32(qa), ld32(qa + 8 * LQ), ld32(qa + 8),
-                             ld32(qa + 8 * LQ + 8)};
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-        const __nv_bfloat16* kb = Ks + (nt * 8 + g) * LQ + kk * 16 + t * 2;
-        mma_16816(s[nt], a, ld32(kb), ld32(kb + 8));
-      }
-    }
+    for (int kk = 0; kk < DQK / 16; ++kk)
+      wgmma_qk<BK>(s, desc_sw128(Qs + (kk / 4) * (BQ * 128) + (kk % 4) * 32, 16),
+                   desc_sw128(Ks + (kk / 4) * (BK * 128) + (kk % 4) * 32, 16), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
 
-    // Scale into the log2 domain, mask padding and the causal upper triangle.
+    // Scale into the log2 domain, mask padding and the causal upper triangle:
+    // s[nt][e] is row row0 + 8 (e / 2), column k0 + 8 nt + 2 t + e % 2, kept
+    // if that column is below the row's limit.
     float mx[2] = {-INFINITY, -INFINITY};
+    int lim[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      lim[r] = (causal ? min(row0 + 8 * r + 1, Sk) : Sk) - (k0 + t * 2);
 #pragma unroll
     for (int nt = 0; nt < BK / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int row = row0 + (e >> 1) * 8;
-        const int col = k0 + nt * 8 + t * 2 + (e & 1);
         float x = s[nt][e] * scale_log2;
-        if (col >= Sk || (causal && col > row)) x = -INFINITY;
+        if (nt * 8 + (e & 1) >= lim[e >> 1]) x = -INFINITY;
         s[nt][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -173,54 +358,99 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     // Online softmax: the four lanes of a row group share each row.
     float base[2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      base[i] = (m_new == -INFINITY) ? 0.f : m_new;  // fully masked so far
-      const float corr = exp2f(m[i] - base[i]);
-      m[i] = m_new;
-      l[i] *= corr;
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      base[r] = (m_new == -INFINITY) ? 0.f : m_new;  // fully masked so far
+      const float corr = ex2(m[r] - base[r]);
+      m[r] = m_new;
+      l[r] *= corr;
 #pragma unroll
       for (int j = 0; j < DV / 8; ++j) {
-        acc[j][2 * i] *= corr;
-        acc[j][2 * i + 1] *= corr;
+        acc[j][2 * r] *= corr;
+        acc[j][2 * r + 1] *= corr;
       }
     }
+    // P, packed to bf16: the score accumulators of n-tiles 2j, 2j+1 are
+    // exactly the register A fragment of k-step j.
 #pragma unroll
     for (int nt = 0; nt < BK / 8; ++nt) {
+      float pv[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[nt][e] - base[e >> 1]);
-        s[nt][e] = p;
-        l[e >> 1] += p;
+        pv[e] = ex2(s[nt][e] - base[e >> 1]);
+        l[e >> 1] += pv[e];
       }
+      pa[nt / 2][(nt % 2) * 2 + 0] = pack_f32(pv[0], pv[1]);
+      pa[nt / 2][(nt % 2) * 2 + 1] = pack_f32(pv[2], pv[3]);
     }
 
-    // O += P V: the score accumulators of n-tiles 2j, 2j+1 are exactly the
-    // A fragment of k-step j.
+    // O += P V, 16 kv rows a step; V is MN-major (d contiguous).
+    fence_regs(acc);
+    fence_regs(pa);
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      const uint32_t a[4] = {pack_f32(s[2 * j][0], s[2 * j][1]),
-                             pack_f32(s[2 * j][2], s[2 * j][3]),
-                             pack_f32(s[2 * j + 1][0], s[2 * j + 1][1]),
-                             pack_f32(s[2 * j + 1][2], s[2 * j + 1][3])};
+    for (int j = 0; j < BK / 16; ++j)
+      wgmma_pv<DV>(acc, pa[j], desc_sw128(Vs + j * 2048, BK * 128), i > 0 || j > 0);
+    wgmma_commit();
+    fence_regs(pa);
+    fence_regs(acc);
+  }
+  wgmma_wait_all();
+  fence_regs(acc);
+  if (n_mine == 0) {
 #pragma unroll
-      for (int nt = 0; nt < DV / 8; ++nt) {
-        const __nv_bfloat16* vb = Vs + (j * 16 + t * 2) * LV + nt * 8 + g;
-        mma_16816(acc[nt], a, pack_bf16(vb[0], vb[LV]),
-                  pack_bf16(vb[8 * LV], vb[9 * LV]));
-      }
-    }
+    for (int j = 0; j < DV / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   }
 
-  // Finalize: full row denominators, divide, write rows < Sq, columns < hd_v.
+  // Full row denominators of this warpgroup's share.
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    const float denom = fmaxf(l[i], 1e-20f);
-    const int row = row0 + 8 * i;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  if constexpr (NWG == 2) {
+    // Warpgroup 1 hands its state to warpgroup 0 through its own ring's
+    // memory; warpgroup 0 merges its share first, then 1's.
+    float* mg =
+        reinterpret_cast<float*>(smem_raw + (Qs - raw) + K_::Q_BYTES + K_::RING_BYTES);
+    if (wg == 1) {
+      named_sync(2, 128);               // every warp of warpgroup 1 is done with its ring
+#pragma unroll
+      for (int j = 0; j < DV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mg[(j * 4 + e) * 128 + tid] = acc[j][e];
+      mg[(DV / 2 + 0) * 128 + tid] = m[0];
+      mg[(DV / 2 + 1) * 128 + tid] = m[1];
+      mg[(DV / 2 + 2) * 128 + tid] = l[0];
+      mg[(DV / 2 + 3) * 128 + tid] = l[1];
+    }
+    __syncthreads();
+    if (wg == 1) return;
+    float c0[2], c1[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m1 = mg[(DV / 2 + r) * 128 + tid];
+      const float l1 = mg[(DV / 2 + 2 + r) * 128 + tid];
+      const float m_new = fmaxf(m[r], m1);
+      const float base = (m_new == -INFINITY) ? 0.f : m_new;
+      c0[r] = ex2(m[r] - base);
+      c1[r] = ex2(m1 - base);
+      l[r] = l[r] * c0[r] + l1 * c1[r];
+    }
+#pragma unroll
+    for (int j = 0; j < DV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[j][e] = acc[j][e] * c0[e >> 1] + mg[(j * 4 + e) * 128 + tid] * c1[e >> 1];
+  }
+
+  // Divide, write rows < Sq and columns < hd_v.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float denom = fmaxf(l[r], 1e-20f);
+    const int row = row0 + 8 * r;
     if (row >= Sq) continue;
     __nv_bfloat16* orow = o + b * sob + h * soh + row * sos;
 #pragma unroll
@@ -228,43 +458,112 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       const int col = nt * 8 + t * 2;
       if (col < hd_v)
         *reinterpret_cast<uint32_t*>(orow + col) =
-            pack_f32(acc[nt][2 * i] / denom, acc[nt][2 * i + 1] / denom);
+            pack_f32(acc[nt][2 * r] / denom, acc[nt][2 * r + 1] / denom);
     }
   }
 }
 
-template <int DQK, int DV>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int H, int group, int Sq, int Sk, int hd, int hd_v,
-                   const long long* st, float scale_log2, int causal,
-                   cudaStream_t stream) {
-  const size_t smem =
-      sizeof(__nv_bfloat16) * (size_t)(BQ * (DQK + PAD) + BK * (DQK + PAD) + BK * (DV + PAD));
-  auto kern = flash_fwd_kernel<DQK, DV>;
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D bf16 tensor map over (d, position, head, batch), innermost first,
+// with the layout's strides (elements), boxes of 64 d x `rows` positions,
+// 128-byte swizzle, zero fill.
+bool encode_4d(CUtensorMap* map, const void* ptr, int d, int n, int heads, int B,
+               long long s_pos, long long s_head, long long s_b, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)s_pos * 2, (cuuint64_t)s_head * 2,
+                                 (cuuint64_t)s_b * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                   strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                   CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The configuration of the last launch, for a report: warpgroups a block,
+// K / V ring stages a warpgroup, dynamic shared memory in bytes, blocks.
+int last_launch[4];
+
+template <int DQK, int DV, int NWG>
+cudaError_t launch_nwg(const void* q, const void* k, const void* v, void* o, int B,
+                       int H, int KH, int Sq, int Sk, int hd, int hd_v,
+                       const long long* st, float scale_log2, int causal,
+                       cudaStream_t stream) {
+  using K_ = Cfg<DQK, DV, NWG>;
+  CUtensorMap tmq, tmk, tmv;
+  if (!encode_4d(&tmq, q, hd, Sq, H, B, st[2], st[1], st[0], BQ) ||
+      !encode_4d(&tmk, k, hd, Sk, KH, B, st[5], st[4], st[3], K_::BK) ||
+      !encode_4d(&tmv, v, hd_v, Sk, KH, B, st[8], st[7], st[6], K_::BK))
+    return cudaErrorInvalidValue;
+  const size_t smem = K_::SMEM;
+  auto kern = flash_fwd_kernel<DQK, DV, NWG>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), group, Sq,
-      Sk, hd, hd_v, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], scale_log2, causal);
+  const dim3 grid(H, (Sq + BQ - 1) / BQ, B);
+  last_launch[0] = NWG;
+  last_launch[1] = K_::STAGES;
+  last_launch[2] = (int)smem;
+  last_launch[3] = (int)(grid.x * grid.y * grid.z);
+  kern<<<grid, NWG * 128, smem, stream>>>(tmq, tmk, tmv, static_cast<__nv_bfloat16*>(o),
+                                          H / KH, Sq, Sk, hd_v, st[9], st[10], st[11],
+                                          scale_log2, causal);
   return cudaGetLastError();
+}
+
+// Two warpgroups splitting each q tile's kv tiles while there are no more q
+// tiles than SMs (the longest tile's walk is the time); one warpgroup a
+// block, two blocks an SM, once there are more.
+template <int DQK, int DV>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
+                   int H, int KH, int Sq, int Sk, int hd, int hd_v,
+                   const long long* st, float scale_log2, int causal,
+                   cudaStream_t stream) {
+  static int n_sm = 0;
+  if (n_sm == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  const long long tiles = (long long)((Sq + BQ - 1) / BQ) * H * B;
+  if (tiles <= n_sm)
+    return launch_nwg<DQK, DV, 2>(q, k, v, o, B, H, KH, Sq, Sk, hd, hd_v, st, scale_log2,
+                                  causal, stream);
+  return launch_nwg<DQK, DV, 1>(q, k, v, o, B, H, KH, Sq, Sk, hd, hd_v, st, scale_log2,
+                                causal, stream);
 }
 
 template <int DQK>
 cudaError_t dispatch_dv(int dv, const void* q, const void* k, const void* v, void* o,
-                        int B, int H, int group, int Sq, int Sk, int hd, int hd_v,
+                        int B, int H, int KH, int Sq, int Sk, int hd, int hd_v,
                         const long long* st, float scale_log2, int causal,
                         cudaStream_t stream) {
   switch (dv) {
     case 64:
-      return launch<DQK, 64>(q, k, v, o, B, H, group, Sq, Sk, hd, hd_v, st, scale_log2, causal, stream);
+      return launch<DQK, 64>(q, k, v, o, B, H, KH, Sq, Sk, hd, hd_v, st, scale_log2, causal, stream);
     case 128:
-      return launch<DQK, 128>(q, k, v, o, B, H, group, Sq, Sk, hd, hd_v, st, scale_log2, causal, stream);
+      return launch<DQK, 128>(q, k, v, o, B, H, KH, Sq, Sk, hd, hd_v, st, scale_log2, causal, stream);
     default:
-      return launch<DQK, 256>(q, k, v, o, B, H, group, Sq, Sk, hd, hd_v, st, scale_log2, causal, stream);
+      return launch<DQK, 256>(q, k, v, o, B, H, KH, Sq, Sk, hd, hd_v, st, scale_log2, causal, stream);
   }
 }
 
@@ -281,20 +580,26 @@ extern "C" int repro_flash_attention_fwd_bf16(
       hd > 256 || hd % 8 != 0 || hd_v < 8 || hd_v > 256 || hd_v % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long st[12] = {sqb, sqh, sqs, skb, skh, sks, svb, svh, svs, sob, soh, sos};
+  for (int i = 0; i < 12; ++i)
+    if (st[i] % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (encoder() == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const float scale_log2 = scale * 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
-  const int group = H / KH;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (bucket(hd)) {
     case 64:
-      err = dispatch_dv<64>(bucket(hd_v), q, k, v, o, B, H, group, Sq, Sk, hd, hd_v, st, scale_log2, causal, s);
+      err = dispatch_dv<64>(bucket(hd_v), q, k, v, o, B, H, KH, Sq, Sk, hd, hd_v, st, scale_log2, causal, s);
       break;
     case 128:
-      err = dispatch_dv<128>(bucket(hd_v), q, k, v, o, B, H, group, Sq, Sk, hd, hd_v, st, scale_log2, causal, s);
+      err = dispatch_dv<128>(bucket(hd_v), q, k, v, o, B, H, KH, Sq, Sk, hd, hd_v, st, scale_log2, causal, s);
       break;
     default:
-      err = dispatch_dv<256>(bucket(hd_v), q, k, v, o, B, H, group, Sq, Sk, hd, hd_v, st, scale_log2, causal, s);
+      err = dispatch_dv<256>(bucket(hd_v), q, k, v, o, B, H, KH, Sq, Sk, hd, hd_v, st, scale_log2, causal, s);
       break;
   }
   return static_cast<int>(err);
+}
+
+extern "C" void repro_flash_attention_last_launch(int* info) {
+  for (int i = 0; i < 4; ++i) info[i] = last_launch[i];
 }

@@ -3,228 +3,514 @@
 // Replaces the TPU kernel repro/kernels/moe_gmm/kernel.py:grouped_matmul_kernel
 // (body _gmm_kernel).  It computes what that kernel computes — for every
 // expert e, out[e] = x[e] (C, D) @ w[e] (D, F), fp32 accumulation, one
-// rounding to bf16 at the end — but not its block structure:
+// rounding to bf16 at the end — and, like it, runs every expert, including
+// experts that hold no token.
 //
-// * one CUDA block per (64-row C tile, 128-column F tile, expert); a loop
-//   over D in 32-deep chunks inside the block replaces the TPU's sequential
-//   contraction grid axis and its fp32 VMEM scratch (the accumulator lives
-//   in registers here);
-// * four warps in a 2 x 2 layout, each owning a 32 x 64 piece of the tile;
-//   the products run on the tensor cores through mma.sync.m16n8k16 (bf16 in,
-//   fp32 accumulate).  x tiles feed the A operand through ldmatrix; w is read
-//   row-major (D, F) and feeds the B operand through ldmatrix.trans, so
-//   neither operand is transposed in memory;
-// * a 4-stage cp.async ring keeps three D chunks of x and w in flight while
-//   the fourth is multiplied (14 KB a stage, 55 KB of shared memory);
-// * ragged C, D and F are zero-filled on load (cp.async with a source size
-//   of 0) and masked on store, so the wrapper pads nothing — the TPU
-//   reference pads C / D / F to whole blocks only because Pallas needs them.
-//   D and F must be multiples of 8 (16-byte rows); the wrapper checks.
+// What bounds it on this card: device memory, at every shape of the serving
+// paths.  The expert weights are most of the bytes — 6.4 GB a launch at
+// jamba-1.5-large (E 16, D / F 8192 / 24576: 1.93-1.95 ms at 3.35 TB/s),
+// 268 MB at olmoe-1b-7b (E 64, D / F 2048 / 1024: 0.084-0.090 ms) — against
+// tensor work of at most 0.52 ms (jamba, C = 80) at 989 TFLOP/s.
 //
-// Bound on this card at the MoE serving path's shapes: memory.  A decode
-// launch (64, 32, 2048) @ (64, 2048, 1024) moves 281 MB, 268 MB of it the
-// expert weights, about 84 us at 3.35 TB/s, against 8.7 us of tensor work at
-// 989 TFLOP/s; a prefill launch (64, 80, 2048) @ (64, 2048, 1024) moves
-// 300 MB (90 us) against 22 us of tensor work.  So the design streams every
-// weight element from device memory exactly once per C tile (one C tile at
-// decode, two at prefill, the second read of a weight tile adjacent in the
-// grid so it hits L2), with 16-byte cp.async loads and loads kept in flight
-// behind the math.  At decode most of the 64-row tile is padding; that costs
-// tensor work, not bytes.  wgmma, TMA and an M tile sized to C are later work.
+// What held the first design back, on an H100 80GB HBM3 at 700 W as
+// chip_smoke.py timed it: each block owned a fixed 64-row C tile, so at C = 80
+// two tiles read every weight element from device memory — a jamba prefill
+// launch took 4.07-4.53 ms against the 2.22-2.31 ms of a decode launch
+// (C = 32) over the same weights, and torch.bmm's 2.05-2.07 ms; at C = 32
+// half of each 64-row mma.sync tile was padding; and all 128 threads spent
+// instructions on address math and 16-byte cp.async copies into a ring of
+// 4 x 14 KB, which reached about 87% of the memory rate at decode.
 //
-// Deterministic, and the same bits for a row wherever it sits: no split-K and
-// no atomics; every output element is summed over D in the same order (chunk
-// by chunk, 16 at a time), whatever C is, wherever the row lies in its tile
-// and whatever the other rows hold.  A token's expert output is therefore
+// This design:
+//
+// * the operands are swapped: the kernel computes out[e]^T = w[e]^T x[e]^T
+//   with wgmma, so F — the large dimension — is the 64-row M of the
+//   tensor-core product and C its N.  A is a 64 F x 16 D tile of w read
+//   from shared memory through a descriptor, MN-major (w is (D, F), F
+//   contiguous: the transpose bit); B is x's rows, K-major.  C pads to a
+//   multiple of 16 (NCH 16-row chunks, a template parameter), not to 64;
+// * every weight byte leaves device memory once, whatever C is: a tile is
+//   (expert, F strip, all of D, up to 256 C rows); one m64nNk16 instruction
+//   a 16-deep step multiplies a 64-row weight tile by all N = 16 NCH rows of
+//   the pass while the stage sits in shared memory, so each weight element
+//   is also read from shared memory once.  Only C > 256 takes a second pass
+//   over the weights.  A consumer warpgroup owns two 64-row F tiles while
+//   their accumulators fit in registers (NCH <= 8: a 256-column strip), one
+//   past that (128 columns): the wider strip halves how often x's rows are
+//   re-read from L2, which at jamba's prefill (C = 80) came to 4 GB a launch
+//   at 128 columns, beside the 6.4 GB of weights;
+// * TMA into an mbarrier ring: 3-D tensor maps over x (E, C, D) and
+//   w (E, D, F), 128-byte swizzled, zero-filled by the hardware past C, D
+//   and F, so nothing is masked on load.  One producer warp keeps the ring
+//   full; two consumer warpgroups run wgmma and release each stage as soon
+//   as the products that read it are done.  The ring takes as many stages
+//   as fit beside the epilogue's buffer (4 of 42 KB at C = 80, 5 of 36 KB at
+//   C = 32: 128-160 KB of weights in flight an SM);
+// * persistent: one block an SM walks the (expert, C pass, F strip) tiles,
+//   so one tile's epilogue overlaps the next tile's loads, and neighbouring
+//   blocks work on neighbouring strips of one expert (x[e] stays in L2);
+// * epilogue: one rounding to bf16 of the fp32 sums, transposed through
+//   shared memory, out's rows written 16 bytes a thread; rows >= C and
+//   columns >= F masked.
+//
+// Deterministic, and the same bits for a row wherever it sits: no split-K
+// and no atomics; every output element is summed over D in the same order
+// (16 at a time, 64 a stage), whatever C is, whatever N the instruction has
+// and whichever column of it the row lands in, and whatever the other rows
+// hold — the card tests hold a row's bits across C = 70 / 8 (N 80 / 16) and
+// C = 80 / 32 (N 80 / 32).  A token's expert output is therefore
 // bit-identical whichever serving slot and capacity row it lands in, which
-// crash-resume bit-identity rests on.
+// crash-resume rests on.
 //
-// C interface (loaded with ctypes): repro_grouped_matmul_bf16 returns the
-// cudaError_t of the launch (0 on success).  x (E, C, D), w (E, D, F) and
-// out (E, C, F) are contiguous.
+// C interface (loaded with ctypes): repro_grouped_matmul_bf16 returns a
+// cudaError_t (0 on success).  x (E, C, D), w (E, D, F) and out (E, C, F)
+// are contiguous and 16-byte aligned; D and F are multiples of 8 (TMA takes
+// 16-byte strides).  The tensor maps are encoded on the host at each call,
+// through cuTensorMapEncodeTiled from cudaGetDriverEntryPoint, so the
+// library needs no -lcuda.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BM = 64;        // C rows per block
-constexpr int BN = 128;       // F columns per block
-constexpr int BK = 32;        // D depth per pipeline stage
-constexpr int STAGES = 4;
-constexpr int NTHREADS = 128; // 4 warps, 2 x 2
-constexpr int WM = 32;        // rows per warp
-constexpr int WN = 64;        // columns per warp
-constexpr int LDA = BK + 8;   // padded smem row strides (bf16 elements):
-constexpr int LDB = BN + 8;   // 80 and 272 bytes, ldmatrix conflict-free
-constexpr int A_STAGE = BM * LDA;
-constexpr int B_STAGE = BK * LDB;
-constexpr size_t SMEM_BYTES = sizeof(__nv_bfloat16) * STAGES * (A_STAGE + B_STAGE);
+constexpr int BD = 64;                  // D depth a stage: one 128-byte row
+constexpr int CH = 16;                  // C rows a chunk (N = 16 NCH)
+constexpr int MAX_NCH = 16;             // at most 256 C rows a pass
+constexpr int MAX_STAGES = 8;
+constexpr int NCONSUMER = 256;          // two consumer warpgroups
+constexpr int NTHREADS = NCONSUMER + 32;  // and one producer warp
+constexpr int W_BOX_BYTES = 64 * BD * 2;  // a 64 F x 64 D box of w: 8 KB
+constexpr int SMEM_BUDGET = 227 * 1024;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte async copy global -> shared; src_bytes = 0 writes zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
+// ---- mbarriers -------------------------------------------------------------
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Wait for the phase of parity `parity` to complete.  A protocol fault traps
+// (the launch fails) after 10 s instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  uint64_t t0 = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    uint64_t now;
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+    if (t0 == 0) t0 = now;
+    else if (now - t0 > 10000000000ull) __trap();
+  }
+}
+
+// ---- TMA -------------------------------------------------------------------
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// ---- wgmma -----------------------------------------------------------------
+// Shared-memory matrix descriptor, 128-byte swizzle.  K-major (x): rows of
+// 128 bytes, 8-row groups 1024 bytes apart (SBO).  MN-major (w): each 128-byte
+// row holds 64 consecutive F of one D; groups of 8 D rows are 1024 bytes
+// apart (SBO); LBO, the stride between 64-wide F groups, is unused at M = 64.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  uint64_t d = static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>(1) << 16;             // LBO (unused), 16 bytes
+  d |= static_cast<uint64_t>(1024 >> 4) << 32;     // SBO
+  d |= static_cast<uint64_t>(1) << 62;             // 128-byte swizzle
+  return d;
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
+// d (64 F x N C, fp32) += A (64 F x 16 D, MN-major: the transpose bit)
+//                        * B (16 D x N C, K-major), N = 16 NCH.  One
+// instruction a 16-deep step for all of a pass's C rows, so each weight
+// element is read from shared memory once a pass.
+__device__ __forceinline__ void wgmma_n16(float (&d)[8], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// Issue the cp.async copies of D chunk `kt` into ring slot `slot`:
-// x rows [m0, m0+BM) x cols [k0, k0+BK) and w rows [k0, k0+BK) x cols
-// [n0, n0+BN); chunks past C, D or F are zero-filled.
-__device__ __forceinline__ void load_stage(__nv_bfloat16* As, __nv_bfloat16* Bs,
-                                           const __nv_bfloat16* xe,
-                                           const __nv_bfloat16* we, int C, int D,
-                                           int F, int m0, int n0, int kt) {
-  const int k0 = kt * BK;
-  constexpr int A_CHUNKS = BM * (BK / 8);  // 256: two per thread
-#pragma unroll
-  for (int i = 0; i < A_CHUNKS / NTHREADS; ++i) {
-    const int c = threadIdx.x + i * NTHREADS;
-    const int r = c / (BK / 8);
-    const int col = (c % (BK / 8)) * 8;
-    const bool ok = (m0 + r < C) && (k0 + col < D);
-    const __nv_bfloat16* src = ok ? xe + (size_t)(m0 + r) * D + k0 + col : xe;
-    cp_async16(As + r * LDA + col, src, ok ? 16 : 0);
-  }
-  constexpr int B_CHUNKS = BK * (BN / 8);  // 512: four per thread
-#pragma unroll
-  for (int i = 0; i < B_CHUNKS / NTHREADS; ++i) {
-    const int c = threadIdx.x + i * NTHREADS;
-    const int r = c / (BN / 8);
-    const int col = (c % (BN / 8)) * 8;
-    const bool ok = (k0 + r < D) && (n0 + col < F);
-    const __nv_bfloat16* src = ok ? we + (size_t)(k0 + r) * F + n0 + col : we;
-    cp_async16(Bs + r * LDB + col, src, ok ? 16 : 0);
-  }
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-gmm_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                __nv_bfloat16* __restrict__ out, int C, int D, int F) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Bs = As + STAGES * A_STAGE;
+__device__ __forceinline__ void wgmma_n48(float (&d)[24], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
 
-  const int m0 = blockIdx.x * BM;   // C tiles vary fastest: the tiles that
-  const int n0 = blockIdx.y * BN;   // share a weight tile run side by side
-  const int e = blockIdx.z;
-  const __nv_bfloat16* xe = x + (size_t)e * C * D;
-  const __nv_bfloat16* we = w + (size_t)e * D * F;
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n80(float (&d)[40], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, %40, %41, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n96(float (&d)[48], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, %48, %49, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n192(float (&d)[96], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, %96, %97, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int NCH>
+__device__ __forceinline__ void wgmma_tile(float (&d)[NCH * 8], uint64_t da, uint64_t db) {
+  if constexpr (NCH == 1) wgmma_n16(d, da, db, 1);
+  else if constexpr (NCH == 2) wgmma_n32(d, da, db, 1);
+  else if constexpr (NCH == 3) wgmma_n48(d, da, db, 1);
+  else if constexpr (NCH == 4) wgmma_n64(d, da, db, 1);
+  else if constexpr (NCH == 5) wgmma_n80(d, da, db, 1);
+  else if constexpr (NCH == 6) wgmma_n96(d, da, db, 1);
+  else if constexpr (NCH == 8) wgmma_n128(d, da, db, 1);
+  else if constexpr (NCH == 12) wgmma_n192(d, da, db, 1);
+  else wgmma_n256(d, da, db, 1);
+}
+
+// Keep the compiler from moving reads or writes of the accumulators across
+// the asynchronous products that own them.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&acc)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// A tile's F strip is 2 MT boxes of 64 columns: MT 64-row wgmma M tiles a
+// consumer warpgroup, two while the accumulators of both fit in registers.
+// Shared memory, from a 1024-aligned base: `stages` ring slots of
+// [2 MT w boxes of 64 F x 64 D | x box of NCH*16 rows x 64 D], then one
+// transpose buffer a consumer warpgroup, then the full / empty barriers.
+template <int NCH>
+struct Layout {
+  static constexpr int MT = NCH <= 8 ? 2 : 1;
+  static constexpr int NBOX = 2 * MT;
+  static constexpr int BF = 64 * NBOX;               // F columns a tile
+  static constexpr int X_BYTES = NCH * CH * 128;
+  static constexpr int STAGE = NBOX * W_BOX_BYTES + X_BYTES;
+  static constexpr int EPI_LD = 64 * MT + 8;         // bf16 a transpose row
+  static constexpr int EPI = NCH * CH * EPI_LD * 2;  // bytes a warpgroup
+  static constexpr int BARS = 2 * MAX_STAGES * 8;
+  static int stages() {
+    const int s = (SMEM_BUDGET - 1024 - 2 * EPI - BARS) / STAGE;
+    return s < MAX_STAGES ? s : MAX_STAGES;
+  }
+  static size_t bytes(int stages) { return 1024 + (size_t)stages * STAGE + 2 * EPI + BARS; }
+};
+
+template <int NCH>
+__global__ void __launch_bounds__(NTHREADS, 1)
+gmm_bf16_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
+                __nv_bfloat16* __restrict__ out, int C, int D, int F, int n_f, int n_pass,
+                int n_tiles, int stages) {
+  using L = Layout<NCH>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t epi0 = base + stages * L::STAGE;
+  const uint32_t bars = epi0 + 2 * L::EPI;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (MAX_STAGES + s); };
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int wm = (warp / 2) * WM;   // this warp's rows / columns in the tile
-  const int wn = (warp % 2) * WN;
-
-  float acc[WM / 16][WN / 8][4];
-#pragma unroll
-  for (int i = 0; i < WM / 16; ++i)
-#pragma unroll
-    for (int j = 0; j < WN / 8; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  const int nk = (D + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load_stage(As + s * A_STAGE, Bs + s * B_STAGE, xe, we, C, D, F, m0, n0, s);
-    cp_async_commit();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full(s), 1);        // the producer's arrive + the TMA bytes
+      mbar_init(empty(s), 8);       // one arrive a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();  // chunk kt has landed (this thread's copies)
-    __syncthreads();              // ... everyone's; and slot (kt-1) % STAGES is free
-    const int pre = kt + STAGES - 1;
-    if (pre < nk)
-      load_stage(As + (pre % STAGES) * A_STAGE, Bs + (pre % STAGES) * B_STAGE, xe, we, C,
-                 D, F, m0, n0, pre);
-    cp_async_commit();            // possibly empty: keeps the group count uniform
+  const int nk = (D + BD - 1) / BD;
+  constexpr int NCP = NCH * CH;     // C rows a pass
 
-    const __nv_bfloat16* A = As + (kt % STAGES) * A_STAGE;
-    const __nv_bfloat16* B = Bs + (kt % STAGES) * B_STAGE;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[WM / 16][4];
-#pragma unroll
-      for (int i = 0; i < WM / 16; ++i)   // rows (lane % 16), k half (lane / 16)
-        ldmatrix_x4(a[i], A + (wm + i * 16 + (lane % 16)) * LDA + kk + (lane / 16) * 8);
-#pragma unroll
-      for (int j = 0; j < WN / 16; ++j) {  // two n-tiles of 8 per ldmatrix
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, B + (kk + (lane % 16)) * LDB + wn + j * 16 + (lane / 16) * 8);
-#pragma unroll
-        for (int i = 0; i < WM / 16; ++i) {
-          mma_16816(acc[i][2 * j], a[i], b[0], b[1]);
-          mma_16816(acc[i][2 * j + 1], a[i], b[2], b[3]);
+  if (warp == NCONSUMER / 32) {     // ---- producer warp ----------------------
+    if (lane == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int fs = tile % n_f;
+        const int p = (tile / n_f) % n_pass;
+        const int e = tile / (n_f * n_pass);
+        const int f0 = fs * L::BF;
+        int nbox = (F - f0 + 63) / 64;  // the boxes that hold data
+        if (nbox > L::NBOX) nbox = L::NBOX;
+        const uint32_t bytes = W_BOX_BYTES * nbox + L::X_BYTES;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % stages;
+          mbar_wait(empty(s), ((it / stages) & 1) ^ 1);
+          const uint32_t st = base + s * L::STAGE;
+          mbar_expect_tx(full(s), bytes);
+          for (int i = 0; i < nbox; ++i)
+            tma_load_3d(st + i * W_BOX_BYTES, &tmw, full(s), f0 + 64 * i, kt * BD, e);
+          tma_load_3d(st + L::NBOX * W_BOX_BYTES, &tmx, full(s), kt * BD, p * NCP, e);
         }
       }
     }
+    return;
   }
-  cp_async_wait<0>();
 
-  // Epilogue: one rounding to bf16, rows < C and columns < F only.
-  const int g = lane / 4;
-  const int t = lane % 4;
-  __nv_bfloat16* oe = out + (size_t)e * C * F;
+  // ---- consumer warpgroups: wg owns F rows f0 + 64 MT wg .. + 64 MT - 1 ------
+  const int wg = warp / 4;
+  const int tid = threadIdx.x % 128;
+  const int g = lane / 4, t = lane % 4;
+  const int row_w = (warp % 4) * 16;   // this warp's 16 of the 64 F rows
+  __nv_bfloat16* epi = reinterpret_cast<__nv_bfloat16*>(gbase + (epi0 - base) + wg * L::EPI);
+  int it = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int fs = tile % n_f;
+    const int p = (tile / n_f) % n_pass;
+    const int e = tile / (n_f * n_pass);
+    const int fw = fs * L::BF + wg * 64 * L::MT;  // first F column of this warpgroup
+    const bool active = fw < F;
+    float acc[L::MT][NCH * 8];
 #pragma unroll
-  for (int i = 0; i < WM / 16; ++i) {
+    for (int m = 0; m < L::MT; ++m) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + wm + i * 16 + g + h * 8;
-      if (row >= C) continue;
+      for (int i = 0; i < NCH * 8; ++i) acc[m][i] = 0.f;
+      fence_acc(acc[m]);
+    }
+
+    int prev = -1;
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % stages;
+      mbar_wait(full(s), (it / stages) & 1);
+      const uint32_t st = base + s * L::STAGE;
+      wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < WN / 8; ++j) {
-        const int col = n0 + wn + j * 8 + t * 2;
-        if (col < F) {
-          __nv_bfloat162 v = __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-          *reinterpret_cast<__nv_bfloat162*>(oe + (size_t)row * F + col) = v;
+      for (int m = 0; m < L::MT; ++m) {
+        if (fw + 64 * m < F) {
+#pragma unroll
+          for (int kk = 0; kk < BD / 16; ++kk)   // A: 16 D rows; B: 16 D columns
+            wgmma_tile<NCH>(acc[m],
+                            desc_sw128(st + (wg * L::MT + m) * W_BOX_BYTES + kk * 2048),
+                            desc_sw128(st + L::NBOX * W_BOX_BYTES + kk * 32));
         }
+      }
+      wgmma_commit();
+      wgmma_wait<1>();                // the previous stage's products are done
+      if (prev >= 0 && lane == 0) mbar_arrive(empty(prev));
+      prev = s;
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int m = 0; m < L::MT; ++m) fence_acc(acc[m]);
+    if (lane == 0) mbar_arrive(empty(prev));
+
+    // Epilogue: acc[m][i] is out^T at F row 64 m + row_w + g + 8 ((i / 2) % 2)
+    // and C column 8 (i / 4) + 2 t + i % 2.  Transpose through shared memory,
+    // then write 16 bytes a thread along out's rows.
+    named_sync(1 + wg, 128);          // the previous tile's stores have read epi
+    if (active) {
+#pragma unroll
+      for (int m = 0; m < L::MT; ++m)
+#pragma unroll
+        for (int i = 0; i < NCH * 8; ++i) {
+          const int fr = 64 * m + row_w + g + 8 * ((i / 2) % 2);
+          const int cc = 8 * (i / 4) + 2 * t + (i % 2);
+          epi[cc * L::EPI_LD + fr] = __float2bfloat16_rn(acc[m][i]);
+        }
+    }
+    named_sync(1 + wg, 128);
+    if (active) {
+      constexpr int CPR = 8 * L::MT;  // 16-byte chunks a row
+      const int c0 = p * NCP;
+      __nv_bfloat16* oe = out + (size_t)e * C * F;
+      for (int idx = tid; idx < NCP * CPR; idx += 128) {
+        const int cc = idx / CPR, ch = idx % CPR;
+        const int f = fw + ch * 8;
+        if (c0 + cc < C && f < F)
+          *reinterpret_cast<uint4*>(oe + (size_t)(c0 + cc) * F + f) =
+              *reinterpret_cast<const uint4*>(epi + cc * L::EPI_LD + ch * 8);
       }
     }
   }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 3-D bf16 tensor map (dims innermost first), 128-byte swizzle, zero fill.
+bool encode_3d(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1, uint64_t d2,
+               uint32_t b0, uint32_t b1) {
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
+  const cuuint32_t box[3] = {b0, b1, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                   strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                   CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The configuration of the last launch, for a report: NCH, ring stages,
+// dynamic shared memory in bytes, blocks.
+int last_launch[4];
+
+template <int NCH>
+cudaError_t launch(const void* x, const void* w, void* out, int E, int C, int D, int F,
+                   cudaStream_t stream) {
+  using L = Layout<NCH>;
+  CUtensorMap tmx, tmw;
+  if (!encode_3d(&tmx, x, D, C, E, BD, NCH * CH) || !encode_3d(&tmw, w, F, D, E, 64, BD))
+    return cudaErrorInvalidValue;
+  const int stages = L::stages();
+  const size_t smem = L::bytes(stages);
+  cudaError_t err = cudaFuncSetAttribute(
+      gmm_bf16_kernel<NCH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  static int n_sm = 0;
+  if (n_sm == 0) {
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  const int n_f = (F + L::BF - 1) / L::BF;
+  const int n_pass = (C + NCH * CH - 1) / (NCH * CH);
+  const long long n_tiles = (long long)E * n_pass * n_f;
+  if (n_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int grid = n_tiles < n_sm ? (int)n_tiles : n_sm;
+  last_launch[0] = NCH;
+  last_launch[1] = stages;
+  last_launch[2] = (int)smem;
+  last_launch[3] = grid;
+  gmm_bf16_kernel<NCH><<<grid, NTHREADS, smem, stream>>>(
+      tmx, tmw, static_cast<__nv_bfloat16*>(out), C, D, F, n_f, n_pass, (int)n_tiles, stages);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int repro_grouped_matmul_bf16(const void* x, const void* w, void* out, int E,
                                          int C, int D, int F, void* stream) {
-  if (E < 1 || E > 65535 || C < 1 || D < 8 || F < 8 || D % 8 != 0 || F % 8 != 0)
+  if (E < 1 || E > 65535 || C < 1 || D < 8 || F < 8 || D % 8 != 0 || F % 8 != 0 ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+       reinterpret_cast<uintptr_t>(out)) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      gmm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((C + BM - 1) / BM, (F + BN - 1) / BN, E);
-  gmm_bf16_kernel<<<grid, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<__nv_bfloat16*>(out), C, D, F);
-  return static_cast<int>(cudaGetLastError());
+  if (encoder() == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the fewest 16-row chunks that hold C (C > 256 takes passes of 256)
+  const int nch = (C + CH - 1) / CH;
+  cudaError_t err;
+  if (nch <= 1) err = launch<1>(x, w, out, E, C, D, F, s);
+  else if (nch <= 2) err = launch<2>(x, w, out, E, C, D, F, s);
+  else if (nch <= 3) err = launch<3>(x, w, out, E, C, D, F, s);
+  else if (nch <= 4) err = launch<4>(x, w, out, E, C, D, F, s);
+  else if (nch <= 5) err = launch<5>(x, w, out, E, C, D, F, s);
+  else if (nch <= 6) err = launch<6>(x, w, out, E, C, D, F, s);
+  else if (nch <= 8) err = launch<8>(x, w, out, E, C, D, F, s);
+  else if (nch <= 12) err = launch<12>(x, w, out, E, C, D, F, s);
+  else err = launch<MAX_NCH>(x, w, out, E, C, D, F, s);
+  return static_cast<int>(err);
+}
+
+extern "C" void repro_grouped_matmul_last_launch(int* info) {
+  for (int i = 0; i < 4; ++i) info[i] = last_launch[i];
 }

@@ -9,15 +9,19 @@ machine with the card, where there is no JAX:
 * the flash-attention kernel against its plain version at small ragged,
   GQA, ``hd_v != hd`` and non-causal shapes (bf16; max abs error 2e-2 =
   bf16 output rounding, one ulp near 1 is 7.8e-3), one launch counted per
-  call;
+  call; and at the edges of its tiles and buckets (Sq 1, Sq 65, non-causal
+  Sq != Sk, hd 64 and 256, hd_v != hd), each run twice with the same bits;
 * the dispatcher refuses what the kernel does not take (it never falls
   back to the plain version for a CUDA tensor);
 * a serving run of the olmo-1b smoke config on the card launches the
   kernel once per layer per prefill;
 * the grouped-matmul kernel against its plain version at small ragged
   shapes (bf16; limit 1e-2 * max|plain| elementwise: one rounding of the
-  fp32 sum to bf16 is half an ulp, 3.9e-3 relative), a row's output
-  bit-identical wherever the row sits, the dispatcher's refusals, and an
+  fp32 sum to bf16 is half an ulp, 3.9e-3 relative) — C 1 to 300 (one
+  16-row chunk, several, past 128 rows, two passes of 256), D 1000, F 72
+  and F not a multiple of 64 — a row's output bit-identical wherever the
+  row sits (C 70 / 8, and the capacities C 80 / 32), the dispatcher's
+  refusals, and an
   olmoe-1b-7b smoke serving run that launches it 3 times per MoE block
   per forward (6 = 3 x 2 blocks, prefills and decode ticks alike) while
   the flash kernel runs once per layer per prefill;
@@ -103,6 +107,37 @@ def test_kernel_is_deterministic(cuda):
     assert torch.equal(a, b)
 
 
+EDGE_CASES = [
+    # B, H, K, Sq, Sk, hd, hd_v, causal
+    (1, 4, 2, 1, 1, 128, 128, True),        # one row
+    (2, 4, 4, 1, 77, 128, 128, False),      # one row against a cache
+    (1, 4, 2, 65, 65, 128, 128, True),      # one row past a q tile
+    (1, 2, 2, 65, 130, 128, 128, False),    # non-causal, Sq != Sk
+    (1, 4, 2, 200, 200, 64, 64, True),      # hd 64
+    (1, 2, 1, 150, 150, 256, 256, True),    # hd 256
+    (1, 4, 2, 130, 130, 128, 64, True),     # hd_v < hd
+    (1, 2, 2, 100, 160, 64, 256, False),    # hd_v > hd
+    (1, 8, 1, 300, 300, 256, 128, True),    # hd 256, hd_v 128, GQA 8
+    (2, 48, 8, 200, 200, 128, 128, True),   # more q tiles than SMs
+    (1, 48, 4, 200, 230, 256, 128, False),  # ... at hd 256, non-causal
+]
+
+
+@pytest.mark.parametrize("case", EDGE_CASES, ids=[
+    f"B{c[0]}H{c[1]}K{c[2]}S{c[3]}x{c[4]}hd{c[5]}v{c[6]}"
+    f"{'c' if c[7] else 'f'}" for c in EDGE_CASES])
+def test_kernel_edges_match_plain_version_bit_for_bit_twice(case, cuda):
+    B, H, K, Sq, Sk, hd, hd_v, causal = case
+    q, k, v = _inputs(case, cuda, seed=14)
+    out = ops.flash_attention(q, k, v, causal=causal)
+    again = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert out.shape == (B, Sq, K, H // K, hd_v)
+    ref = ops.plain_attention(q.float(), k.float(), v.float(), causal=causal)
+    assert float((out.float() - ref).abs().max()) <= 2e-2
+
+
 @pytest.mark.parametrize("bad", ["float32", "strided", "hd_not_mult_8"])
 def test_dispatcher_raises_on_what_the_kernel_does_not_take(bad, cuda):
     q, k, v = _inputs(CASES[0], cuda, seed=5)
@@ -140,6 +175,15 @@ GMM_CASES = [  # E, C, D, F
     (2, 70, 136, 264),      # two C tiles, ragged F over three tiles
     (4, 32, 256, 128),      # the decode layout at small width
     (1, 8, 8, 8),           # the smallest shape the kernel takes
+    (2, 1, 128, 128),       # C 1: one row of one 16-row chunk
+    (2, 8, 64, 256),        # C 8
+    (3, 32, 512, 384),      # C 32: the decode capacity, two chunks
+    (2, 80, 448, 256),      # C 80: the prefill capacity, five chunks
+    (2, 129, 256, 136),     # past 128 rows; F past one 128-column strip
+    (2, 256, 128, 200),     # the most rows one pass holds; F % 64 != 0
+    (2, 300, 136, 72),      # two passes over the weights
+    (3, 48, 1000, 256),     # D 1000: a ragged last 64-deep stage
+    (2, 40, 264, 72),       # F 72: the second 64-column box past F
 ]
 
 
@@ -176,6 +220,12 @@ def test_grouped_matmul_row_bits_do_not_depend_on_where_the_row_sits(cuda):
     part = gmm_ops.grouped_matmul(x[:, 3:11].contiguous(), w)
     assert torch.equal(part, out[:, 3:11])
     assert torch.equal(gmm_ops.grouped_matmul(x, w), out)
+    # the prefill and decode capacities: rows 40..71 of a C = 80 buffer
+    # alone in a C = 32 one
+    x, w = _gmm_inputs((2, 80, 448, 256), cuda, seed=17)
+    out = gmm_ops.grouped_matmul(x, w)
+    part = gmm_ops.grouped_matmul(x[:, 40:72].contiguous(), w)
+    assert torch.equal(part, out[:, 40:72])
 
 
 @pytest.mark.parametrize("bad", ["float32", "strided", "d_not_mult_8",
