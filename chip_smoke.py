@@ -22,8 +22,9 @@ layers) and prints one line per phase:
    library are timed in turns (library, kernel, kernel, library, twice)
    and the median of each is kept, printed beside kernel/library and
    kernel/bound; speed is printed, never checked:
-   * flash attention (two warpgroups splitting a 64-row q tile's kv tiles,
-     a cp.async ring each, ldmatrix into mma.sync) at the path's shape
+   * flash attention (one block a 64-row q tile, its kv tiles split
+     between two warpgroups while q tiles are fewer than SMs; K / V by TMA
+     into an mbarrier ring, both products on wgmma) at the path's shape
      (1, 16, 512, 128) causal, at jamba-1.5-large's (1, 64 heads over 8 kv
      heads, 512, 128) and at ragged, GQA, hd_v != hd and non-causal
      shapes: max abs error against the fp32 plain version (limit 2e-2:
@@ -38,11 +39,19 @@ layers) and prints one line per phase:
      elementwise
      |kernel - plain_fp32| <= 1e-2 * max|plain_fp32| (one rounding to
      bf16 is half an ulp, 3.9e-3 relative); library: ``torch.bmm``;
-   * the WKV-6 recurrence at the rwkv6-7b path's two shapes (prefill
-     (1, 512, 64, 64), decode (4, 1, 64, 64)), at ragged T and at the
-     reference's sweep shapes: y and S against the fp32 step-by-step
-     oracle ``wkv6_ref`` on the same bf16-valued inputs, elementwise within
-     1e-3 x max|oracle| (fp32 sums in another order); plain: the
+   * the WKV-6 recurrence (two routes chosen by T: below 64 steps the
+     step recurrence with S in registers, read and written coalesced; at
+     64 and above the chunked closed form in three launches, the chunks of
+     a head in parallel, TF32 tensor-core products with split operands)
+     at the rwkv6-7b path's two shapes (prefill (1, 512, 64, 64), decode
+     (4, 1, 64, 64)), at ragged T, at the routes' threshold (63, 64), at
+     the edges of 64-step chunks and 16-step sub-blocks, at 2048 steps,
+     with strong and near-identity decays and at the reference's sweep
+     shapes: y and S against the fp32 step-by-step oracle ``wkv6_ref`` on
+     the same bf16-valued inputs, elementwise within 1e-3 x max|oracle|
+     (TF32 products with split operands, fp32 sums in another order), and
+     a row of every B > 1 case bit-identical to a B = 1 call; the output
+     launch's configuration and the scratch bytes printed; plain: the
      dispatcher's plain version (chunked form, Q = 256; the direct
      recurrence at T = 1); bound: the larger of the bytes (r, k, v bf16,
      logw, u, y fp32, S in and out) at 3.35 TB/s and the operations of
@@ -521,26 +530,46 @@ def wkv_bound_ms(B, T, H, n, Q=16) -> tuple:
 
 def phase_wkv(torch, wkv_ops):
     """Phase 3: the WKV-6 kernel against its plain versions on the card,
-    timed at the rwkv6-7b path's two shapes."""
+    timed at the rwkv6-7b path's two shapes, on both of its routes, with
+    a (b, h) row's bits held against a B = 1 call on each."""
     from repro_torch.kernels.rwkv6 import kernel
     from repro_torch.kernels.rwkv6.ref import wkv6_ref
-    cases = [  # (name, B, T, H, n, timed)
-        ("prefill", 1, 512, 64, 64, True),
-        ("decode", 4, 1, 64, 64, True),
-        ("ragged_t37", 2, 37, 8, 64, False),
-        ("sweep_n32", 2, 128, 2, 32, False),
-        ("sweep_n64", 1, 96, 4, 64, False),
-        ("sweep_n16", 2, 100, 2, 16, False),
-        ("sweep_t33", 1, 33, 1, 64, False),
+    cases = [  # (name, B, T, H, n, timed, log decay)
+        ("prefill", 1, 512, 64, 64, True, None),
+        ("decode", 4, 1, 64, 64, True, None),
+        ("ragged_t37", 2, 37, 8, 64, False, None),
+        ("sweep_n32", 2, 128, 2, 32, False, None),
+        ("sweep_n64", 1, 96, 4, 64, False, None),
+        ("sweep_n16", 2, 100, 2, 16, False, None),
+        ("sweep_t33", 1, 33, 1, 64, False, None),
+        # the routes' threshold, the edges of 64-step chunks and 16-step
+        # sub-blocks, many chunks, a batch the rows must not depend on
+        ("step_t63", 1, 63, 4, 64, False, None),
+        ("chunked_t64", 1, 64, 4, 64, False, None),
+        ("chunk_edge_t65", 2, 65, 3, 32, False, None),
+        ("chunk_edge_t129_n16", 1, 129, 2, 16, False, None),
+        ("many_chunks_t2048", 1, 2048, 8, 64, False, None),
+        ("batch5_t300", 5, 300, 3, 32, False, None),
+        # log decays -exp(x): x in [1, 3] forgets within a step, x in
+        # [-9, -7] keeps nearly everything
+        ("strong_decay_t1", 4, 1, 8, 64, False, "strong"),
+        ("strong_decay_t200", 2, 200, 4, 64, False, "strong"),
+        ("weak_decay_t40", 1, 40, 4, 64, False, "weak"),
+        ("weak_decay_t2048", 1, 2048, 8, 64, False, "weak"),
     ]
     gen = torch.Generator("cuda").manual_seed(5678)
     rows = {}
-    for name, B, T, H, n, timed in cases:
+    for name, B, T, H, n, timed, decay in cases:
         def randn(*shape):
             return torch.randn(shape, generator=gen, device="cuda")
         r, v = randn(B, T, H, n).bfloat16(), randn(B, T, H, n).bfloat16()
         k = (randn(B, T, H, n) * 0.5).bfloat16()
-        logw = -torch.exp(randn(B, T, H, n) * 0.5)
+        if decay is None:
+            logw = -torch.exp(randn(B, T, H, n) * 0.5)
+        else:
+            lo, hi = {"strong": (1.0, 3.0), "weak": (-9.0, -7.0)}[decay]
+            logw = -torch.exp(lo + (hi - lo) * torch.rand(
+                (B, T, H, n), generator=gen, device="cuda"))
         u, S0 = randn(H, n) * 0.3, randn(B, H, n, n) * 0.1
         y, S = wkv_ops.wkv6(r, k, v, logw, u, S0)
         torch.cuda.synchronize()
@@ -554,12 +583,23 @@ def phase_wkv(torch, wkv_ops):
             check(err <= limit, f"wkv6 {name}: {what} max abs err {err} > "
                                 f"{limit}")
             errs[what] = (err, limit)
-        row = dict(shape=[B, T, H, n], max_abs_err=max(errs["y"][0],
-                                                       errs["S"][0]),
+        route = "chunked" if T >= kernel.CHUNKED_MIN_T else "step"
+        row = dict(shape=[B, T, H, n], route=route,
+                   max_abs_err=max(errs["y"][0], errs["S"][0]),
                    errs={w: list(e) for w, e in errs.items()})
-        msg = (f"kernel wkv6 {name}: B={B} T={T} H={H} n={n} y max_abs_err="
-               f"{errs['y'][0]:.3e} (limit {errs['y'][1]:.3e}) S max_abs_err="
-               f"{errs['S'][0]:.3e} (limit {errs['S'][1]:.3e})")
+        msg = (f"kernel wkv6 {name}: B={B} T={T} H={H} n={n} ({route} "
+               f"route) y max_abs_err={errs['y'][0]:.3e} (limit "
+               f"{errs['y'][1]:.3e}) S max_abs_err={errs['S'][0]:.3e} "
+               f"(limit {errs['S'][1]:.3e})")
+        if B > 1:
+            b = B // 2
+            one = wkv_ops.wkv6(*(t[b:b + 1].contiguous()
+                                 for t in (r, k, v, logw)), u,
+                               S0[b:b + 1].contiguous())
+            check(torch.equal(one[0], y[b:b + 1])
+                  and torch.equal(one[1], S[b:b + 1]),
+                  f"wkv6 {name}: row {b}'s bits depend on B")
+            msg += f"; row {b} bit-identical at B=1"
         if timed:
             yb, Sb = torch.empty_like(y), torch.empty_like(S)
             kernel_ms = device_ms(lambda: kernel.wkv6_fwd(
@@ -569,12 +609,19 @@ def phase_wkv(torch, wkv_ops):
             plain_ms = device_ms(lambda: wkv_ops.plain_wkv6(
                 r, k, v, logw, u, S0), reps=2, replays=5)
             bound_ms, bound_by = wkv_bound_ms(B, T, H, n)
+            config = launch_config(kernel, "repro_wkv6_last_launch")
+            scratch = (kernel.library().repro_wkv6_scratch_bytes(B, T, H, n)
+                       if route == "chunked" else 0)
             row.update(kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms,
                        plain_ms=plain_ms, library_ms=None,
-                       bound_ms=bound_ms, bound_by=bound_by)
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       launch=config, scratch_bytes=scratch)
             msg += (f" kernel_ms={kernel_ms:.5f} (per eager call "
                     f"{kernel_call_ms:.5f}) plain_ms={plain_ms:.5f} "
-                    f"library_ms=none bound_ms={bound_ms:.5f} ({bound_by})")
+                    f"library_ms=none bound_ms={bound_ms:.5f} ({bound_by}); "
+                    f"output launch: {config[0]} threads, chunk "
+                    f"{config[1]}, {config[2]} B dynamic shared memory, "
+                    f"{config[3]} blocks; scratch {scratch} B")
         rows[name] = row
         print(msg, flush=True)
         del r, k, v, logw, u, S0, y, S, y_ref, S_ref
@@ -682,7 +729,9 @@ def phase_profile(torch, engine, trace, ticks: int = 8) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
     ours = {"flash_fwd_kernel": [], "gmm_bf16_kernel": [],
-            "wkv6_fwd_kernel": [], "selective_scan_kernel": []}
+            "wkv6_step_kernel": [], "wkv6_chunk_state_kernel": [],
+            "wkv6_chunk_scan_kernel": [], "wkv6_chunk_out_kernel": [],
+            "selective_scan_kernel": []}
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
             by_name[ev.name] = (by_name.get(ev.name, 0.0)

@@ -14,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.attention import kernel
 from repro_torch.kernels.attention.ref import attention_ref
 
@@ -55,6 +56,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     B, S, K, G, hd = q.shape
     scale = hd ** -0.5 if scale is None else scale
     if q.device.type == "cuda":
+        refuse_grad("flash_attention", q, k, v)
         _check_cuda(q, k, v)
         out = torch.empty((B, S, K, G, v.shape[-1]), dtype=q.dtype,
                           device=q.device)

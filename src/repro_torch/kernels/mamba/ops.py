@@ -14,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.mamba import kernel
 from repro_torch.kernels.mamba.ref import selective_scan_ref
 
@@ -72,6 +73,7 @@ def selective_scan(dA, dBu, C, h0: Optional[torch.Tensor] = None, *,
     itself (the serving cache, updated in place)."""
     global LAUNCHES
     if dA.device.type == "cuda":
+        refuse_grad("selective_scan", dA, dBu, C, h0)
         _check_cuda(dA, dBu, C, h0, h_out)
         B, S, I, N = dA.shape
         if h0 is None:

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.moe_gmm import kernel
 from repro_torch.kernels.moe_gmm.ref import grouped_matmul_ref
 
@@ -49,6 +50,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     accumulation."""
     global LAUNCHES
     if x.device.type == "cuda":
+        refuse_grad("grouped_matmul", x, w)
         _check_cuda(x, w)
         out = torch.empty((x.shape[0], x.shape[1], w.shape[2]),
                           dtype=x.dtype, device=x.device)

@@ -5,6 +5,10 @@ The CUDA source has a plain C interface; it is compiled at first use by
 ``kernels.build`` and loaded with ctypes (pointers and the stream as
 ``c_void_p``).  The kernel reads the model layout (B, T, H, n) directly, so
 nothing is transposed or padded here.
+
+The source has two routes, chosen by T alone: the step recurrence below
+``CHUNKED_MIN_T`` steps (the decode tick), the chunked closed form at or
+above it, which needs a scratch buffer that this binding allocates.
 """
 from __future__ import annotations
 
@@ -16,9 +20,13 @@ import torch
 from repro_torch.kernels import build
 
 NAME = "wkv6"
+#: T at or above which the source takes the chunked route (its
+#: ``CHUNKED_MIN_T``, checked when the library loads)
+CHUNKED_MIN_T = 64
 _C = ctypes.c_int
 _P = ctypes.c_void_p
 _ARGTYPES = [_P] * 8 + [_C] * 4 + [_P]
+_CHUNKED_ARGTYPES = [_P] * 9 + [_C] * 4 + [_P]
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -28,9 +36,16 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = build.load(NAME)
-        fn = lib.repro_wkv6_fwd
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+        for fn, args in ((lib.repro_wkv6_fwd, _ARGTYPES),
+                         (lib.repro_wkv6_fwd_chunked, _CHUNKED_ARGTYPES)):
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        lib.repro_wkv6_scratch_bytes.argtypes = [_C] * 4
+        lib.repro_wkv6_scratch_bytes.restype = ctypes.c_longlong
+        lib.repro_wkv6_chunked_min_t.restype = ctypes.c_int
+        if lib.repro_wkv6_chunked_min_t() != CHUNKED_MIN_T:
+            raise RuntimeError("csrc/wkv6.cu's CHUNKED_MIN_T is not "
+                               f"{CHUNKED_MIN_T}")
         _lib = lib
     return _lib
 
@@ -42,12 +57,21 @@ def wkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logw (B, T, H, n) fp32, u (H, n) fp32, S0 (B, H, n, n) fp32 -> y
     (B, T, H, n) fp32 and S (B, H, n, n) fp32, which may be S0 itself.
     All contiguous on one CUDA device — the dispatcher (``ops.wkv6``)
-    checks that.  Raises if the launch is refused."""
+    checks that.  At T >= ``CHUNKED_MIN_T`` the chunked route's scratch
+    (each 64-step chunk's state increment, then its start state, and its
+    decay: B x H x ceil(T / 64) x (n x n + n) fp32) comes from
+    ``torch.empty`` on the same stream.  Raises if a launch is refused."""
     B, T, H, n = r.shape
+    lib = library()
     stream = torch.cuda.current_stream(r.device).cuda_stream
-    err = library().repro_wkv6_fwd(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-        u.data_ptr(), S0.data_ptr(), y.data_ptr(), S.data_ptr(),
-        B, T, H, n, stream)
+    ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+            u.data_ptr(), S0.data_ptr(), y.data_ptr(), S.data_ptr())
+    if T >= CHUNKED_MIN_T:
+        scratch = torch.empty(lib.repro_wkv6_scratch_bytes(B, T, H, n),
+                              dtype=torch.uint8, device=r.device)
+        err = lib.repro_wkv6_fwd_chunked(*ptrs, scratch.data_ptr(), B, T, H,
+                                         n, stream)
+    else:
+        err = lib.repro_wkv6_fwd(*ptrs, B, T, H, n, stream)
     if err != 0:
         raise RuntimeError(f"wkv6 kernel launch failed: cudaError_t {err}")

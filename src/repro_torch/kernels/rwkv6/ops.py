@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.rwkv6 import kernel
 from repro_torch.kernels.rwkv6.ref import wkv6_chunked, wkv6_ref
 
@@ -86,6 +87,7 @@ def wkv6(r, k, v, logw, u, S0: Optional[torch.Tensor] = None, *,
     place).  ``chunk`` is the plain chunked form's Q (the CPU path only)."""
     global LAUNCHES
     if r.device.type == "cuda":
+        refuse_grad("wkv6", r, k, v, logw, u, S0)
         _check_cuda(r, k, v, logw, u, S0, state_out)
         B, T, H, n = r.shape
         if S0 is None:

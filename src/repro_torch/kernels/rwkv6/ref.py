@@ -85,3 +85,102 @@ def wkv6_chunked(r, k, v, logw, u, S0=None, *, chunk: int = 256):
                + torch.einsum("bshi,bshj->bhij", k_tilde, v_c))
         ys.append(y_inter + y_intra)
     return torch.cat(ys, 1)[:, :T], S_c
+
+
+def _round_operand(x, operands: Optional[str]):
+    """A product operand as the card's tensor cores take it: None keeps
+    fp32, "tf32" rounds to TF32 (10 mantissa bits, to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32``: the low 13 bits cleared),
+    "bf16" rounds to bf16."""
+    if operands is None:
+        return x
+    if operands == "bf16":
+        return x.bfloat16().float()
+    if operands == "tf32":
+        bits = x.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    raise ValueError(f"operands {operands!r}: want None, 'tf32' or 'bf16'")
+
+
+def _mm(a, b, operands: Optional[str], split: bool):
+    """a @ b with the operands rounded as ``operands`` says; ``split``
+    adds the products of the rounding remainders (a = a_hi + a_lo: a_hi b_hi
+    + a_lo b_hi + a_hi b_lo, the three-pass TF32 product), which leaves
+    an error near fp32's."""
+    a_hi, b_hi = _round_operand(a, operands), _round_operand(b, operands)
+    out = a_hi @ b_hi
+    if split and operands is not None:
+        out = (out + _round_operand(a - a_hi, operands) @ b_hi
+               + a_hi @ _round_operand(b - b_hi, operands))
+    return out
+
+
+def wkv6_subblocks(r, k, v, logw, u, S0=None, *, chunk: int = 64,
+                   sub: int = 16, operands: Optional[str] = None,
+                   split: bool = False):
+    """The decomposition ``csrc/wkv6.cu``'s chunked route computes, in
+    plain torch, for the tests: the chunked closed form with each chunk's
+    (Q, Q) scores factored by sub-blocks of ``sub`` steps, every exponent
+    <= 0.
+
+    Per chunk, with logP the inclusive cumulative log decay from the
+    chunk's start (logP_{-1} = 0):
+
+    * y_inter = (r_t exp(logP_{t-1})) S_c, a product;
+    * scores of t in sub-block i against s in an earlier sub-block j, a
+      product over channels, split at e, the last step of j:
+      exp(logP_{t-1} - logP_s) = exp(logP_{t-1} - logP_e) exp(logP_e -
+      logP_s), both factors <= 1;
+    * scores inside a sub-block (s < t) in fp32 with the decay as the
+      running product of w = exp(logw) over s < m < t, and the bonus
+      r_t . (u k_t) on the diagonal;
+    * y_intra = scores @ v, a product;
+    * S_{c+1} = exp(logP_{Q-1}) S_c + (k_s exp(logP_{Q-1} - logP_s))^T v,
+      a product and an fp32 update.
+
+    ``operands`` rounds every product's operands as the card's tensor
+    cores take them (None, "tf32" or "bf16"), ``split`` adds the
+    remainders' products (see ``_mm``).  A ragged tail reads as logw = 0
+    and r = k = v = 0.  Returns y (B, T, H, n) and the final state, fp32.
+    """
+    B, T, H, n = r.shape
+    Q, L = chunk, sub
+    assert Q % L == 0
+    pad = -T % Q
+    # (B, H, T, n)
+    rf, kf, vf, lw = (a.float().transpose(1, 2) for a in (r, k, v, logw))
+    if pad:
+        rf, kf, vf, lw = (torch.nn.functional.pad(a, (0, 0, 0, pad))
+                          for a in (rf, kf, vf, lw))
+    uf = u.float()[None, :, None, :]                       # (1, H, 1, n)
+    mm = lambda a, b: _mm(a, b, operands, split)           # noqa: E731
+    S = _state0(r, S0).clone()
+    ys = []
+    for c0 in range(0, rf.shape[2], Q):
+        r_c, k_c, v_c, lw_c = (a[:, :, c0:c0 + Q] for a in (rf, kf, vf, lw))
+        logP = torch.cumsum(lw_c, 2)                       # inclusive
+        logPm1 = torch.nn.functional.pad(logP, (0, 0, 1, 0))[:, :, :Q]
+        w = torch.exp(lw_c)
+        y = mm(r_c * torch.exp(logPm1), S)
+        A = r_c.new_zeros((B, H, Q, Q))
+        for i in range(0, Q, L):
+            ti = slice(i, i + L)
+            for j in range(0, i, L):
+                sj = slice(j, j + L)
+                e = logP[:, :, j + L - 1:j + L]             # (B, H, 1, n)
+                A[:, :, ti, sj] = mm(r_c[:, :, ti] * torch.exp(logPm1[:, :, ti] - e),
+                                     (k_c[:, :, sj] * torch.exp(e - logP[:, :, sj]))
+                                     .transpose(2, 3))
+            # inside the sub-block: running products of w, fp32
+            for s in range(i, i + L):
+                A[:, :, s, s] = (r_c[:, :, s] * uf[:, :, 0] * k_c[:, :, s]).sum(-1)
+                W = torch.ones_like(k_c[:, :, s])
+                for t in range(s + 1, i + L):
+                    A[:, :, t, s] = (r_c[:, :, t] * k_c[:, :, s] * W).sum(-1)
+                    W = W * w[:, :, t]
+        y = y + mm(A, v_c)
+        k_tilde = k_c * torch.exp(logP[:, :, -1:] - logP)
+        S = torch.exp(logP[:, :, -1])[..., None] * S + mm(k_tilde.transpose(2, 3),
+                                                          v_c)
+        ys.append(y)
+    return torch.cat(ys, 2)[:, :, :T].transpose(1, 2), S

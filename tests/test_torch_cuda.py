@@ -27,12 +27,15 @@ machine with the card, where there is no JAX:
   the flash kernel runs once per layer per prefill;
 * the WKV-6 kernel against the fp32 step-by-step oracle on the same
   bf16-valued inputs, on the reference's sweep shapes, the rwkv6-7b
-  path's two shapes (prefill (1, 512, 64, 64), decode (4, 1, 64, 64)) and
-  ragged T (y and S within 1e-3 x max|oracle|: fp32 sums in another
-  order), the state written in place over S0 with the same bits, a
-  (b, h) row bit-identical whatever B is and whatever the other rows
-  hold, the dispatcher's refusals, and an rwkv6-7b smoke serving run that
-  launches it once per layer per prefill and per decode tick;
+  path's two shapes (prefill (1, 512, 64, 64), decode (4, 1, 64, 64)),
+  ragged T, T at the step / chunked routes' threshold (63, 64) and at the
+  edges of the 64-step chunks and 16-step sub-blocks, 2048 steps (32
+  chunks), and strong and near-identity decays (y and S within 1e-3 x
+  max|oracle|: TF32 products with split operands, fp32 sums in another
+  order); on both routes the state written in place over S0 with the same
+  bits and a (b, h) row bit-identical whatever B is and whatever the other
+  rows hold; the dispatcher's refusals, and an rwkv6-7b smoke serving run
+  that launches it once per layer per prefill and per decode tick;
 * the selective-scan kernel against the fp32 step recurrence on the
   reference's sweep shapes (``SCAN_CASES``), the jamba-1.5-large path's
   two shapes (prefill chunk (1, 256, 16384, 16), decode (4, 1, 16384, 16)),
@@ -43,7 +46,10 @@ machine with the card, where there is no JAX:
   hold, the dispatcher's refusals, and a jamba smoke serving run that
   launches it once per mamba layer per prefill chunk and per decode tick,
   the flash kernel once per attention layer per prefill and the grouped
-  matmul 3 times per MoE layer per forward.
+  matmul 3 times per MoE layer per forward;
+* each of the four dispatchers, given an input that requires grad under
+  grad mode, raises before it launches (the kernels have no backward
+  yet), and launches the same call under ``torch.no_grad()``.
 """
 import numpy as np
 import pytest
@@ -269,29 +275,50 @@ def test_olmoe_serving_runs_both_kernels(cuda):
     assert all(len(res.outputs[r.rid]) == r.max_new_tokens for r in trace)
 
 
-WKV_CASES = [  # B, T, H, n
+WKV_CASES = [  # B, T, H, n[, log decay]
     (2, 128, 2, 32), (1, 96, 4, 64), (2, 100, 2, 16), (1, 33, 1, 64),
     (1, 512, 64, 64),       # the rwkv6-7b prefill
     (4, 1, 64, 64),         # the rwkv6-7b decode tick
     (3, 17, 3, 32),         # ragged: one full chunk of 16 steps and one step
+    # the routes' threshold (the step route below 64 steps) and the edges
+    # of the chunked route's 64-step chunks and 16-step sub-blocks
+    (1, 63, 2, 64), (1, 64, 2, 64), (2, 65, 3, 32), (1, 128, 2, 64),
+    (1, 129, 2, 16), (5, 300, 3, 32),
+    (1, 2048, 8, 64),       # many chunks
+    # log decays -exp(x), x in [1, 3]: the state forgets within a step
+    (2, 1, 4, 64, "strong"), (1, 40, 2, 32, "strong"),
+    (2, 200, 4, 64, "strong"),
+    # x in [-9, -7]: near identity, the state keeps everything
+    (1, 40, 2, 64, "weak"), (2, 200, 4, 64, "weak"),
+    (1, 2048, 8, 64, "weak"),
 ]
 
 
+def _wkv_id(case):
+    return "B%dT%dH%dn%d" % case[:4] + ("-" + case[4] if len(case) > 4 else "")
+
+
 def _wkv_inputs(case, device, seed):
-    """r, k, v bf16; logw, u, S0 fp32 — the kernel's types."""
-    B, T, H, n = case
+    """r, k, v bf16; logw, u, S0 fp32 — the kernel's types.  The log
+    decay is the reference sweep's -exp(N * 0.5) unless the case names
+    "strong" (-exp(x), x uniform in [1, 3]) or "weak" (x in [-9, -7])."""
+    B, T, H, n = case[:4]
+    decay = case[4] if len(case) > 4 else None
     g = np.random.default_rng(seed)
     r = g.standard_normal((B, T, H, n), np.float32)
     k = g.standard_normal((B, T, H, n), np.float32) * 0.5
     v = g.standard_normal((B, T, H, n), np.float32)
     logw = -np.exp(g.standard_normal((B, T, H, n), np.float32) * 0.5)
+    if decay is not None:
+        lo, hi = {"strong": (1.0, 3.0), "weak": (-9.0, -7.0)}[decay]
+        logw = -np.exp(g.uniform(lo, hi, (B, T, H, n))).astype(np.float32)
     u = g.standard_normal((H, n), np.float32) * 0.3
     S0 = g.standard_normal((B, H, n, n), np.float32) * 0.1
     bf = [torch.from_numpy(a).to(device, torch.bfloat16) for a in (r, k, v)]
     return bf + [torch.from_numpy(a).to(device) for a in (logw, u, S0)]
 
 
-@pytest.mark.parametrize("case", WKV_CASES, ids=lambda c: "B%dT%dH%dn%d" % c)
+@pytest.mark.parametrize("case", WKV_CASES, ids=_wkv_id)
 def test_wkv6_kernel_matches_the_oracle(case, cuda):
     r, k, v, logw, u, S0 = _wkv_inputs(case, cuda, seed=9)
     before = wkv_ops.LAUNCHES
@@ -306,8 +333,9 @@ def test_wkv6_kernel_matches_the_oracle(case, cuda):
         assert err <= 1e-3 * float(want.abs().max())
 
 
-def test_wkv6_kernel_writes_the_state_in_place(cuda):
-    r, k, v, logw, u, S0 = _wkv_inputs((2, 40, 3, 64), cuda, seed=10)
+@pytest.mark.parametrize("T", [40, 200], ids=["step", "chunked"])
+def test_wkv6_kernel_writes_the_state_in_place(T, cuda):
+    r, k, v, logw, u, S0 = _wkv_inputs((2, T, 3, 64), cuda, seed=10)
     y, S = wkv_ops.wkv6(r, k, v, logw, u, S0)
     state = S0.clone()
     y2, S2 = wkv_ops.wkv6(r, k, v, logw, u, state, state_out=state)
@@ -315,14 +343,15 @@ def test_wkv6_kernel_writes_the_state_in_place(cuda):
     assert torch.equal(S2, S) and torch.equal(y2, y)
 
 
-def test_wkv6_row_bits_do_not_depend_on_the_batch(cuda):
-    r, k, v, logw, u, S0 = _wkv_inputs((4, 37, 4, 64), cuda, seed=11)
+@pytest.mark.parametrize("T", [37, 200], ids=["step", "chunked"])
+def test_wkv6_row_bits_do_not_depend_on_the_batch(T, cuda):
+    r, k, v, logw, u, S0 = _wkv_inputs((4, T, 4, 64), cuda, seed=11)
     y, S = wkv_ops.wkv6(r, k, v, logw, u, S0)
     one = wkv_ops.wkv6(*(t[2:3].contiguous() for t in (r, k, v, logw)), u,
                        S0[2:3].contiguous())
     assert torch.equal(one[0], y[2:3]) and torch.equal(one[1], S[2:3])
     # row 2 again, the other rows holding other data
-    o = _wkv_inputs((4, 37, 4, 64), cuda, seed=12)
+    o = _wkv_inputs((4, T, 4, 64), cuda, seed=12)
     mixed = [torch.cat([b[:2], a[2:3], b[3:]]) for a, b in
              zip((r, k, v, logw), o[:4])]
     y3, S3 = wkv_ops.wkv6(*mixed, u, torch.cat([o[5][:2], S0[2:3],
@@ -371,6 +400,44 @@ def test_rwkv_serving_runs_the_wkv_kernel(cuda):
     assert wkv_ops.LAUNCHES - wkv0 == \
         cfg.n_layers * (res.prefills + len(decodes))
     assert all(len(res.outputs[r.rid]) == r.max_new_tokens for r in trace)
+
+
+def _grad_case(name, device):
+    """(dispatcher module, call, inputs) at a small shape the CUDA kernel
+    takes, in its types."""
+    g = torch.Generator(device).manual_seed(17)
+
+    def rn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=device).to(dtype)
+
+    if name == "flash_attention":
+        return ops, ops.flash_attention, [rn(1, 16, 2, 1, 64),
+                                          rn(1, 16, 2, 64), rn(1, 16, 2, 64)]
+    if name == "grouped_matmul":
+        return gmm_ops, gmm_ops.grouped_matmul, [rn(2, 16, 64), rn(2, 64, 32)]
+    if name == "wkv6":
+        return wkv_ops, wkv_ops.wkv6, _wkv_inputs((1, 8, 2, 32), device, 18)
+    f32 = torch.float32
+    return scan_ops, scan_ops.selective_scan, [
+        torch.sigmoid(rn(1, 8, 32, 4, dtype=f32)), rn(1, 8, 32, 4, dtype=f32),
+        rn(1, 8, 4, dtype=f32), rn(1, 32, 4, dtype=f32)]
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "grouped_matmul",
+                                  "wkv6", "selective_scan"])
+def test_cuda_dispatchers_refuse_inputs_that_require_grad(name, cuda):
+    module, call, inputs = _grad_case(name, cuda)
+    inputs[0] = inputs[0].clone().requires_grad_(True)
+    before = module.LAUNCHES
+    with pytest.raises(RuntimeError, match="no backward"):
+        call(*inputs)
+    assert module.LAUNCHES == before                # refused before launch
+    with torch.no_grad():
+        out = call(*inputs)
+    torch.cuda.synchronize()
+    assert module.LAUNCHES == before + 1
+    outs = out if isinstance(out, tuple) else (out,)
+    assert all(bool(torch.isfinite(o).all()) for o in outs)
 
 
 SCAN_CASES = [  # B, S, I, N
