@@ -5,7 +5,8 @@
 
 Drives the port's serving path at the full width of olmo-1b, of
 olmoe-1b-7b, of rwkv6-7b and of jamba-1.5-large-398b (depth cut to 5
-layers) and prints one line per phase:
+layers), then the CXL0 model's tensor twin at a fuzzing run's batch, and
+prints one line per phase:
 
 1. environment — the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions;
@@ -108,7 +109,29 @@ layers) and prints one line per phase:
    prefill and per decode tick (678); the schedule must equal olmo-1b's,
    the D2H bytes olmo-1b's count of lane copies times the jamba lane's
    6,881,280 bytes, and the pool must take olmo-1b's token blocks plus one
-   state object per lane copy.
+   state object per lane copy;
+8. the CXL0 model (``repro_torch.core``; plain PyTorch and host code, no
+   kernel of its own), after the jamba engine is freed, with deterministic
+   algorithms off again as the model's own bench runs:
+   (a) 65,536 schedules of 64 steps drawn from a CPU ``torch.Generator``
+       seeded 0, on the model_fuzz bench's system (owner (0, 0, 1, 1),
+       machine 1 volatile), through ``run_schedules`` on the card and on
+       the CPU: ``C``, ``M`` and ``obs`` must be bit-identical (the
+       semantics are integer-only);
+   (b) the first 4,096 of them through the Python LTS (``lts_run``, eager
+       flushes): equal exactly;
+   (c) 1,048,576 schedules of 64 steps drawn on the card (1.34 GB of
+       actions) on that system and on a 4-machine, 8-location one (owner
+       (0, 0, 1, 1, 2, 2, 3, 3), machines 1 and 3 volatile): 0 invariant
+       violations over the whole batch, counted on the card; schedules/s,
+       steps/s and peak memory printed beside the card's name and power
+       limit, and the card's busy time from ``torch.profiler`` over the
+       same run repeated, against the unprofiled run's wall time;
+   (d) the ``flit``, ``table1`` and ``latency`` bench twins against the
+       committed ``benchmarks/baselines/*.json`` (exact; ``latency`` at
+       its ``rel_tol``), and ``ctx.transform(CounterSpec())`` on a pool
+       in a temp dir: 64 increments with a crash after op 40, recovered
+       at ``ops_done`` 40 with the counter at 41, then run to 64.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.  Then a ``{"kernels": [...]}`` line, the card line again,
@@ -120,7 +143,9 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
+import io
 import json
 import os
 import shutil
@@ -922,6 +947,165 @@ def phase_path(torch, cfg, trace, t_max, counters) -> dict:
             shutil.rmtree(p, ignore_errors=True)
 
 
+CXL0_BATCH_CHECK = 65_536          # (a): card against CPU
+CXL0_LTS_CHECK = 4_096             # (b): against the Python LTS
+CXL0_BATCH = 1_048_576             # (c): a fuzzing run's batch
+CXL0_T = 64
+CXL0_SYSTEMS = {  # name -> (owner, volatile, machines)
+    "2m4l": ((0, 0, 1, 1), (False, True), 2),
+    "4m8l": ((0, 0, 1, 1, 2, 2, 3, 3), (False, True, False, True), 4),
+}
+
+
+def phase_cxl0(torch, card: str) -> dict:
+    """8. The CXL0 model: the tensor twin on the card against the CPU and
+    the Python LTS, at a fuzzing run's batch, and the host model's
+    benches and the §6 transform on this machine (see the docstring)."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.bench import flit, latency, table1
+    from repro_torch.bench.report import check_against
+    from repro_torch.core import semantics_torch as ts
+    from repro_torch.core.objects import CounterSpec
+    from repro_torch.dsm.api import open_cxl0
+    out = {}
+    sys2 = ts.TorchSystem(*CXL0_SYSTEMS["2m4l"])
+
+    # (a) card against CPU
+    acts = ts.random_schedules(sys2, torch.Generator().manual_seed(0),
+                               CXL0_BATCH_CHECK, CXL0_T)
+    t0 = time.perf_counter()
+    cpu = ts.run_schedules(sys2, acts)
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dev = ts.run_schedules(sys2, acts.cuda())
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    for what, d, c in zip(("C", "M", "obs"), dev, cpu):
+        check(d.device.type == "cuda" and torch.equal(d.cpu(), c),
+              f"cxl0 (a): {what} on the card differs from the CPU's")
+    print(f"cxl0 (a): {CXL0_BATCH_CHECK} schedules x {CXL0_T} on 2m4l: C, "
+          f"M, obs bit-identical on the card and the CPU (card "
+          f"{dev_s:.3f}s with warm-up, CPU {cpu_s:.3f}s)", flush=True)
+    out["a"] = dict(batch=CXL0_BATCH_CHECK, card_s=dev_s, cpu_s=cpu_s)
+
+    # (b) against the Python LTS
+    cfg = sys2.config()
+    t0 = time.perf_counter()
+    for b in range(CXL0_LTS_CHECK):
+        Cp, Mp, op = ts.lts_run(cfg, acts[b].tolist())
+        check(np.array_equal(cpu[0][b].numpy(), Cp)
+              and np.array_equal(cpu[1][b].numpy(), Mp)
+              and np.array_equal(cpu[2][b].numpy(), op),
+              f"cxl0 (b): schedule {b} differs from the Python LTS")
+    lts_s = time.perf_counter() - t0
+    print(f"cxl0 (b): the first {CXL0_LTS_CHECK} schedules equal the "
+          f"Python LTS exactly ({lts_s:.1f}s on the host)", flush=True)
+    out["b"] = dict(schedules=CXL0_LTS_CHECK, host_s=lts_s)
+    del acts, cpu, dev
+
+    # (c) a fuzzing run's batch on the card
+    out["c"] = {}
+    for name, system in CXL0_SYSTEMS.items():
+        sys_ = ts.TorchSystem(*system)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        ts.run_schedules(sys_, ts.random_schedules(sys_, gen, 4096, CXL0_T))
+        torch.cuda.synchronize()                       # warm-up
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()        # held by earlier phases
+        acts = ts.random_schedules(sys_, gen, CXL0_BATCH, CXL0_T)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        C, M, obs = ts.run_schedules(sys_, acts)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        bad = int(ts.invariant_violations(C))
+        peak = torch.cuda.max_memory_allocated() - base
+        # the same run again under the profiler: the card's busy time
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ts.run_schedules(sys_, acts)
+            torch.cuda.synchronize()
+        dev_events = [ev for ev in prof.events()
+                      if ev.device_type == DeviceType.CUDA]
+        busy_s = sum(ev.device_time_total for ev in dev_events) / 1e6
+        by_name = {}
+        for ev in dev_events:
+            by_name[ev.name] = by_name.get(ev.name, 0) + 1
+        check(tuple(C.shape) == (CXL0_BATCH, sys_.n_machines, sys_.n_locs)
+              and tuple(obs.shape) == (CXL0_BATCH, CXL0_T),
+              f"cxl0 (c) {name}: shapes {tuple(C.shape)} {tuple(obs.shape)}")
+        check(bad == 0, f"cxl0 (c) {name}: {bad} invariant violations")
+        row = dict(batch=CXL0_BATCH, length=CXL0_T,
+                   action_bytes=acts.nbytes, run_s=run_s,
+                   schedules_per_s=CXL0_BATCH / run_s,
+                   steps_per_s=CXL0_BATCH * CXL0_T / run_s,
+                   peak_bytes=peak, base_bytes=base,
+                   invariant_violations=bad,
+                   device_busy_s=busy_s, device_busy_share=busy_s / run_s,
+                   device_ops_per_step=len(dev_events) / CXL0_T,
+                   device_ops_by_name=by_name)
+        out["c"][name] = row
+        print(f"cxl0 (c): {name} {CXL0_BATCH} schedules x {CXL0_T} "
+              f"({acts.nbytes / 1e9:.2f} GB of actions) in {run_s:.4f}s = "
+              f"{row['schedules_per_s']:.0f} schedules/s, "
+              f"{row['steps_per_s']:.0f} steps/s, peak device memory "
+              f"{peak / 1e9:.2f} GB above the {base / 1e9:.2f} GB earlier "
+              f"phases hold, 0 invariant violations; profiled "
+              f"again: {len(dev_events)} device ops "
+              f"({len(dev_events) / CXL0_T:.1f} a step), device busy "
+              f"{busy_s:.4f}s = {100 * busy_s / run_s:.1f}% of the "
+              f"unprofiled run [{card}]", flush=True)
+        for n, c in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"cxl0 (c): {name} {c / CXL0_T:6.2f} a step  {n[:100]}",
+                  flush=True)
+        del acts, C, M, obs
+
+    # (d) the host model on this machine, and the §6 transform
+    out["d"] = {}
+    for mod in (flit, table1, latency):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):    # its CSV rows
+            report = mod.run()
+        base = os.path.join(ROOT, "benchmarks", "baselines",
+                            f"{report.name}.json")
+        with open(base) as f:
+            baseline = json.load(f)
+        fails = check_against(report.values(), baseline)
+        check(not fails, f"cxl0 (d) {report.name}: {fails}")
+        out["d"][report.name] = dict(metrics=len(baseline["metrics"]),
+                                     host_s=time.perf_counter() - t0)
+        print(f"cxl0 (d): bench {report.name}: all "
+              f"{len(baseline['metrics'])} metrics meet "
+              f"benchmarks/baselines/{report.name}.json", flush=True)
+    pool = tempfile.mkdtemp(prefix="chip_smoke_cxl0_")
+    try:
+        ctx = open_cxl0(pool, schedule="sync")
+        counter = ctx.transform(CounterSpec(), name="counter")
+        for _ in range(41):                         # ops 0 .. 40
+            counter.op("inc")
+        ctx.crash()
+        again = open_cxl0(pool, schedule="sync").transform(CounterSpec(),
+                                                           name="counter")
+        check((again.ops_done, again.state, again.recovered_from)
+              == (40, 41, (40, "pool")),
+              f"cxl0 (d) transform: recovered ops_done {again.ops_done} "
+              f"state {again.state} from {again.recovered_from}")
+        got = [again.op("inc") for _ in range(64 - 41)]
+        check(got == list(range(41, 64)) and again.state == 64
+              and again.ops_done == 63,
+              f"cxl0 (d) transform: after recovery {got}, {again.state}")
+    finally:
+        shutil.rmtree(pool, ignore_errors=True)
+    print("cxl0 (d): ctx.transform(CounterSpec()): crash after op 40, "
+          "recovered at ops_done 40 with the counter at 41, ran on to 64",
+          flush=True)
+    out["d"]["transform"] = dict(ops=64, crash_after=40, ops_done=40)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", default=None,
@@ -1036,6 +1220,15 @@ def main(argv=None) -> int:
           f"schedule {olmo['decode_ticks']} ticks, {olmo['prefills']} "
           f"prefills, {olmo['commits']} commits, {olmo['d2h_bytes']} D2H "
           f"bytes; expected 97, 16, 25, {OLMO_D2H_BYTES}")
+
+    # -- 8. the CXL0 model --------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    # as ``python -m repro_torch.bench.model_fuzz`` runs it: without the
+    # serving paths' deterministic algorithms, which fill every new tensor
+    # (one more kernel per op; the twin is integer-only and exact anyway)
+    torch.use_deterministic_algorithms(False)
+    report["cxl0"] = phase_cxl0(torch, card)
 
     mains = {"flash_attention": report["kernel_cases"]["path_s512"],
              "grouped_matmul": report["gmm_cases"]["decode_up"],

@@ -14,25 +14,36 @@ of ``repro.dsm.api`` with the synchronous schedule.
   exception inside the region emits NO completeOp and takes the region's
   stores back out of the volatile tier: recovery lands on the previous
   commit — the crash-anywhere contract;
+* **durable object handles** — ``h = ctx.durable(name, init=tree)``
+  with the primitive vocabulary verbatim: ``h.lstore(tree)``,
+  ``h.rflush()``, ``h.mstore(tree)``; completeOp stays with commit
+  regions and ``ctx.transform``;
+* **§6 transformation** — ``ctx.transform(spec)`` wraps any linearizable
+  object given as a sequential spec (``repro_torch.core.objects.SeqSpec``)
+  with FliT-for-CXL0 at op granularity: every op LStores the post-state,
+  RFlushes it and completeOps.  Frames and manifests equal the
+  reference's byte for byte, so each package recovers the other's object;
 * ``ctx.crash()`` / ``ctx.recover()`` — f_i and THE recovery path.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
 reference: topologies and placement policies (``repro.dsm.placement``,
 ``repro.dsm.emu``), mesh-native commits (``repro.dsm.meshio``), sharded /
-async / auto schedules (``repro.dsm.flit_runtime``), peer staging
+async / auto schedules (``repro.dsm.flit_runtime``) and peer staging
 (RStore into a peer and recovery from it, ``repro.dsm.tiers`` /
-``repro.dsm.recovery``), durable object handles and the §6
-transformation (``repro.dsm.api``).  The port's default
-schedule is therefore ``"sync"`` (the reference's is ``"auto"``).
+``repro.dsm.recovery``).  The port's default schedule is therefore
+``"sync"`` (the reference's is ``"auto"``).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
 
 from repro_torch.dsm.flit_runtime import (CommitStats, DurableCommitter,
                                           check_mode)
-from repro_torch.dsm.pool import DSMPool
+from repro_torch.dsm.pool import DSMPool, PoolObject
 from repro_torch.dsm.recovery import ColdStartError, RecoveryManager
 from repro_torch.dsm.tiers import TierManager
 
@@ -113,6 +124,109 @@ class CommitRegion:
         return False
 
 
+@dataclasses.dataclass
+class DurableHandle:
+    """A named durable object: the paper's primitive vocabulary, verbatim,
+    over the context's tier stack.  completeOp is not a handle method —
+    it belongs to commit regions (``ctx.commit``) and the §6 transform."""
+
+    ctx: "CXL0Context"
+    name: str
+
+    def lstore(self, tree: Any) -> "DurableHandle":
+        """Update the volatile HBM tier (completes immediately)."""
+        self.ctx.tiers.lstore(self.name, tree)
+        return self
+
+    def rstore(self, peer: Any = None):
+        """Stage the current value into a peer's host buffer: not ported
+        yet (peer staging)."""
+        if peer is None:
+            raise ValueError(f"rstore({self.name!r}): no peer given and the "
+                             f"context has no replicate_to target")
+        raise NotImplementedError(
+            f"rstore({self.name!r}) into a peer is not ported yet "
+            f"(reference: {_NOT_PORTED['replicate_to']})")
+
+    def rflush(self) -> PoolObject:
+        """Durable write into the pool; returns once on storage."""
+        return self.ctx.tiers.rflush(self.name)
+
+    def mstore(self, tree: Any) -> PoolObject:
+        """lstore + rflush fused (Prop. 1.8)."""
+        return self.ctx.tiers.mstore(self.name, tree)
+
+    @property
+    def value(self) -> Any:
+        return self.ctx.tiers.hbm.get(self.name)
+
+    @property
+    def version(self) -> int:
+        return self.ctx.tiers.versions.get(self.name, 0)
+
+
+# -- §6 transformation at object granularity --------------------------------
+
+def _encode_state(state) -> Dict[str, np.ndarray]:
+    """Spec states (ints / nested tuples) as a pool-storable tree: the
+    reference's encoding, so the frames are byte-equal."""
+    raw = json.dumps(state).encode()
+    return {"state": np.frombuffer(raw, np.uint8).copy()}
+
+
+def _decode_state(tree) -> Any:
+    """The inverse of ``_encode_state`` on a recovered tree (host tensors)."""
+    def tup(x):
+        return tuple(tup(i) for i in x) if isinstance(x, list) else x
+    return tup(json.loads(tree["state"].numpy().tobytes().decode()))
+
+
+_STATE_TEMPLATE = {"state": np.zeros(0, np.uint8)}
+
+
+class TransformedObject:
+    """The paper's §6 FliT-for-CXL0 transformation applied to any
+    linearizable object given as a sequential spec (``initial()`` +
+    ``apply(state, op, args) -> (state', result)``); every ``op()`` runs
+    Alg. 2 at op granularity:
+
+        LStore(state') ; RFlush(state') ; completeOp (atomic manifest rename)
+
+    so an op that returned to its caller survives any crash, and a crash
+    mid-op is invisible: recovery (the shared ``ctx.recover`` path) lands on
+    the newest completed op.  The op index is the commit step, so
+    ``ops_done`` is the step of the newest completeOp."""
+
+    def __init__(self, ctx: "CXL0Context", spec: Any, name: str = "object",
+                 recover: bool = True):
+        self.ctx = ctx
+        self.spec = spec
+        self.name = name
+        self.state = spec.initial()
+        self.ops_done = -1                    # step of the newest completeOp
+        self.recovered_from: Optional[Tuple[int, str]] = None
+        if recover:
+            got = ctx.try_recover({name: _STATE_TEMPLATE}, exact=False)
+            if got is not None:
+                objs, step, source = got
+                self.state = _decode_state(objs[name])
+                self.ops_done = step
+                self.recovered_from = (step, source)
+
+    def op(self, op: str, *args) -> Any:
+        """Apply one operation durably (Alg. 2 at op granularity)."""
+        new_state, result = self.spec.apply(self.state, op, args)
+        step = self.ops_done + 1
+        self.ctx.tiers.lstore(self.name, _encode_state(new_state))  # LStore
+        obj = self.ctx.tiers.rflush(self.name)                      # RFlush
+        self.ctx.pool.commit_manifest(                              # completeOp
+            step, {self.name: obj},
+            meta={"kind": "flit-object", "object": self.name})
+        self.state = new_state
+        self.ops_done = step
+        return result
+
+
 class CXL0Context:
     """Owns pool / tiers / committer / recovery behind one ``CXL0Config``."""
 
@@ -132,16 +246,18 @@ class CXL0Context:
             complete_fn=config.complete_fn)
         self.recovery = RecoveryManager(self.pool)
 
-    def durable(self, name: str, init: Any = None):
-        raise NotImplementedError("durable object handles are not ported "
-                                  "yet (reference: repro.dsm.api."
-                                  "DurableHandle)")
+    def durable(self, name: str, init: Any = None) -> DurableHandle:
+        """A named durable-object handle; ``init`` LStores an initial value
+        if the object is not already in the HBM tier."""
+        if init is not None and name not in self.tiers.hbm:
+            self.tiers.lstore(name, init)
+        return DurableHandle(self, name)
 
     def transform(self, spec: Any, name: str = "object",
-                  recover: bool = True):
-        raise NotImplementedError("the §6 transformation is not ported yet "
-                                  "(reference: repro.dsm.api."
-                                  "TransformedObject)")
+                  recover: bool = True) -> TransformedObject:
+        """Apply the §6 transformation to a linearizable object (see
+        ``TransformedObject``)."""
+        return TransformedObject(self, spec, name=name, recover=recover)
 
     def put(self, objects: Dict[str, Any]):
         """Per-step LStore of new state WITHOUT committing."""

@@ -16,6 +16,10 @@ from typing import Any, Callable, Dict, Optional, Tuple
 from repro_torch.dsm.pool import CorruptObjectError, DSMPool
 
 
+class CrashError(Exception):
+    """Raised by fault-injection code to simulate a worker loss."""
+
+
 class ColdStartError(RuntimeError):
     """No recoverable state exists (no fully-valid manifest)."""
 

@@ -49,12 +49,17 @@ machine with the card, where there is no JAX:
   matmul 3 times per MoE layer per forward;
 * each of the four dispatchers, given an input that requires grad under
   grad mode, raises before it launches (the kernels have no backward
-  yet), and launches the same call under ``torch.no_grad()``.
+  yet), and launches the same call under ``torch.no_grad()``;
+* the CXL0 model's tensor twin (``core.semantics_torch``, plain PyTorch:
+  no kernel of its own) gives on the card the bits it gives on the CPU
+  for 4,096 schedules on two systems, and ``random_schedules`` with a
+  CUDA generator draws CUDA actions.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import semantics_torch as cxl0
 from repro_torch.kernels.attention import ops
 from repro_torch.kernels.mamba import ops as scan_ops
 from repro_torch.kernels.mamba.ref import selective_scan_ref
@@ -559,3 +564,35 @@ def test_jamba_serving_runs_the_scan_flash_and_gmm_kernels(cuda):
     assert gmm_ops.LAUNCHES - gmm0 == \
         3 * n_moe * (res.prefills + len(decodes))
     assert all(len(res.outputs[r.rid]) == r.max_new_tokens for r in trace)
+
+
+# ---------------------------------------------------------------------------
+# the CXL0 model's tensor twin
+# ---------------------------------------------------------------------------
+
+CXL0_SYSTEMS = [((0, 0, 1, 1), (False, True), 2),
+                ((0, 0, 1, 1, 2, 2, 3, 3), (False, True, False, True), 4)]
+
+
+@pytest.mark.parametrize("system", CXL0_SYSTEMS, ids=["2m4l", "4m8l"])
+def test_cxl0_twin_on_the_card_equals_the_cpu(cuda, system):
+    sys_ = cxl0.TorchSystem(*system)
+    acts = cxl0.random_schedules(sys_, torch.Generator().manual_seed(0),
+                                 batch=4096, length=64, p_crash=0.03)
+    want = cxl0.run_schedules(sys_, acts)
+    got = cxl0.run_schedules(sys_, acts.to(cuda))
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert torch.equal(g.cpu(), w)
+    assert int(cxl0.invariant_violations(got[0])) == 0
+
+
+def test_cxl0_random_schedules_on_a_cuda_generator(cuda):
+    sys_ = cxl0.TorchSystem(*CXL0_SYSTEMS[0])
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    acts = cxl0.random_schedules(sys_, gen, batch=2048, length=64)
+    assert acts.device.type == "cuda" and acts.dtype == torch.int32
+    assert acts.shape == (2048, 64, 5)
+    assert int(acts[..., 1].max()) == 1 and int(acts[..., 2].max()) == 3
+    C, M, obs = cxl0.run_schedules(sys_, acts)
+    assert obs.device.type == "cuda" and int(cxl0.invariant_violations(C)) == 0

@@ -244,8 +244,8 @@ def test_unported_knobs_raise_naming_the_reference(tmp_path):
             CXL0Config(path=str(tmp_path), **kw)
         with pytest.raises(NotImplementedError, match="repro.dsm"):
             open_cxl0(str(tmp_path), **kw)
-    with pytest.raises(NotImplementedError, match="repro.dsm.api"):
-        ctx.durable("x")
+    h = ctx.durable("x", init=[torch.ones(2)])      # handles are ported
+    assert (h.mstore([torch.zeros(2)]).version, h.version) == (2, 2)
 
 
 def test_d2h_counter_counts_only_device_leaves(tmp_path):

@@ -42,6 +42,18 @@ SLICE_MODULES = [
     "repro_torch.configs.jamba_1_5_large_398b",
     "repro_torch.kernels.mamba.kernel", "repro_torch.kernels.mamba.ops",
     "repro_torch.kernels.mamba.ref", "repro_torch.models.mamba",
+    "repro_torch.core", "repro_torch.core.state",
+    "repro_torch.core.semantics", "repro_torch.core.explore",
+    "repro_torch.core.refine", "repro_torch.core.litmus",
+    "repro_torch.core.props", "repro_torch.core.latency",
+    "repro_torch.core.objects", "repro_torch.core.sim",
+    "repro_torch.core.flit", "repro_torch.core.durable",
+    "repro_torch.core.harness", "repro_torch.core.semantics_torch",
+    "repro_torch.bench", "repro_torch.bench.report",
+    "repro_torch.bench.flit", "repro_torch.bench.table1",
+    "repro_torch.bench.latency", "repro_torch.bench.model_fuzz",
+    "repro_torch.examples", "repro_torch.examples.quickstart",
+    "repro_torch.examples.durable_kv",
 ]
 
 _FORBIDDEN = re.compile(
