@@ -5,8 +5,9 @@
 
 Drives the port's serving path at the full width of olmo-1b, of
 olmoe-1b-7b, of rwkv6-7b and of jamba-1.5-large-398b (depth cut to 5
-layers), then the CXL0 model's tensor twin at a fuzzing run's batch, and
-prints one line per phase:
+layers), then the CXL0 model's tensor twin at a fuzzing run's batch, then
+olmo-1b's serving features (commit schedules, static baseline, prefix
+reuse), and prints one line per phase:
 
 1. environment — the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions;
@@ -26,8 +27,9 @@ prints one line per phase:
    * flash attention (one block a 64-row q tile, its kv tiles split
      between two warpgroups while q tiles are fewer than SMs; K / V by TMA
      into an mbarrier ring, both products on wgmma) at the path's shape
-     (1, 16, 512, 128) causal, at jamba-1.5-large's (1, 64 heads over 8 kv
-     heads, 512, 128) and at ragged, GQA, hd_v != hd and non-causal
+     (1, 16, 512, 128) causal, at the static baseline's batched prefill
+     (4, 16, 512, 128) causal, at jamba-1.5-large's (1, 64 heads over 8
+     kv heads, 512, 128) and at ragged, GQA, hd_v != hd and non-causal
      shapes: max abs error against the fp32 plain version (limit 2e-2:
      bf16 output rounding, one ulp near 1 is 7.8e-3); library: SDPA;
    * the grouped matmul (TMA ring, wgmma on out^T = w^T x^T, each weight
@@ -133,8 +135,36 @@ prints one line per phase:
        in a temp dir: 64 increments with a crash after op 40, recovered
        at ``ops_done`` 40 with the counter at 41, then run to 64.
 
-Each path is driven with every launch count set to 0 just before it and
-read just after.  Then a ``{"kernels": [...]}`` line, the card line again,
+9. the serving features (``repro_torch.serve``, ``repro_torch.dsm``) on
+   olmo-1b at full width and depth, with phase 4's trace and a fresh
+   weight set from the same seed, deterministic algorithms on again:
+   (a) the run of phase 4 under each commit schedule — ``sync``,
+       ``async``, ``sharded`` (4 shards) and ``sharded-async`` (the
+       automatic shard count: one pipeline per card) — each with tokens
+       bit-identical to sync's, 97 ticks, 16 prefills, 25 commits,
+       olmo-1b's D2H bytes and 256 flash launches; the objects its
+       completeOps published (a sharded object counted once) equal
+       between sync and sharded and between async and sharded-async
+       (the async schedules re-flush each block staged at the previous
+       commit, as the reference does); tok/s and host seconds in commit
+       printed side by side.  Then a crash after 10 ticks under
+       sharded-async: the resume lands on committed tick 4 (the async
+       schedules publish one commit behind) and every session's tokens
+       equal sync's;
+   (b) ``run_static`` (B = 4): 4 prefills, 172 decode ticks, 64 flash
+       launches; tok/s beside a stateless continuous run's, and how many
+       of the 16 token streams equal continuous's (printed: cuBLAS may
+       pick another algorithm at B = 4);
+   (c) prefix reuse: 16 requests over 2 prompts; engine 0 with
+       ``prefix_reuse`` prefills 2 and hits 14, then an ``engine_id=3``
+       engine on the same pool prefills 0, hits 16, launches no flash
+       kernel and emits engine 0's tokens; the pool holds 64 ``kvblk/``
+       objects of 2,097,152 bytes and 2 ``kvhead/`` objects, each written
+       once; engine 0's D2H is olmo-1b's plus one lane a publish, engine
+       3's olmo-1b's.
+
+Each path and each run of phase 9 is driven with every launch count set
+to 0 just before it and read just after.  Then a ``{"kernels": [...]}`` line, the card line again,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises and the script exits non-zero; without a CUDA device, or without
 the repo's ``src/repro_torch`` beside it, it exits non-zero and prints no
@@ -330,6 +360,7 @@ def phase_kernel(torch, ops):
     cases = [  # (name, B, H, K, Sq, Sk, hd, hd_v, causal)
         ("path_s128", 1, 16, 16, 128, 128, 128, 128, True),
         ("path_s512", 1, 16, 16, 512, 512, 128, 128, True),
+        ("static_b4_s512", 4, 16, 16, 512, 512, 128, 128, True),
         ("jamba_h64_k8", 1, 64, 8, 512, 512, 128, 128, True),
         ("ragged_s1000", 1, 16, 16, 1000, 1000, 128, 128, True),
         ("gqa_h32_k8", 1, 32, 8, 512, 512, 128, 128, True),
@@ -1106,6 +1137,228 @@ def phase_cxl0(torch, card: str) -> dict:
     return out
 
 
+FEATURE_SCHEDULES = (("sync", None), ("async", None), ("sharded", 4),
+                     ("sharded-async", None))     # (mode, n_shards)
+KVBLK_BYTES = 2_097_152        # one olmo-1b kvblk/ object: k + v, 16 tokens
+
+
+def durable_tick(mode: str, crash_ticks: int, every: int):
+    """The tick a crash after ``crash_ticks`` ticks resumes from: the last
+    commit under a blocking schedule, the one before it under an async
+    one (commit(s) publishes s - every and launches s)."""
+    ticks = list(range(every, crash_ticks + 1, every))
+    if mode in ("async", "sharded-async"):
+        ticks = ticks[:-1]
+    return ticks[-1] if ticks else None
+
+
+def phase_features(torch, cfg, trace, t_max, counters) -> dict:
+    """9. The serving features on olmo-1b at full width and depth (see the
+    docstring): (a) the four commit schedules and a crash under
+    sharded-async, (b) the static baseline, (c) prefix reuse across two
+    engines on one pool.  Every run is driven with the launch counts set
+    to 0 just before it and read just after."""
+    from repro_torch.dsm import stream
+    from repro_torch.models.registry import build
+    from repro_torch.serve.engine import build_serve_engine
+    from repro_torch.serve.trace import synthetic_trace
+    from repro_torch.utils.tree import tree_leaves
+    arch = cfg.arch_id
+    n_attn = sum(cfg.layer_kind(l) == "attn" for l in range(cfg.n_layers))
+    bundle = build(cfg, device="cuda")
+    params = bundle.init_params(torch.Generator("cuda").manual_seed(0))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_features_")
+    out = {"runs": {}, "launches": {}}
+
+    def engine(pool=None, **kw):
+        kw = {**PATH_KW, **kw}
+        if pool is None:
+            kw["commit_every"] = 0
+        return build_serve_engine(
+            arch, smoke=False, t_max=t_max, bundle=bundle, params=params,
+            device="cuda", pool_path=pool and os.path.join(tmp, pool),
+            **kw)[0]
+
+    def drive(name, fn, e):
+        timer = PhaseTimer(e)
+        torch.cuda.synchronize()
+        for mod in counters.values():
+            mod.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out["launches"][name] = {k: m.LAUNCHES for k, m in counters.items()}
+        run = dict(wall_s=dt, tokens_per_s=res.emitted_tokens / dt,
+                   decode_ticks=res.decode_ticks, prefills=res.prefills,
+                   commits=res.commits, prefix_hits=res.prefix_hits,
+                   host_s=dict(timer.t), launches=out["launches"][name])
+        if e.store is not None:
+            # objects the completeOps published as fresh flushes (a
+            # sharded object counts once, whatever its shards)
+            run.update(d2h_bytes=e.store.tiers.d2h_gather_bytes,
+                       flushed=sum(st.n_objects
+                                   for st in e.store.committer.stats),
+                       n_shards=e.store.committer.n_shards)
+        out["runs"][name] = run
+        return res, run
+
+    try:
+        # -- (a) the four schedules ----------------------------------------
+        outs = {}
+        for mode, shards in FEATURE_SCHEDULES:
+            e = engine(mode, commit_mode=mode, n_shards=shards)
+            res, run = drive(mode, lambda: e.run(trace), e)
+            e.close()
+            outs[mode] = res.outputs
+            check((res.decode_ticks, res.prefills, res.commits)
+                  == (97, 16, 25),
+                  f"(a) {mode}: {res.decode_ticks} ticks, {res.prefills} "
+                  f"prefills, {res.commits} commits; expected 97, 16, 25")
+            check(run["launches"]["flash_attention"] == n_attn * 16,
+                  f"(a) {mode}: {run['launches']['flash_attention']} flash "
+                  f"launches, expected {n_attn} x 16")
+            check(run["d2h_bytes"] == OLMO_D2H_BYTES,
+                  f"(a) {mode}: D2H {run['d2h_bytes']} bytes, expected "
+                  f"{OLMO_D2H_BYTES}")
+            diff = [r for r in outs["sync"] if res.outputs[r]
+                    != outs["sync"][r]]
+            check(not diff, f"(a) {mode}: tokens differ from sync's for "
+                            f"{diff}")
+        runs = out["runs"]
+        check(runs["sharded"]["flushed"] == runs["sync"]["flushed"]
+              and runs["sharded-async"]["flushed"]
+              == runs["async"]["flushed"],
+              f"(a) flushed objects: " + ", ".join(
+                  f"{m} {runs[m]['flushed']}" for m, _ in FEATURE_SCHEDULES)
+              + "; expected sharded = sync and sharded-async = async")
+        print("features (a): " + arch + " 16 requests prompt 512 under "
+              "each schedule, tokens bit-identical to sync's, 97 ticks, 16 "
+              "prefills, 25 commits, D2H " + str(OLMO_D2H_BYTES)
+              + " bytes in each; " + "; ".join(
+                  f"{m} (n_shards {runs[m]['n_shards']}): "
+                  f"{runs[m]['tokens_per_s']:.1f} tok/s, wall "
+                  f"{runs[m]['wall_s']:.3f}s, host s in commit "
+                  f"{runs[m]['host_s']['commit']:.3f} decode "
+                  f"{runs[m]['host_s']['decode']:.3f} admit "
+                  f"{runs[m]['host_s']['admit']:.3f}, "
+                  f"{runs[m]['flushed']} objects flushed"
+                  for m, _ in FEATURE_SCHEDULES), flush=True)
+
+        crash_ticks, mode = 10, "sharded-async"
+        e = engine("crash", commit_mode=mode)
+        e.submit(trace)
+        for _ in range(crash_ticks):
+            e.tick()
+        e.store.ctx.crash()
+        del e
+        e = engine("crash", commit_mode=mode)
+        step = e.resume()
+        res = e.run(trace)
+        e.close()
+        want = durable_tick(mode, crash_ticks, PATH_KW["commit_every"])
+        check(step == want, f"(a) {mode}: resumed at tick {step}, "
+                            f"expected {want}")
+        diff = [r for r in outs["sync"] if res.outputs.get(r)
+                != outs["sync"][r]]
+        check(not diff, f"(a) {mode} resume: tokens differ for {diff}")
+        out["resume"] = dict(mode=mode, crash_after_ticks=crash_ticks,
+                             resumed_tick=step,
+                             sessions_resumed=res.resumed_sessions,
+                             prefills_after_resume=res.prefills)
+        print(f"features (a): {mode} crashed after {crash_ticks} ticks, "
+              f"resumed from committed tick {step} (one commit behind), "
+              f"{res.resumed_sessions} sessions resumed, {res.prefills} "
+              f"prefills after resume, every session's tokens "
+              f"bit-identical", flush=True)
+
+        # -- (b) the static baseline ---------------------------------------
+        e = engine()
+        res_c, cont = drive("continuous", lambda: e.run(trace), e)
+        e = engine()
+        res_s, stat = drive("static", lambda: e.run_static(trace), e)
+        check((res_s.prefills, res_s.decode_ticks) == (4, 172),
+              f"(b) static: {res_s.prefills} prefills, "
+              f"{res_s.decode_ticks} ticks; expected 4, 172")
+        check(stat["launches"]["flash_attention"] == n_attn * 4,
+              f"(b) static: {stat['launches']['flash_attention']} flash "
+              f"launches, expected {n_attn} x 4")
+        check(res_s.emitted_tokens == res_c.emitted_tokens
+              and sorted(res_s.outputs) == sorted(res_c.outputs),
+              "(b) static and continuous emitted different counts")
+        same = sum(res_s.outputs[r] == res_c.outputs[r]
+                   for r in res_c.outputs)
+        stat["streams_equal_continuous"] = same
+        print(f"features (b): static B=4: {res_s.prefills} prefills, "
+              f"{res_s.decode_ticks} decode ticks, "
+              f"{stat['launches']['flash_attention']} flash launches, "
+              f"{stat['tokens_per_s']:.1f} tok/s (wall {stat['wall_s']:.3f}s)"
+              f" against continuous {cont['tokens_per_s']:.1f} tok/s (wall "
+              f"{cont['wall_s']:.3f}s, {res_c.decode_ticks} ticks, no pool); "
+              f"{same} of {len(res_c.outputs)} token streams equal "
+              f"continuous's", flush=True)
+
+        # -- (c) prefix reuse across engines ---------------------------------
+        shared = synthetic_trace(16, seed=0, prompt_lens=(512,),
+                                 new_tokens=(4, 8, 16, 32, 48),
+                                 vocab_size=cfg.vocab_size, n_prompts=2)
+        e = engine("prefix", prefix_reuse=True)
+        res0, r0 = drive("prefix engine 0", lambda: e.run(shared), e)
+        e.close()
+        e = engine("prefix", prefix_reuse=True, engine_id=3)
+        res3, r3 = drive("prefix engine 3", lambda: e.run(shared), e)
+        e.close()
+        check((res0.prefills, res0.prefix_hits) == (2, 14),
+              f"(c) engine 0: {res0.prefills} prefills, {res0.prefix_hits} "
+              f"hits; expected 2, 14")
+        check((res3.prefills, res3.prefix_hits,
+               r3["launches"]["flash_attention"]) == (0, 16, 0),
+              f"(c) engine 3: {res3.prefills} prefills, {res3.prefix_hits} "
+              f"hits, {r3['launches']['flash_attention']} flash launches; "
+              f"expected 0, 16, 0")
+        check(res3.outputs == res0.outputs,
+              "(c) engine 3's tokens differ from engine 0's")
+        lane = sum(l.nbytes for l in tree_leaves(bundle.abstract_caches(
+            1, t_max)))
+        check((r0["d2h_bytes"], r3["d2h_bytes"])
+              == (OLMO_D2H_BYTES + 2 * lane, OLMO_D2H_BYTES),
+              f"(c) D2H bytes {r0['d2h_bytes']} / {r3['d2h_bytes']}: "
+              f"expected olmo-1b's {OLMO_D2H_BYTES} plus one lane a "
+              f"publish ({lane}) / none")
+        objs = os.path.join(tmp, "prefix", "objects")
+        found = {}
+        for kind in ("kvblk", "kvhead"):
+            d = os.path.join(objs, kind)
+            names = sorted(os.listdir(d)) if os.path.isdir(d) else []
+            found[kind] = names
+            for n in names:
+                files = sorted(os.listdir(os.path.join(d, n)))
+                check(files == ["00000001.cxl0"],
+                      f"(c) {kind}/{n}: files {files}, expected one write")
+                leaves, _, _ = stream.read_frame(os.path.join(d, n,
+                                                              files[0]))
+                if kind == "kvblk":
+                    nb = sum(l.nbytes for l in leaves)
+                    check(nb == KVBLK_BYTES, f"(c) kvblk/{n}: {nb} bytes")
+        check((len(found["kvblk"]), len(found["kvhead"])) == (64, 2),
+              f"(c) {len(found['kvblk'])} kvblk and {len(found['kvhead'])} "
+              f"kvhead objects; expected 64 and 2")
+        out["prefix"] = dict(kvblk=len(found["kvblk"]),
+                             kvhead=len(found["kvhead"]))
+        print(f"features (c): 16 requests over 2 prompts: engine 0 "
+              f"{res0.prefills} prefills, {res0.prefix_hits} hits, "
+              f"{r0['tokens_per_s']:.1f} tok/s; engine 3 on the same pool "
+              f"{res3.prefills} prefills, {res3.prefix_hits} hits, "
+              f"{r3['launches']['flash_attention']} flash launches, "
+              f"{r3['tokens_per_s']:.1f} tok/s, tokens bit-identical to "
+              f"engine 0's; pool: {len(found['kvblk'])} kvblk objects of "
+              f"{KVBLK_BYTES} bytes and {len(found['kvhead'])} kvhead "
+              f"objects, each written once", flush=True)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", default=None,
@@ -1230,6 +1483,16 @@ def main(argv=None) -> int:
     torch.use_deterministic_algorithms(False)
     report["cxl0"] = phase_cxl0(torch, card)
 
+    # -- 9. the serving features on olmo-1b -----------------------------------
+    set_determinism()
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["features"] = phase_features(torch, get_config("olmo-1b"), trace,
+                                        t_max, counters)
+    by_run = {a: p["launches"] for a, p in paths.items()}
+    by_run.update({f"olmo-1b {r}": n
+                   for r, n in report["features"]["launches"].items()})
+
     mains = {"flash_attention": report["kernel_cases"]["path_s512"],
              "grouped_matmul": report["gmm_cases"]["decode_up"],
              "wkv6": report["wkv_cases"]["prefill"],
@@ -1251,9 +1514,8 @@ def main(argv=None) -> int:
         kernels["kernels"].append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": sum(p["launches"][name] for p in paths.values()),
-            "launches_by_path": {a: p["launches"][name]
-                                 for a, p in paths.items()},
+            "launches": sum(n[name] for n in by_run.values()),
+            "launches_by_path": {a: n[name] for a, n in by_run.items()},
             "shape": row["shape"],
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

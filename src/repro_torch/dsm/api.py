@@ -1,9 +1,9 @@
 """CXL0Context — the programming-model API over the DSM runtime; the port
-of ``repro.dsm.api`` with the synchronous schedule.
+of ``repro.dsm.api``.
 
     from repro_torch.dsm.api import open_cxl0
 
-    ctx = open_cxl0(pool_dir, schedule="sync")
+    ctx = open_cxl0(pool_dir, schedule="sharded-async", n_shards=4)
     with ctx.commit(step, meta={"tag": "demo"}) as txn:
         txn.store("params", params)          # LStore
     objs, step, source = ctx.recover(templates)   # newest valid manifest
@@ -13,7 +13,10 @@ of ``repro.dsm.api`` with the synchronous schedule.
   exactly one completeOp (atomic manifest rename) is emitted.  An
   exception inside the region emits NO completeOp and takes the region's
   stores back out of the volatile tier: recovery lands on the previous
-  commit — the crash-anywhere contract;
+  commit — the crash-anywhere contract.  Under the ``async`` /
+  ``sharded-async`` schedules the completeOp emitted at exit publishes the
+  PREVIOUS region, whose flushes overlapped compute (``ctx.drain()``
+  publishes the last one);
 * **durable object handles** — ``h = ctx.durable(name, init=tree)``
   with the primitive vocabulary verbatim: ``h.lstore(tree)``,
   ``h.rflush()``, ``h.mstore(tree)``; completeOp stays with commit
@@ -25,13 +28,15 @@ of ``repro.dsm.api`` with the synchronous schedule.
   reference's byte for byte, so each package recovers the other's object;
 * ``ctx.crash()`` / ``ctx.recover()`` — f_i and THE recovery path.
 
-Not ported yet, and refused with ``NotImplementedError`` naming the
-reference: topologies and placement policies (``repro.dsm.placement``,
-``repro.dsm.emu``), mesh-native commits (``repro.dsm.meshio``), sharded /
-async / auto schedules (``repro.dsm.flit_runtime``) and peer staging
-(RStore into a peer and recovery from it, ``repro.dsm.tiers`` /
-``repro.dsm.recovery``).  The port's default schedule is therefore
-``"sync"`` (the reference's is ``"auto"``).
+The four schedules ``sync`` / ``async`` / ``sharded`` / ``sharded-async``
+and ``n_shards`` are ported (``repro_torch.dsm.flit_runtime``).  Not ported
+yet, and refused with ``NotImplementedError`` naming the reference:
+topologies and placement policies (``repro.dsm.placement``,
+``repro.dsm.emu``) and with them the ``"auto"`` schedule, mesh-native
+commits (``repro.dsm.meshio``) and peer staging (RStore into a peer and
+recovery from it, ``repro.dsm.tiers`` / ``repro.dsm.recovery``).  The
+port's default schedule is therefore ``"sync"`` (the reference's is
+``"auto"``).
 """
 from __future__ import annotations
 
@@ -51,7 +56,6 @@ _NOT_PORTED = {
     "topology": "repro.dsm.emu / repro.dsm.placement",
     "placement": "repro.dsm.placement.PlacementPolicy",
     "mesh": "repro.dsm.meshio",
-    "n_shards": "repro.dsm.flit_runtime (sharded schedules)",
     "peers": "repro.dsm.recovery (peer-staging recovery)",
     "replicate_to": "repro.dsm.tiers.TierManager.rstore (peer staging)",
 }
@@ -242,8 +246,8 @@ class CXL0Context:
         # outside repro/dsm
         self.tiers = TierManager.open(self.pool)
         self.committer = DurableCommitter(
-            self.tiers, mode=config.schedule, retention=config.retention,
-            complete_fn=config.complete_fn)
+            self.tiers, mode=config.schedule, n_shards=config.n_shards,
+            retention=config.retention, complete_fn=config.complete_fn)
         self.recovery = RecoveryManager(self.pool)
 
     def durable(self, name: str, init: Any = None) -> DurableHandle:

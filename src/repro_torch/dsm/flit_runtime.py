@@ -1,5 +1,5 @@
 """The FliT-protocol durable commit (paper Alg. 2 at object granularity) —
-the port of ``repro.dsm.flit_runtime`` with the ``sync`` schedule.
+the port of ``repro.dsm.flit_runtime``.
 
 One commit of step ``s`` is the high-level operation; the HBM-tier objects
 are the shared locations::
@@ -11,35 +11,59 @@ are the shared locations::
 A commit whose completeOp finished survives any single-worker crash;
 recovery always lands on SOME completed commit, never a torn mixture.
 
-``sync`` rflushes every object serially, then completeOps.  The
-``async``, ``sharded`` and ``sharded-async`` schedules (thread-pool flush
-pipelines) and ``auto`` (placement-priced) are not ported yet: asking for
-one raises ``NotImplementedError``.  ``complete_fn`` delegation is ported
-— the paged session store merges its carried block entries through it.
-RStore staging to a peer (``replicate_to``) and the fault-injection hook
-come with the cluster and scenario slices that use them.
+Four schedules, as in the reference:
+
+* ``sync``          — rflush every object serially, then completeOp;
+* ``async``         — one background flush thread per object runs while
+                      step s+1 computes; the next commit joins them before
+                      its completeOp;
+* ``sharded``       — each object's leaves split into ``n_shards``
+                      byte-balanced groups written in PARALLEL on a thread
+                      pool, then completeOp (blocking);
+* ``sharded-async`` — sharded writes of step s double-buffered behind step
+                      s+1: commit(s) first joins + completeOps the PREVIOUS
+                      step's shards, then launches step s's and returns.
+
+Under the two async schedules the durable point is one commit behind:
+``commit(s)`` publishes step s - stride and launches step s, and the
+manifest carries the meta captured when its flushes LAUNCHED.  ``drain``
+publishes the last one (planned shutdown).  Without ``n_shards`` the shard
+count is ``auto_shard_count`` of the state's bytes, whose device term is
+``torch.cuda.device_count()`` (1 without a card).
+
+Retention: ``retention=k`` runs ``pool.gc(keep=k)`` after every
+completeOp.  ``complete_fn`` delegation is ported — the paged session
+store merges its carried block entries through it (and a delegated
+completeOp turns retention GC off, as in the reference).
+
+Not ported yet: ``auto`` (the placement policy's schedule choice,
+``repro.dsm.placement``), mesh-native shard pipelines (``repro.dsm
+.meshio``), RStore staging to a peer (``replicate_to``) and the
+fault-injection hook (``KILL_POINTS``, with the scenario slice).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
-from repro_torch.dsm.tiers import TierManager
+import torch
+
+from repro_torch.dsm.tiers import TierManager, leaf_nbytes
+from repro_torch.utils.tree import tree_leaves
 
 COMMIT_MODES = ("sync", "async", "sharded", "sharded-async")
 AUTO_MODE = "auto"
-PORTED_MODES = ("sync",)
 
 
 def check_mode(mode: str):
-    if mode in PORTED_MODES:
+    if mode in COMMIT_MODES:
         return
-    if mode in COMMIT_MODES + (AUTO_MODE,):
+    if mode == AUTO_MODE:
         raise NotImplementedError(
-            f"commit schedule {mode!r} is not ported yet (reference: "
-            f"repro.dsm.flit_runtime.DurableCommitter); the port commits "
-            f"with schedule='sync'")
+            "commit schedule 'auto' is not ported yet: it needs a "
+            "PlacementPolicy to price the flush (reference: "
+            "repro.dsm.placement.PlacementPolicy.choose_schedule)")
     raise ValueError(f"unknown commit schedule {mode!r}")
 
 
@@ -54,8 +78,22 @@ class CommitStats:
     n_shards: int = 1
 
 
+def auto_shard_count(total_bytes: int, *,
+                     min_shard_bytes: int = 1 << 20,
+                     n_devices: Optional[int] = None) -> int:
+    """The default shard-count heuristic: one flush pipeline per local
+    device, capped so no shard falls under ``min_shard_bytes``.  The
+    device term is ``torch.cuda.device_count()`` (1 without a card) where
+    the reference's is ``jax.local_device_count()``."""
+    per_device = max(n_devices if n_devices is not None
+                     else torch.cuda.device_count(), 1)
+    by_bytes = max(total_bytes // min_shard_bytes, 1)
+    return max(1, min(per_device, by_bytes))
+
+
 class DurableCommitter:
     def __init__(self, tiers: TierManager, *, mode: str = "sync",
+                 n_shards: Optional[int] = None,
                  retention: Optional[int] = None,
                  complete_fn: Optional[
                      Callable[[int, Dict[str, Any], Optional[dict]],
@@ -63,15 +101,30 @@ class DurableCommitter:
         check_mode(mode)
         self.tiers = tiers
         self.mode = mode
+        self.n_shards = n_shards or None     # None = auto at first commit
         self.retention = retention
         #: delegated completeOp: ``complete_fn(step, written, meta) -> seq``
         #: replaces ``pool.commit_manifest`` (and turns off retention GC:
         #: the delegate owns the manifest protocol)
         self.complete_fn = complete_fn
+        #: (step, object names, meta) of the in-flight async commit; meta
+        #: is captured at LAUNCH so the manifest always describes the state
+        #: that was actually flushed
+        self._pending: Optional[Tuple[int, List[str], Optional[dict]]] = None
         self.stats: list = []
 
+    def _resolve_shards(self) -> int:
+        """Lazy auto shard count, sized from the HBM state volume at the
+        first sharded flush."""
+        if self.n_shards is None:
+            self.n_shards = auto_shard_count(sum(
+                leaf_nbytes(l) for l in tree_leaves(dict(self.tiers.hbm))))
+        return self.n_shards
+
     def _complete_op(self, step: int, written: Dict[str, Any],
-                     meta, t0) -> CommitStats:
+                     meta, t0, label: str) -> CommitStats:
+        """completeOp = atomic manifest rename (or the delegated
+        completeOp), then retention GC."""
         if self.complete_fn is not None:
             seq = self.complete_fn(step, written, meta)
         else:
@@ -80,7 +133,9 @@ class DurableCommitter:
             self.tiers.pool.gc(keep=self.retention)
         st = CommitStats(step, seq, len(written),
                          sum(o.nbytes for o in written.values()),
-                         time.perf_counter() - t0, self.mode)
+                         time.perf_counter() - t0, label,
+                         (self.n_shards or 1) if "sharded" in self.mode
+                         else 1)
         self.stats.append(st)
         return st
 
@@ -89,19 +144,78 @@ class DurableCommitter:
         for name, tree in objects.items():
             self.tiers.lstore(name, tree)
 
-    def commit(self, step: int, meta: Optional[dict] = None) -> CommitStats:
-        """Durable commit of the current HBM state: rflush every object,
-        then one completeOp."""
+    def commit(self, step: int, meta: Optional[dict] = None
+               ) -> Optional[CommitStats]:
+        """Durable commit of the current HBM state.  Blocking schedules
+        return the stats of THIS step; async ones the stats of the
+        PREVIOUS step whose flushes were just joined (None on the first
+        call)."""
         t0 = time.perf_counter()
+        if self.mode == "async":
+            return self._commit_async(step, meta, t0)
+        if self.mode == "sharded-async":
+            return self._commit_sharded_async(step, meta, t0)
         written: Dict[str, Any] = {}
-        for name in list(self.tiers.hbm):
-            written[name] = self.tiers.rflush(name)
-        return self._complete_op(step, written, meta, t0)
+        for name in self.tiers.hbm:
+            if self.mode == "sharded":
+                written[name] = self.tiers.rflush_sharded(
+                    name, self._resolve_shards())
+            else:
+                written[name] = self.tiers.rflush(name)
+        return self._complete_op(step, written, meta, t0, self.mode)
+
+    def _commit_async(self, step: int, meta, t0) -> Optional[CommitStats]:
+        """Join the previous async flushes, completeOp them, then launch
+        flushes of the CURRENT state in the background."""
+        st = self._join_pending(t0, "async")
+        names = list(self.tiers.hbm)
+        for name in names:
+            self.tiers.flush_async(name)
+        self._pending = (step, names, meta)
+        return st
+
+    def _commit_sharded_async(self, step: int, meta, t0
+                              ) -> Optional[CommitStats]:
+        """Double-buffered sharded commit: join + completeOp step s-1's
+        shard pipelines, then launch step s's and return."""
+        st = self._join_pending(t0, "sharded-async")
+        names = list(self.tiers.hbm)
+        for name in names:
+            self.tiers.flush_async_sharded(name, self._resolve_shards())
+        self._pending = (step, names, meta)
+        return st
+
+    def _join_pending(self, t0, label: str) -> Optional[CommitStats]:
+        if self._pending is None:
+            return None
+        prev_step, names, meta = self._pending
+        self._pending = None        # cleared FIRST: a failed join must not
+        #                             leave already-popped names re-joinable
+        written: Dict[str, Any] = {}
+        first_err: Optional[BaseException] = None
+        for n in names:
+            try:
+                written[n] = self.tiers.flush_wait(n)
+            except Exception as e:   # join the rest, then surface the first
+                if first_err is None:
+                    first_err = e
+        if first_err is not None:
+            raise first_err          # step simply not durable; no manifest
+        return self._complete_op(prev_step, written, meta, t0, label)
 
     def drain(self, meta: Optional[dict] = None) -> Optional[CommitStats]:
-        """Flush a pending async commit: the sync schedule never has one."""
+        """Publish a pending async commit (planned shutdown).  The manifest
+        carries the meta captured when it LAUNCHED; ``meta`` is only a
+        fallback when none was given then."""
+        if self._pending is not None:
+            if self._pending[2] is None and meta is not None:
+                self._pending = (*self._pending[:2], meta)
+            return self._join_pending(time.perf_counter(), "drain")
         return None
 
     def abort_pending(self):
-        """Crash path: discard a pending commit (none under sync)."""
+        """Crash path: discard the pending commit WITHOUT completing it.
+        Outstanding writes are joined (no stale write can land after the
+        next incarnation starts) but no manifest is written."""
+        self._pending = None
         self.tiers.abort_flushes()

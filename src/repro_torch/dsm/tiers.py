@@ -1,5 +1,5 @@
 """Tier manager: HBM / host-staging / pool with CXL0 primitive semantics —
-the port of ``repro.dsm.tiers`` with the synchronous primitives.
+the port of ``repro.dsm.tiers``.
 
 Per worker, per object:
 
@@ -11,22 +11,50 @@ Per worker, per object:
                             pool; completes only when on storage (fsync).
 * ``mstore(name, tree)``  — lstore + rflush fused (Prop. 1.8).
 
-The device -> host copy (``_to_host_counted``) takes every CUDA tensor
-leaf through ONE ``.cpu()`` and charges its bytes to ``d2h_gather_bytes``;
-host leaves pass through.  Sharded and async flush pipelines
-(``rflush_sharded``, ``flush_async*``) come with the sharded schedules;
-peer staging (``rstore`` into a peer's host buffer, ``rload`` of what a
-peer staged here) comes with the fleet and cluster slices that use it.
+A background ``flush_async`` thread overlaps rflush I/O with compute; the
+commit barrier (``DurableCommitter``) joins it before completeOp.
+
+Sharded variants (``rflush_sharded`` / ``flush_async_sharded``) partition
+the object's flattened leaves into byte-balanced shards and run one
+LStore/RFlush pipeline per shard on a thread pool — the write path of the
+sharded / sharded-async commit schedules.  The shard writes are
+SPLIT-PHASE (``DSMPool.start_write`` -> ``PendingWrite.finish``):
+serialization / CRC of shard k+1 streams on the flush pool while shard k's
+fsync runs on a one-thread fsync lane.
+``flush_wait`` joins either flavor; ``abort_flushes`` joins-and-discards
+every outstanding write (crash recovery: a stale in-flight write can never
+land AFTER a new incarnation started reusing version numbers).
+
+Snapshots.  The reference snapshots by reference, since jax arrays are
+immutable; torch tensors are not.  So every async or sharded flush takes
+its snapshot to the host AT LAUNCH, on the caller's thread: a CUDA leaf
+through ONE counted ``.cpu()`` (``d2h_gather_bytes``), and, for the
+asynchronous flushes, a host leaf the caller still holds through a copy
+(``.cpu()`` of a host tensor is the tensor itself).  A flush thread never
+sees a CUDA tensor or a tensor the caller may write later.  The
+device-local (mesh) shard pipelines and peer staging (``rstore`` /
+``rload``) are not ported yet.
 """
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.dsm.pool import DSMPool, PoolObject
+from repro_torch.dsm import stream
+from repro_torch.dsm.pool import (DSMPool, PoolObject, ShardedObject,
+                                  partition_leaves)
 from repro_torch.utils.tree import tree_flatten
+
+
+def leaf_nbytes(leaf: Any) -> int:
+    """Payload bytes of one leaf (a tensor or anything numpy takes)."""
+    if isinstance(leaf, torch.Tensor):
+        return int(leaf.nbytes)
+    return int(np.asarray(leaf).nbytes)
 
 
 class TierManager:
@@ -35,10 +63,19 @@ class TierManager:
         self.hbm: Dict[str, Any] = {}               # C_i — device tier
         self.versions: Dict[str, int] = {}
         self.flit_counter: Dict[str, int] = {}
+        self._flush_threads: Dict[str, threading.Thread] = {}
+        self._flush_results: Dict[str, PoolObject] = {}
+        self._flush_errors: Dict[str, BaseException] = {}
+        #   name -> (version, n_leaves, assignment, shard futures)
+        self._sharded_futures: Dict[
+            str, Tuple[int, int, List[List[int]], List[Future]]] = {}
+        self._executor: Optional[ThreadPoolExecutor] = None
+        self._fsync_lane: Optional[ThreadPoolExecutor] = None
+        self._arena = stream.SpillArena()   # reusable spill pack buffers
         self._lock = threading.Lock()
         #: D2H accounting (bytes): whole-leaf host gathers of the flush
-        #: and paging paths (``d2h_gather_bytes``) and, kept for the sharded
-        #: device-local pipelines to come, per-buffer copies
+        #: and paging paths (``d2h_gather_bytes``) and, kept for the
+        #: device-local shard pipelines to come, per-buffer copies
         #: (``d2h_shard_bytes``)
         self.d2h_gather_bytes = 0
         self.d2h_shard_bytes = 0
@@ -68,6 +105,39 @@ class TierManager:
     def _to_host_counted(self, tree):
         leaves, treedef = tree_flatten(tree)
         return treedef.unflatten([self.to_host(l) for l in leaves])
+
+    def _snapshot_leaves(self, name: str, own: bool) -> List[Any]:
+        """The object's leaves on the host, taken NOW on the caller's
+        thread.  ``own``: also copy each host leaf that the caller still
+        holds, so a later in-place write cannot reach a flush still in
+        flight."""
+        out = []
+        for leaf in tree_flatten(self.hbm[name])[0]:
+            host = self.to_host(leaf)
+            if own and host is leaf:
+                host = (leaf.clone() if isinstance(leaf, torch.Tensor)
+                        else np.array(leaf, copy=True))
+            out.append(host)
+        return out
+
+    def _get_executor(self, n_workers: int) -> ThreadPoolExecutor:
+        """One lazily-created pool of flush pipelines, sized by the first
+        sharded flush (the shard count is constant for a run)."""
+        if self._executor is None:
+            self._executor = ThreadPoolExecutor(
+                max_workers=max(1, n_workers), thread_name_prefix="rflush")
+        return self._executor
+
+    def _get_fsync_lane(self) -> ThreadPoolExecutor:
+        """One-thread executor that only runs ``PendingWrite.finish``
+        (fsync + rename): the flush pool keeps serializing / CRC-ing the
+        NEXT shard while the current one flushes — fsync releases the GIL,
+        so the pipeline overlaps even on a single CPU."""
+        with self._lock:
+            if self._fsync_lane is None:
+                self._fsync_lane = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="fsync")
+            return self._fsync_lane
 
     # -- CXL0 primitive realizations ----------------------------------------
     def lstore(self, name: str, tree: Any):
@@ -100,12 +170,196 @@ class TierManager:
         self.lstore(name, tree)
         return self.rflush(name)
 
+    # -- sharded flush (parallel per-shard RFlush pipelines) -----------------
+    def _shard_submit(self, name: str, n_shards: int, *, own: bool,
+                      device_local: bool = False
+                      ) -> Tuple[int, int, List[List[int]], List[Future]]:
+        """Snapshot the object NOW (``_snapshot_leaves``), partition its
+        leaves into byte-balanced shards and submit one write per shard to
+        the flush pool as a split-phase pipeline."""
+        if device_local:
+            raise NotImplementedError(
+                "device-local (mesh) shard pipelines are not ported yet "
+                "(reference: repro.dsm.meshio)")
+        version = self.versions.get(name, 0)
+        leaves = self._snapshot_leaves(name, own)
+        assignment = partition_leaves([leaf_nbytes(l) for l in leaves],
+                                      n_shards)
+        shards = [[leaves[i] for i in idxs] for idxs in assignment]
+        ex = self._get_executor(len(assignment))
+        futs = []
+        try:
+            for k, shard in enumerate(shards):
+                futs.append(self._submit_split_phase(
+                    ex, f"{name}.s{k}", version, shard))
+        except BaseException:
+            # already-submitted shard writes must fully land (or fail)
+            # before the caller unwinds: an untracked stale write could
+            # race a later incarnation's version reuse
+            for f in futs:
+                try:
+                    f.result()
+                except Exception:
+                    pass
+            raise
+        return version, len(leaves), assignment, futs
+
+    def _submit_split_phase(self, ex: ThreadPoolExecutor, name: str,
+                            version: int, leaves) -> Future:
+        """One shard write as a two-stage pipeline: the flush pool thread
+        serializes + CRCs the frame (``start_write``, no fsync), then hands
+        the pending write to the fsync lane for ``finish`` (fsync + atomic
+        rename).  The returned future resolves only after the rename — the
+        durability point of a monolithic ``write_object``."""
+        out: Future = Future()
+
+        def serialize():
+            try:
+                pending = self.pool.start_write(name, version, leaves,
+                                                arena=self._arena)
+            except BaseException as e:
+                out.set_exception(e)
+                return
+
+            def finish():
+                try:
+                    out.set_result(pending.finish())
+                except BaseException as e:
+                    try:
+                        pending.abort()
+                    except Exception:
+                        pass
+                    out.set_exception(e)
+            try:
+                self._get_fsync_lane().submit(finish)
+            except BaseException as e:     # lane torn down mid-shutdown
+                pending.abort()
+                out.set_exception(e)
+
+        ex.submit(serialize)
+        return out
+
+    def _shard_join(self, name: str, version: int, n_leaves: int,
+                    assignment: List[List[int]],
+                    futs: List[Future]) -> ShardedObject:
+        """Join EVERY shard future (a failed shard must not leave later
+        shards' writes in flight), then surface the first failure."""
+        shards, first_err = [], None
+        for f in futs:
+            try:
+                shards.append(f.result())
+            except BaseException as e:
+                if first_err is None:
+                    first_err = e
+        if first_err is not None:
+            raise first_err
+        return ShardedObject(name, version,
+                             sum(s.nbytes for s in shards),
+                             n_leaves, shards, assignment)
+
+    def rflush_sharded(self, name: str, n_shards: int,
+                       device_local: bool = False) -> ShardedObject:
+        """Blocking sharded durable write: all shards written in parallel,
+        returns once every shard is on storage."""
+        self.flit_counter[name] = self.flit_counter.get(name, 0) + 1
+        try:
+            return self._shard_join(
+                name, *self._shard_submit(name, n_shards, own=False,
+                                          device_local=device_local))
+        finally:
+            self.flit_counter[name] -= 1
+
+    def flush_async_sharded(self, name: str, n_shards: int,
+                            device_local: bool = False):
+        """Start a sharded durable write in the background (the double-
+        buffered commit path); join via flush_wait.  The FliT counter
+        stays raised until the join."""
+        self.flit_counter[name] = self.flit_counter.get(name, 0) + 1
+        try:
+            self._sharded_futures[name] = self._shard_submit(
+                name, n_shards, own=True, device_local=device_local)
+        except BaseException:
+            self.flit_counter[name] -= 1     # nothing tracked -> no join
+            raise
+
+    # -- async flush (compute/IO overlap) ------------------------------------
+    def flush_async(self, name: str):
+        """Start a durable write in the background; join via flush_wait.
+        The FliT counter stays raised until the write completes."""
+        self.flit_counter[name] = self.flit_counter.get(name, 0) + 1
+        version = self.versions.get(name, 0)
+        treedef = tree_flatten(self.hbm[name])[1]
+        host_copy = treedef.unflatten(                       # snapshot NOW
+            self._snapshot_leaves(name, own=True))
+
+        def work():
+            # a failed write surfaces at the join (flush_wait), and the
+            # FliT counter comes back down either way
+            try:
+                obj = self.pool.write_object(name, version, host_copy)
+            except BaseException as e:
+                with self._lock:
+                    self._flush_errors[name] = e
+            else:
+                with self._lock:
+                    self._flush_results[name] = obj
+            finally:
+                with self._lock:
+                    self.flit_counter[name] -= 1
+
+        t = threading.Thread(target=work, daemon=True)
+        self._flush_threads[name] = t
+        t.start()
+
+    def flush_wait(self, name: str):
+        """Join one outstanding async flush (threaded or sharded); returns
+        the PoolObject / ShardedObject for the manifest.  A write that
+        failed in the background re-raises HERE — the commit is simply not
+        durable (no manifest)."""
+        pending = self._sharded_futures.pop(name, None)
+        if pending is not None:
+            try:
+                return self._shard_join(name, *pending)
+            finally:
+                self.flit_counter[name] -= 1
+        t = self._flush_threads.pop(name, None)
+        if t is not None:
+            t.join()
+        with self._lock:
+            err = self._flush_errors.pop(name, None)
+            if err is not None:
+                raise err
+            return self._flush_results.pop(name)
+
     def abort_flushes(self):
-        """Join-and-discard outstanding async writes: the synchronous tier
-        has none (kept so the crash path reads as the reference's)."""
+        """Join-and-discard every outstanding async write (crash recovery:
+        a stale write must fully land, or fail, BEFORE the next
+        incarnation reuses version numbers)."""
+        for name, (_, _, _, futs) in list(self._sharded_futures.items()):
+            for f in futs:
+                try:
+                    f.result()
+                except Exception:
+                    pass
+            self.flit_counter[name] -= 1
+        self._sharded_futures.clear()
+        for t in list(self._flush_threads.values()):
+            t.join()            # work()'s finally lowered the counter
+        self._flush_threads.clear()
+        with self._lock:
+            self._flush_results.clear()
+            self._flush_errors.clear()
 
     def close(self):
-        """Release flush resources (none in the synchronous tier)."""
+        """Release the flush thread pool and fsync lane (idempotent;
+        lazily recreated if another sharded flush happens)."""
+        if self._executor is not None:
+            self._executor.shutdown(wait=False)
+            self._executor = None
+        with self._lock:
+            lane, self._fsync_lane = self._fsync_lane, None
+        if lane is not None:
+            lane.shutdown(wait=False)
 
     # -- crash ----------------------------------------------------------------
     def crash(self):

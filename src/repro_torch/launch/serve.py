@@ -7,11 +7,15 @@ port of ``repro.launch.serve`` (one engine, one device, no mesh).
     # durable serving: sessions commit through the FliT path; re-running
     # the same command after a kill resumes every committed session
     python -m repro_torch.launch.serve --smoke --pool "$TMPDIR/serve_pool" \\
-        --commit-every 4
+        --commit-every 4 --commit-mode sharded-async
+
+    # the static-batch baseline the benchmark compares against
+    python -m repro_torch.launch.serve --smoke --mode static
 
 ``--device cuda`` (the default) runs on the card and raises without one;
 ``--device cpu`` runs the plain PyTorch versions.  Flags of features that
-are not ported yet exit with an error naming them.
+are not ported yet (``--commit-mode auto``, ``--topology``, ``--engines``
+above 1, ``--no-prefix-reuse``) exit with an error naming them.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ def set_determinism():
 
 def main(argv=None):
     from repro_torch.configs import ARCH_IDS
+    from repro_torch.dsm.flit_runtime import AUTO_MODE, COMMIT_MODES
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="olmo-1b", choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
@@ -51,22 +56,30 @@ def main(argv=None):
     ap.add_argument("--commit-every", type=int, default=4,
                     help="session-commit cadence in decode ticks")
     ap.add_argument("--commit-mode", default="sync",
-                    help="flush schedule (only 'sync' is ported)")
+                    choices=COMMIT_MODES + (AUTO_MODE,),
+                    help="flush schedule ('auto' is not ported yet)")
     ap.add_argument("--topology", default=None)
     ap.add_argument("--engines", type=int, default=1)
     ap.add_argument("--retire-done", action="store_true")
     ap.add_argument("--restore-mode", default="cache",
                     choices=["cache", "replay"])
+    ap.add_argument("--block-tokens", type=int, default=16,
+                    help="paged KV layout: tokens per pool block")
+    ap.add_argument("--no-prefix-reuse", action="store_true",
+                    help="fleet flag (not ported yet)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
-    if args.mode != "continuous":
-        ap.error(f"--mode {args.mode} (the static baseline) is {NOT_PORTED}")
-    if args.commit_mode != "sync":
-        ap.error(f"--commit-mode {args.commit_mode} is {NOT_PORTED}")
+    if args.commit_mode == AUTO_MODE:
+        ap.error(f"--commit-mode auto (placement-priced, "
+                 f"repro.dsm.placement) is {NOT_PORTED}")
     if args.topology is not None:
-        ap.error(f"--topology is {NOT_PORTED}")
+        ap.error(f"--topology (repro.dsm.emu) is {NOT_PORTED}")
     if args.engines != 1:
-        ap.error(f"--engines {args.engines} (fleet serving) is {NOT_PORTED}")
+        ap.error(f"--engines {args.engines} (fleet serving, "
+                 f"repro.serve.fleet) is {NOT_PORTED}")
+    if args.no_prefix_reuse:
+        ap.error(f"--no-prefix-reuse (a fleet flag, repro.serve.fleet) is "
+                 f"{NOT_PORTED}")
 
     set_determinism()
     from repro_torch.serve.engine import build_serve_engine
@@ -80,8 +93,9 @@ def main(argv=None):
         args.arch, smoke=args.smoke, n_slots=args.slots,
         t_max=trace_t_max(trace), pool_path=args.pool,
         commit_every=args.commit_every if args.pool else 0,
-        restore_mode=args.restore_mode, retire_done=args.retire_done,
-        seed=args.seed, device=args.device)
+        commit_mode=args.commit_mode, restore_mode=args.restore_mode,
+        retire_done=args.retire_done, seed=args.seed,
+        block_tokens=args.block_tokens, device=args.device)
     # regenerate with the real vocab now the config is known
     trace = synthetic_trace(args.requests, seed=args.seed,
                             prompt_lens=(args.prompt_len,),
@@ -92,7 +106,8 @@ def main(argv=None):
     if resumed is not None:
         print(f"resumed from committed tick {resumed}")
     t0 = time.perf_counter()
-    res = engine.run(trace)
+    res = (engine.run(trace) if args.mode == "continuous"
+           else engine.run_static(trace))
     if engine.device.type == "cuda":
         import torch
         torch.cuda.synchronize()

@@ -146,15 +146,18 @@ def cache_descs(cfg: ModelConfig, batch: int, t_max: int):
 # ---------------------------------------------------------------------------
 
 def block_forward(cfg: ModelConfig, p, x, positions, *, cache=None,
-                  pos=None, decode: bool = False):
+                  pos=None, decode: bool = False,
+                  per_sequence: bool = True):
     """One transformer block (attention or mamba, then a dense or MoE
     channel mixer).  Returns ``(x, cache, aux)``: a given cache is written
     in place (attention prefill: the prompt at t = 0; decode: one token at
     ``pos``; mamba: the conv window and the state, whole), and ``aux`` is
-    the MoE load-balance loss (0 for a dense block).  A decode routes each
-    sequence's token through the MoE on its own, as the reference's serving
-    decode (a per-slot ``vmap``) does; a forward or prefill of B sequences
-    shares one routing, as the reference's does.  An rwkv block (time mix,
+    the MoE load-balance loss (0 for a dense block).  A decode with
+    ``per_sequence`` routes each sequence's token through the MoE on its
+    own, as the reference's serving decode (a per-slot ``vmap``) does;
+    without it, and in a forward or prefill of B sequences, the batch
+    shares one routing under one capacity, as the reference's batched
+    decode and forward do.  An rwkv block (time mix,
     channel mix) overwrites its cache whole: the state in place inside the
     WKV, then last_tm / last_cm."""
     if "rwkv" in p:
@@ -178,7 +181,8 @@ def block_forward(cfg: ModelConfig, p, x, positions, *, cache=None,
     x = x + y
     h2 = common.apply_norm(cfg, p["norm2"], x)
     if "moe" in p:
-        y2, aux = moe.moe_forward(cfg, p["moe"], h2, per_sequence=decode)
+        y2, aux = moe.moe_forward(cfg, p["moe"], h2,
+                                  per_sequence=decode and per_sequence)
     else:
         y2, aux = common.apply_mlp(cfg, p["mlp"], h2), 0.0
     return x + y2, cache, aux
@@ -197,7 +201,7 @@ def _rwkv_block(cfg: ModelConfig, p, x, cache):
 
 
 def _run_groups(cfg: ModelConfig, params, x, positions, *, caches=None,
-                pos=None, decode: bool = False):
+                pos=None, decode: bool = False, per_sequence: bool = True):
     """Apply all layer groups; the stacked (repeats,) dim is a loop.
     Serving discards the MoE aux loss (training will sum it)."""
     for gi, g in enumerate(layer_groups(cfg)):
@@ -211,7 +215,8 @@ def _run_groups(cfg: ModelConfig, params, x, positions, *, caches=None,
                     if bc is not None:
                         bc = tree_map(lambda a: a[r], bc)
                 x, _, _ = block_forward(cfg, bp, x, positions, cache=bc,
-                                        pos=pos, decode=decode)
+                                        pos=pos, decode=decode,
+                                        per_sequence=per_sequence)
     return x
 
 
@@ -258,13 +263,16 @@ def prefill(cfg: ModelConfig, params, tokens, caches):
                                             device=tokens.device)))
 
 
-def decode_step(cfg: ModelConfig, params, tokens, state: ServeState):
+def decode_step(cfg: ModelConfig, params, tokens, state: ServeState, *,
+                per_sequence: bool = True):
     """One decode step. tokens: (B, 1) int; ``state.pos`` a scalar or one
-    position per sequence; each sequence's token is routed through the MoE
-    on its own (``block_forward``).  Returns (logits (B, V), state)."""
+    position per sequence.  With ``per_sequence`` each sequence's token is
+    routed through the MoE on its own (the slot decode); without it the B
+    tokens share one routing (the reference's batched ``decode_step``,
+    which the static baseline runs).  Returns (logits (B, V), state)."""
     x = embed_inputs(cfg, params, tokens)
     x = _run_groups(cfg, params, x, None, caches=state.caches,
-                    pos=state.pos, decode=True)
+                    pos=state.pos, decode=True, per_sequence=per_sequence)
     x = common.apply_norm(cfg, params["final_norm"], x)
     logits = common.unembed(cfg, params["embed"], x)
     return (logits[:, 0].to(torch_dtype(cfg.logit_dtype)),

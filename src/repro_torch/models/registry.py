@@ -73,5 +73,6 @@ def build(cfg: ModelConfig, dec_pos_len: int = 448,
         cfg=cfg, device=dev, descs=lm.model_descs(cfg),
         forward=lambda p, t: lm.forward(cfg, p, t),
         prefill=lambda p, b, caches: lm.prefill(cfg, p, b["tokens"], caches),
-        decode=lambda p, t, s: lm.decode_step(cfg, p, t, s),
+        decode=lambda p, t, s, per_sequence=True: lm.decode_step(
+            cfg, p, t, s, per_sequence=per_sequence),
         cache_descs=lambda batch, t_max: lm.cache_descs(cfg, batch, t_max))

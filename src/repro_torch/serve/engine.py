@@ -6,7 +6,9 @@ The serving loop per decode tick (``tick()``; ``run()`` loops it):
 1. **admit** — free slots refill FIFO from the scheduler; each admission
    prefills ONE sequence (B = 1; on the card its attention is the Hopper
    flash kernel, 16 launches per olmo-1b prefill), writes its cache into
-   the slot lane and emits its first token;
+   the slot lane and emits its first token — or, with prefix reuse on,
+   restores the prompt's content-addressed pool blocks and skips the
+   prefill entirely (a fresh prefill then publishes its blocks);
 2. **decode** — one slot-masked batched decode step advances every running
    slot at its own position (``train.step.make_slot_decode_step``);
 3. **retire** — sequences that hit their budget free their slot in the
@@ -15,7 +17,10 @@ The serving loop per decode tick (``tick()``; ``run()`` loops it):
 4. **commit** (every ``commit_every`` ticks, durable pools only) — the
    PAGED layout: only the token blocks each session touched since the last
    commit are copied to the host, staged and flushed; the manifest carries
-   every clean block by reference (serve.sessions).
+   every clean block by reference (serve.sessions), under the store's
+   schedule (``sync`` / ``async`` / ``sharded`` / ``sharded-async``).
+   ``finish()`` commits the final table and drains the store, so the last
+   async commit lands.
 
 Crash recovery: a restarted server calls ``resume()`` — finished sessions
 come back as results; running sessions re-enter the queue AHEAD of fresh
@@ -25,8 +30,12 @@ requests with their committed cache restored into a lane
 run: the restored bytes ARE the committed lane bytes, and every step is
 deterministic with fixed shapes.
 
-Not ported yet: the static-batch baseline (``run_static``), prefix reuse,
-live migration and the legacy whole-lane commit layout.
+``run_static`` is the static-batch baseline the benchmark compares
+against: batched prefill (B = ``n_slots``), then decode until the LONGEST
+sequence of the batch finishes.
+
+Not ported yet: live migration (fleet handoffs) and the legacy whole-lane
+commit layout.
 """
 from __future__ import annotations
 
@@ -37,8 +46,9 @@ import numpy as np
 import torch
 
 from repro_torch.serve.kvcache import TieredKVCache
-from repro_torch.serve.paging import (BlockAllocator, BlockPager,
-                                      BlockRef, BlockTable, STATE_BLOCK)
+from repro_torch.serve.paging import (BLOCK_TOKENS, BlockAllocator,
+                                      BlockPager, BlockRef, BlockTable,
+                                      STATE_BLOCK)
 from repro_torch.serve.scheduler import Request, SlotScheduler
 from repro_torch.serve.sessions import Session, SessionStore
 from repro_torch.train.step import make_serve_steps, make_slot_decode_step
@@ -55,6 +65,7 @@ class ServeResult:
     resumed_step: Optional[int] = None
     resumed_sessions: int = 0
     commits: int = 0
+    prefix_hits: int = 0              # admissions served from shared blocks
 
 
 class ServeEngine:
@@ -63,7 +74,10 @@ class ServeEngine:
                  store: Optional[SessionStore] = None,
                  commit_every: int = 0,
                  restore_mode: str = "cache",
-                 retire_done: bool = False):
+                 retire_done: bool = False,
+                 block_tokens: int = BLOCK_TOKENS,
+                 prefix_reuse: bool = False,
+                 prefix_key: str = ""):
         if restore_mode not in ("cache", "replay"):
             raise ValueError(restore_mode)
         if bundle.cfg.is_encdec:
@@ -77,8 +91,12 @@ class ServeEngine:
         self.commit_every = commit_every if store is not None else 0
         self.restore_mode = restore_mode
         self.retire_done = retire_done
+        #: reuse is sound only within one model identity: ``prefix_key``
+        #: must name the weights (build_serve_engine sets it)
+        self.prefix_reuse = prefix_reuse and store is not None
+        self.prefix_key = prefix_key
 
-        self._prefill, _ = make_serve_steps(bundle)
+        self._prefill, self._decode = make_serve_steps(bundle)
         self._slot_decode = make_slot_decode_step(bundle)
         self.kv = TieredKVCache(bundle, n_slots, t_max,
                                 tiers=store.tiers if store else None)
@@ -91,7 +109,7 @@ class ServeEngine:
         self.results: Dict[str, List[int]] = {}
         self._resume_cache: Dict[str, Any] = {}
         if store is not None:
-            self.pager = BlockPager(bundle, t_max)
+            self.pager = BlockPager(bundle, t_max, block_tokens)
             frames = n_slots * (self.pager.n_blocks(t_max) + 1) + 8
             self.allocator = BlockAllocator(max(64, 4 * frames))
             self.tables: Dict[str, BlockTable] = {}
@@ -104,6 +122,7 @@ class ServeEngine:
         self._n_resumed = 0
         self._n_prefills = 0
         self._n_commits = 0
+        self._n_prefix_hits = 0
 
     # -- request intake ------------------------------------------------------
     def submit(self, requests: Sequence[Request]):
@@ -183,7 +202,8 @@ class ServeEngine:
             mode="continuous",
             resumed_step=self._resumed_step,
             resumed_sessions=self._n_resumed,
-            commits=self._n_commits)
+            commits=self._n_commits,
+            prefix_hits=self._n_prefix_hits)
 
     def _admit(self, slot: int, req: Request):
         rid = req.rid
@@ -202,6 +222,8 @@ class ServeEngine:
         else:
             s = Session(rid, tuple(req.prompt), req.max_new_tokens)
             self.sessions[rid] = s
+            if self.prefix_reuse and self._admit_from_prefix(slot, s):
+                return
         for leaf in tree_leaves(self._caches1):
             leaf.zero_()
         tokens = torch.tensor([s.prompt], dtype=torch.long,
@@ -215,8 +237,38 @@ class ServeEngine:
         self.last_token[slot] = tok0
         self.active[slot] = True
         s.emitted.append(tok0)
+        if self.prefix_reuse:
+            self.store.publish_prefix(self.pager, self.prefix_key,
+                                      s.prompt, st.caches, tok0)
         if len(s.emitted) >= s.max_new_tokens:
             self._finish(rid, slot)
+
+    def _admit_from_prefix(self, slot: int, s: Session) -> bool:
+        """Admission fast path: restore the prompt's shared blocks from the
+        pool instead of prefilling.  Bit-identical to the prefill it
+        replaces — the blocks were published from a prefill of the same
+        prompt under the same weights (the same ``prefix_key``)."""
+        hit = self.store.load_prefix(self.pager, self.prefix_key, s.prompt)
+        if hit is None:
+            return False
+        blocks, shared, tok0 = hit
+        self.kv.write_slot(slot, self.pager.assemble(blocks))
+        table = BlockTable()
+        for k, (name, entry) in shared.items():
+            # the table references the SHARED objects: carried by name
+            # into this engine's manifests, no bytes copied
+            table.refs[k] = BlockRef(blk=k, bid=self.allocator.alloc(),
+                                     tokens=self.pager.block_tokens,
+                                     name=name, entry=entry)
+        self.tables[s.rid] = table
+        self.pos[slot] = len(s.prompt)
+        self.last_token[slot] = tok0
+        self.active[slot] = True
+        s.emitted.append(tok0)
+        self._n_prefix_hits += 1
+        if len(s.emitted) >= s.max_new_tokens:
+            self._finish(s.rid, slot)
+        return True
 
     def _decode_tick(self):
         dev = self.device
@@ -277,6 +329,42 @@ class ServeEngine:
             for rid in [r for r, s in self.sessions.items() if s.done]:
                 del self.sessions[rid]
 
+    # -- static baseline -----------------------------------------------------
+    def run_static(self, requests: Sequence[Request]) -> ServeResult:
+        """FIFO batches of ``n_slots``; each batch is prefilled at once and
+        decodes until its LONGEST sequence finishes (the hostage effect
+        continuous batching removes).  The batched decode routes the
+        batch's MoE tokens under one capacity, as the reference's does."""
+        outputs: Dict[str, List[int]] = {}
+        ticks = prefills = 0
+        reqs = list(requests)
+        for i in range(0, len(reqs), self.n_slots):
+            batch = reqs[i:i + self.n_slots]
+            lens = {len(r.prompt) for r in batch}
+            if len(lens) != 1:
+                raise ValueError("the static baseline batches unpadded "
+                                 f"prompts of one length, got {lens}")
+            toks = torch.tensor([list(r.prompt) for r in batch],
+                                dtype=torch.long, device=self.device)
+            caches = self.bundle.init_caches(len(batch), self.t_max)
+            logits, st = self._prefill(self.params, {"tokens": toks},
+                                       caches)
+            prefills += 1
+            tok = torch.argmax(logits, -1)[:, None]
+            emitted = [[t] for t in tok[:, 0].tolist()]
+            for _ in range(max(r.max_new_tokens for r in batch) - 1):
+                logits, st = self._decode(self.params, tok, st)
+                tok = torch.argmax(logits, -1)[:, None]
+                ticks += 1
+                for row, t in enumerate(tok[:, 0].tolist()):
+                    emitted[row].append(t)
+            for r, row in zip(batch, emitted):
+                outputs[r.rid] = row[:r.max_new_tokens]
+        return ServeResult(
+            outputs=outputs, decode_ticks=ticks, prefills=prefills,
+            emitted_tokens=sum(len(v) for v in outputs.values()),
+            mode="static")
+
     def close(self):
         if self.store is not None:
             self.store.close()
@@ -285,9 +373,14 @@ class ServeEngine:
 def build_serve_engine(arch: str = "olmo-1b", *, smoke: bool = True,
                        n_slots: int = 4, t_max: int = 96,
                        pool_path: Optional[str] = None,
-                       commit_every: int = 0,
+                       commit_every: int = 0, commit_mode: str = "sync",
+                       n_shards: Optional[int] = None,
                        restore_mode: str = "cache",
                        retire_done: bool = False, seed: int = 0,
+                       engine_id: int = 0,
+                       block_tokens: int = BLOCK_TOKENS,
+                       prefix_reuse: bool = False,
+                       prefix_key: Optional[str] = None,
                        bundle=None, params=None, device="cuda"):
     """Config -> bundle -> params -> optional durable session store ->
     engine.  Returns (engine, cfg).
@@ -298,8 +391,18 @@ def build_serve_engine(arch: str = "olmo-1b", *, smoke: bool = True,
     ``jax.random`` weights).  Pass ``bundle`` + ``params`` to share one
     weight set across engines or to carry the reference's weights over
     (``models.params.from_reference``).  ``pool_path`` turns on durable
-    sessions: a ``SessionStore`` over that pool, committed with the sync
-    schedule every ``commit_every`` ticks."""
+    sessions: a ``SessionStore`` of engine ``engine_id`` over that pool,
+    committed under ``commit_mode`` (``n_shards`` flush pipelines for the
+    sharded schedules; None sizes them at the first commit) every
+    ``commit_every`` ticks.
+
+    ``prefix_key`` names the weights for prefix reuse.  Its default is
+    the reference's key with ``|torch`` appended: the port's generated
+    weights are not the reference's, so a pool the reference published
+    must never hand its KV to a port engine.  An engine that carries the
+    reference's weights passes the reference's key
+    (``f"{arch}|{'smoke' if smoke else 'full'}|s{seed}"``), and its
+    ``kvblk/`` / ``kvhead/`` objects are then the reference's."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models.registry import build as build_model
 
@@ -309,9 +412,15 @@ def build_serve_engine(arch: str = "olmo-1b", *, smoke: bool = True,
     if params is None:
         params = bundle.init_params(
             torch.Generator(bundle.device).manual_seed(seed))
-    store = SessionStore(pool_path) if pool_path is not None else None
+    store = None
+    if pool_path is not None:
+        store = SessionStore(pool_path, mode=commit_mode, n_shards=n_shards,
+                             engine_id=engine_id)
+    if prefix_key is None:
+        prefix_key = f"{arch}|{'smoke' if smoke else 'full'}|s{seed}|torch"
     engine = ServeEngine(
         bundle, params, n_slots=n_slots, t_max=t_max, store=store,
         commit_every=commit_every, restore_mode=restore_mode,
-        retire_done=retire_done)
+        retire_done=retire_done, block_tokens=block_tokens,
+        prefix_reuse=prefix_reuse, prefix_key=prefix_key)
     return engine, cfg

@@ -13,14 +13,24 @@ one.  Per-session block tables ride in the manifest meta.
 
 The pager works on the host: ``_host_leaves`` brings each leaf of a lane
 copy over with ONE ``.cpu()``, counted by the caller's D2H counter.
-Content-addressed prefix blocks (``kvblk/`` / ``kvhead/``) come with
-prefix reuse.
+
+**Content-addressed prefix blocks.**  A prompt-pure block (entirely inside
+the prompt) is a deterministic function of (model identity, prompt prefix
+up to its upper edge).  ``prefix_hash`` keys it as the pool object
+``kvblk/<hash>``, published once, plus a ``kvhead/<hash-of-full-prompt>``
+object holding the partial tail + recurrent state + first sampled token,
+so a second engine serving the same prompt restores blocks and skips the
+prefill (``serve.sessions`` ``publish_prefix`` / ``load_prefix``).  The
+hash is the reference's (``zlib.crc32`` over the int32 token bytes), so
+for equal keys the content addresses, and the frames, are the same.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional
+import zlib
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.models.params import TensorSpec, tree_map_descs
@@ -39,10 +49,32 @@ def cache_token_axes(bundle):
         bundle.cache_descs(1, 2))
 
 
-def block_object_name(rid: str, blk: int) -> str:
+def block_object_name(rid: str, blk: int, ns: str = "") -> str:
+    """Pool object name of session ``rid``'s block ``blk`` under an engine
+    namespace (``e<i>/``, empty for engine 0)."""
     if blk == STATE_BLOCK:
-        return f"kv/{rid}/state"
-    return f"kv/{rid}/b{blk}"
+        return f"{ns}kv/{rid}/state"
+    return f"{ns}kv/{rid}/b{blk}"
+
+
+def shared_block_name(h: int) -> str:
+    """Content-addressed prompt-prefix block (unnamespaced: the pool is
+    the shared substrate)."""
+    return f"kvblk/{h:08x}"
+
+
+def shared_head_name(h: int) -> str:
+    """Content-addressed prefill head: partial tail block + recurrent
+    state + the first sampled token, keyed by the FULL prompt hash."""
+    return f"kvhead/{h:08x}"
+
+
+def prefix_hash(key: str, tokens: Sequence[int], block_tokens: int) -> int:
+    """Content address of a prompt prefix under one model identity
+    (``key`` names the weights: reuse across engines is sound only when
+    their weights are bit-identical)."""
+    doc = f"{key}|bt{block_tokens}|".encode()
+    return zlib.crc32(np.asarray(tokens, np.int32).tobytes(), zlib.crc32(doc))
 
 
 class OutOfBlocksError(RuntimeError):
@@ -164,8 +196,17 @@ class BlockPager:
         #: template of one block object (list of token slices)
         self.block_template = [_blk_spec(i) for i in self.tok_idx]
         self.state_template = [self._leaves[i] for i in self.state_idx]
+        #: head object = tail block slices + recurrent state + token0
+        self.head_template = (self.block_template + self.state_template
+                              + [TensorSpec((1,), torch.int32)])
 
     # -- geometry ------------------------------------------------------------
+    @property
+    def token_nbytes(self) -> int:
+        """Cache bytes per decode position across every token-axis leaf."""
+        per = sum(s.nbytes for s in self.block_template)
+        return max(1, per // self.block_tokens)
+
     def n_blocks(self, pos: int) -> int:
         return -(-pos // self.block_tokens) if pos > 0 else 0
 
@@ -244,3 +285,29 @@ class BlockPager:
                 leaves[i].narrow(ax, lo, hi - lo).copy_(
                     part.narrow(ax, 0, hi - lo))
         return self._treedef.unflatten(leaves)
+
+    # -- prefix-reuse payloads ----------------------------------------------
+    def head_payload(self, host: List[torch.Tensor], prompt_len: int,
+                     tok0: int) -> List[torch.Tensor]:
+        """The ``kvhead`` object: the partial tail block of the prompt (all
+        zeros when the prompt length is block-aligned) + the recurrent
+        state + the first sampled token."""
+        tail = prompt_len // self.block_tokens
+        return (self.slice_block(host, tail) + self.slice_state(host)
+                + [torch.tensor([tok0], dtype=torch.int32)])
+
+    def split_head(self, payload: List[torch.Tensor]):
+        """Inverse of ``head_payload`` -> (tail slices, state, tok0)."""
+        nt = len(self.tok_idx)
+        ns = len(self.state_idx)
+        return (payload[:nt], payload[nt:nt + ns],
+                int(payload[nt + ns][0]))
+
+    def prompt_block_hashes(self, key: str, prompt: Sequence[int]
+                            ) -> List[int]:
+        """Content hashes of every FULL prompt-pure block: block k is keyed
+        by the prompt prefix up to its upper edge, so two prompts sharing a
+        prefix share the early block objects."""
+        bt = self.block_tokens
+        return [prefix_hash(key, prompt[:(k + 1) * bt], bt)
+                for k in range(len(prompt) // bt)]

@@ -10,17 +10,28 @@ every clean block (merged in a delegated completeOp), so any one manifest
 describes every live cache completely.  The session table and the block
 tables ride in the manifest meta — tokens, tables and block bytes become
 durable in ONE atomic rename.  Manifests and meta are the reference's
-documents, so either package recovers the other's pool.
+documents, so either package recovers the other's pool, under every
+schedule: under ``async`` / ``sharded-async`` the carried entries are
+rebuilt before the commit call, the previous step's delegated completeOp
+merges them with its own fresh entries, and ``absorb_written`` runs after
+the call, in the reference's order.
 
-A restarted server calls ``recover()``: the newest manifest of engine 0
-whose every referenced object CRC-validates wins; finished sessions come
-back as results, running ones as (tokens emitted, restored cache).
+Engines share a pool: engine ``i`` names its block objects under
+``e<i>/`` (``engine_ns``; engine 0 unprefixed) and its manifests say
+``"engine": i``, so a restarted server calls ``recover()`` and gets the
+newest manifest of ITS engine whose every referenced object CRC-validates;
+finished sessions come back as results, running ones as (tokens emitted,
+restored cache).
 
-Not ported yet: the legacy whole-lane layout (``stage`` / ``commit``),
-content-addressed prefix publish / load, migration handoffs and the
-per-engine namespaces of a fleet pool (the port serves one engine, whose
-objects are unprefixed and whose manifests say ``"engine": 0``, as the
-reference's engine 0 does).
+Cross-engine prefix reuse: prompt-pure blocks are ALSO published as
+content-addressed pool objects ``kvblk/<hash>`` + a ``kvhead/<hash>``
+prefill head (serve.paging), written once via MStore; ``load_prefix``
+restores them so a second engine serving the same prompt skips its
+prefill.  A torn publish is invisible — the frames self-validate, and any
+read failure degrades to a normal prefill.
+
+Not ported yet: the legacy whole-lane layout (``stage`` / ``commit``) and
+migration handoffs (``peek_engine``, with the fleet).
 """
 from __future__ import annotations
 
@@ -28,13 +39,19 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 from repro_torch.dsm.api import open_cxl0
-from repro_torch.dsm.pool import CorruptObjectError, manifest_entry
+from repro_torch.dsm.pool import CorruptObjectError, DSMPool, manifest_entry
 from repro_torch.serve.paging import (BlockPager, BlockRef, BlockTable,
-                                      STATE_BLOCK, block_object_name)
+                                      STATE_BLOCK, block_object_name,
+                                      prefix_hash, shared_block_name,
+                                      shared_head_name)
 
 KV_PREFIX = "kv/"
-#: the reference's fleet engine id of this store's commits
-ENGINE_ID = 0
+
+
+def engine_ns(engine_id: int) -> str:
+    """Per-engine object namespace in a shared pool.  Engine 0 writes
+    unprefixed names, so single-engine pools look as they always did."""
+    return f"e{engine_id}/" if engine_id else ""
 
 
 @dataclasses.dataclass
@@ -83,13 +100,19 @@ class RecoveredState:
 
 
 class SessionStore:
-    def __init__(self, pool):
+    def __init__(self, pool, *, mode: str = "sync",
+                 n_shards: Optional[int] = None, engine_id: int = 0):
         """``pool``: a pool directory or an open ``DSMPool``, committed
-        through ``open_cxl0`` with the sync schedule.  The paged commit's
-        delegated completeOp owns the manifests, so no retention GC runs
-        (as in the reference)."""
-        self.ctx = open_cxl0(pool, schedule="sync")
-        self.pool = self.ctx.pool
+        through ``open_cxl0`` under ``mode`` (``n_shards`` pipelines for
+        the sharded schedules).  The paged commit's delegated completeOp
+        owns the manifests, so no retention GC runs and the store takes
+        no ``retention`` (the reference's knob does nothing on this
+        layout).  ``engine_id`` namespaces this store's objects and
+        manifests in a shared pool."""
+        self.ctx = open_cxl0(pool, schedule=mode, n_shards=n_shards)
+        self.pool: DSMPool = self.ctx.pool
+        self.engine_id = engine_id
+        self.ns = engine_ns(engine_id)
         #: clean-block manifest entries carried into the next completeOp
         self._carried: Dict[str, dict] = {}
         #: entries of the most recent completeOp's fresh flushes
@@ -104,7 +127,7 @@ class SessionStore:
         return self.ctx.committer
 
     def block_name(self, rid: str, blk: int) -> str:
-        return block_object_name(rid, blk)
+        return block_object_name(rid, blk, self.ns)
 
     # -- paged commit side ---------------------------------------------------
     def stage_block(self, session: Session, ref: BlockRef, leaves):
@@ -121,7 +144,7 @@ class SessionStore:
         meta and the union of fresh + carried block entries."""
         if self.committer.complete_fn is None:
             self.committer.complete_fn = self._complete_paged
-        meta = {"kind": "serve", "paged": True, "engine": ENGINE_ID,
+        meta = {"kind": "serve", "paged": True, "engine": self.engine_id,
                 "block_tokens": block_tokens,
                 "sessions": {rid: s.to_meta()
                              for rid, s in sessions.items()},
@@ -162,9 +185,68 @@ class SessionStore:
 
     def discard_session_blocks(self, rid: str):
         """Drop a finished session's staged blocks from the host tier."""
-        prefix = f"{KV_PREFIX}{rid}/"
+        prefix = f"{self.ns}{KV_PREFIX}{rid}/"
         for name in [n for n in self.tiers.hbm if n.startswith(prefix)]:
             self.tiers.ldiscard(name)
+
+    # -- cross-engine prefix reuse -------------------------------------------
+    def publish_prefix(self, pager: BlockPager, key: str,
+                       prompt: Tuple[int, ...], cache1: Any, tok0: int
+                       ) -> int:
+        """Publish the prompt-pure blocks of a freshly prefilled session as
+        content-addressed shared objects (write-once: a block whose hash
+        already exists in the pool is skipped).  The cache comes to the
+        host through the tiers' counted copy.  Returns how many objects
+        were newly written."""
+        host = pager._host_leaves(cache1, self.tiers.to_host)
+        wrote = 0
+        for k, h in enumerate(pager.prompt_block_hashes(key, prompt)):
+            name = shared_block_name(h)
+            if self.pool.max_version(name) == 0:
+                self.tiers.mstore(name, pager.slice_block(host, k))
+                self.tiers.ldiscard(name)     # durable; keep out of commits
+                wrote += 1
+        hname = shared_head_name(
+            prefix_hash(key, prompt, pager.block_tokens))
+        if self.pool.max_version(hname) == 0:
+            self.tiers.mstore(hname, pager.head_payload(host, len(prompt),
+                                                        tok0))
+            self.tiers.ldiscard(hname)
+            wrote += 1
+        return wrote
+
+    def load_prefix(self, pager: BlockPager, key: str,
+                    prompt: Tuple[int, ...]):
+        """Restore a session's prefill state from shared prefix blocks:
+        ``(blocks, shared_refs, tok0)`` on a full-prompt hit, else None
+        (missing or torn objects: prefill normally)."""
+        names = [shared_block_name(h)
+                 for h in pager.prompt_block_hashes(key, prompt)]
+        hname = shared_head_name(
+            prefix_hash(key, prompt, pager.block_tokens))
+        blocks: Dict[int, Any] = {}
+        shared: Dict[int, Tuple[str, dict]] = {}
+        try:
+            for k, name in enumerate(names):
+                v = self.pool.max_version(name)
+                if v == 0:
+                    return None
+                blocks[k] = self.pool.read_object(name, v,
+                                                  pager.block_template)
+                shared[k] = (name, {"name": name, "version": v,
+                                    "crc": None})
+            v = self.pool.max_version(hname)
+            if v == 0:
+                return None
+            head = self.pool.read_object(hname, v, pager.head_template)
+        except (CorruptObjectError, OSError, ValueError):
+            return None
+        tail, state, tok0 = pager.split_head(head)
+        if tail:
+            blocks[len(names)] = tail
+        if state:
+            blocks[STATE_BLOCK] = state
+        return blocks, shared, tok0
 
     def drain(self):
         return self.ctx.drain()
@@ -179,13 +261,13 @@ class SessionStore:
             meta = m.get("meta") or {}
             if "sessions" not in meta:
                 continue                      # not a serve commit
-            if int(meta.get("engine", 0)) != ENGINE_ID:
+            if int(meta.get("engine", 0)) != self.engine_id:
                 continue                      # a fleet sibling's commit
             out.append(m)
         return out
 
     def recover(self, pager: BlockPager) -> Optional[RecoveredState]:
-        """Newest fully-valid paged session commit of engine 0, or None
+        """Newest fully-valid paged session commit of THIS engine, or None
         on a cold pool.  Any torn or unreadable block fails the WHOLE
         manifest and recovery falls back to an older one."""
         for m in self._manifests_for_engine():

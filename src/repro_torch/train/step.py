@@ -23,11 +23,15 @@ from repro_torch.models.registry import ModelBundle
 
 
 def make_serve_steps(bundle: ModelBundle):
+    """``(prefill_step, decode_step)``: the batched steps of the static
+    baseline.  ``decode_step`` routes the batch's tokens through the MoE
+    under one shared capacity, as the reference's batched decode does (the
+    slot decode below routes each slot on its own)."""
     def prefill_step(params, batch, caches):
         return bundle.prefill(params, batch, caches)
 
     def decode_step(params, tokens, state):
-        return bundle.decode(params, tokens, state)
+        return bundle.decode(params, tokens, state, per_sequence=False)
 
     return prefill_step, decode_step
 

@@ -50,6 +50,13 @@ machine with the card, where there is no JAX:
 * each of the four dispatchers, given an input that requires grad under
   grad mode, raises before it launches (the kernels have no backward
   yet), and launches the same call under ``torch.no_grad()``;
+* the flash kernel at the static baseline's batched prefill shape (4, 16,
+  512, 128) causal against its plain version (2e-2), and ``run_static``
+  of the olmo-1b smoke config launching it once per layer per batch;
+* the async and sharded flush pipelines: every leaf a pool write receives
+  is a host tensor (no CUDA tensor reaches a flush thread), the D2H is
+  counted once per leaf, and a CUDA leaf written in place right after an
+  async ``commit()`` is recovered with the value it had at launch;
 * the CXL0 model's tensor twin (``core.semantics_torch``, plain PyTorch:
   no kernel of its own) gives on the card the bits it gives on the CPU
   for 4,096 schedules on two systems, and ``random_schedules`` with a
@@ -178,6 +185,67 @@ def test_serving_prefills_run_the_kernel(cuda):
     assert res.prefills == len(trace)
     assert ops.LAUNCHES - before == cfg.n_layers * res.prefills
     assert all(len(res.outputs[r.rid]) == r.max_new_tokens for r in trace)
+
+
+def test_kernel_at_the_static_batch_shape_matches_plain_version(cuda):
+    case = (4, 16, 16, 512, 512, 128, 128, True)
+    q, k, v = _inputs(case, cuda, seed=6)
+    before = ops.LAUNCHES
+    out = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == before + 1
+    ref = ops.plain_attention(q.float(), k.float(), v.float(), causal=True)
+    assert float((out.float() - ref).abs().max()) <= 2e-2
+
+
+def test_static_baseline_runs_the_kernel_once_per_layer_per_batch(cuda):
+    from repro_torch.serve.engine import build_serve_engine
+    from repro_torch.serve.trace import synthetic_trace, trace_t_max
+    trace = synthetic_trace(6, prompt_lens=(20,), new_tokens=(2, 5))
+    engine, cfg = build_serve_engine("olmo-1b", smoke=True, n_slots=4,
+                                     t_max=trace_t_max(trace), device=cuda)
+    before = ops.LAUNCHES
+    res = engine.run_static(trace)
+    assert res.prefills == 2
+    assert ops.LAUNCHES - before == cfg.n_layers * res.prefills
+    assert all(len(res.outputs[r.rid]) == r.max_new_tokens for r in trace)
+
+
+@pytest.mark.parametrize("mode", ["async", "sharded", "sharded-async"])
+def test_flush_threads_get_host_snapshots_taken_at_launch(mode, cuda,
+                                                          tmp_path,
+                                                          monkeypatch):
+    import threading
+    from repro_torch.dsm.api import open_cxl0
+    from repro_torch.dsm.pool import DSMPool
+    from repro_torch.utils.tree import tree_leaves
+    seen = []
+    orig = DSMPool.start_write
+
+    # every write, threaded or sharded, streams through start_write
+    # (write_object calls it too)
+    def spy(self, name, version, tree, *a, **kw):
+        seen.append((threading.current_thread() is threading.main_thread(),
+                     [l.device.type for l in tree_leaves(tree)]))
+        return orig(self, name, version, tree, *a, **kw)
+    monkeypatch.setattr(DSMPool, "start_write", spy)
+    ctx = open_cxl0(str(tmp_path), schedule=mode, n_shards=2)
+    x = [torch.arange(8, dtype=torch.float32, device=cuda),
+         torch.ones(4, 3, device=cuda)]
+    ctx.put({"x": x})
+    with ctx.commit(0):
+        pass
+    x[0].add_(100.0)                   # the caller writes on at once
+    x[1].zero_()
+    ctx.drain()
+    assert ctx.tiers.d2h_gather_bytes == 32 + 48
+    assert seen and all(devs == ["cpu"] * len(devs) for _, devs in seen)
+    assert not any(on_main for on_main, _ in seen)
+    objs, step, _ = ctx.recover({"x": [0, 0]})
+    assert step == 0
+    assert torch.equal(objs["x"][0], torch.arange(8, dtype=torch.float32))
+    assert torch.equal(objs["x"][1], torch.ones(4, 3))
+    ctx.close()
 
 
 GMM_CASES = [  # E, C, D, F

@@ -237,8 +237,8 @@ def test_exception_inside_commit_region_publishes_nothing(tmp_path):
 
 def test_unported_knobs_raise_naming_the_reference(tmp_path):
     ctx = open_cxl0(str(tmp_path))
-    for kw in ({"schedule": "sharded-async"}, {"schedule": "auto"},
-               {"topology": "cxl20-switched-pool"}, {"n_shards": 2},
+    for kw in ({"mesh": object()}, {"schedule": "auto"},
+               {"topology": "cxl20-switched-pool"}, {"placement": object()},
                {"peers": (ctx,)}, {"replicate_to": ctx}):
         with pytest.raises(NotImplementedError, match="repro.dsm"):
             CXL0Config(path=str(tmp_path), **kw)

@@ -52,6 +52,7 @@ SLICE_MODULES = [
     "repro_torch.bench", "repro_torch.bench.report",
     "repro_torch.bench.flit", "repro_torch.bench.table1",
     "repro_torch.bench.latency", "repro_torch.bench.model_fuzz",
+    "repro_torch.bench.serve",
     "repro_torch.examples", "repro_torch.examples.quickstart",
     "repro_torch.examples.durable_kv",
 ]

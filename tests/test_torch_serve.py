@@ -216,8 +216,27 @@ def test_launcher_serves_and_resumes_on_cpu(tmp_path, arch):
     assert "0 prefills" in again.stdout       # every session came back done
 
 
-@pytest.mark.parametrize("flag", [["--engines", "2"], ["--mode", "static"],
-                                  ["--commit-mode", "sharded-async"],
+def test_launcher_pages_at_the_block_size_it_is_given(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    pool = str(tmp_path / "pool")
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--device",
+           "cpu", "--smoke", "--requests", "3", "--prompt-len", "12",
+           "--new-tokens", "9", "--pool", pool, "--commit-every", "2",
+           "--block-tokens", "8"]
+    run = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert run.returncode == 0, run.stderr
+    ms = DSMPool(pool).manifests_desc()
+    assert ms and all(m["meta"]["block_tokens"] == 8 for m in ms)
+    # 12 prompt + 8 fed-back tokens span blocks 0-2 at 8 tokens a block
+    assert {n.rsplit("/", 1)[1] for m in ms for n in m["objects"]} == \
+        {"b0", "b1", "b2"}
+
+
+@pytest.mark.parametrize("flag", [["--engines", "2"],
+                                  ["--commit-mode", "auto", "--topology",
+                                   "cxl20-switched-pool"],
+                                  ["--no-prefix-reuse"],
                                   ["--topology", "cxl20-switched-pool"]])
 def test_launcher_refuses_flags_of_unported_features(flag, capsys):
     from repro_torch.launch.serve import main
