@@ -7,7 +7,8 @@ Drives the port's serving path at the full width of olmo-1b, of
 olmoe-1b-7b, of rwkv6-7b and of jamba-1.5-large-398b (depth cut to 5
 layers), then the CXL0 model's tensor twin at a fuzzing run's batch, then
 olmo-1b's serving features (commit schedules, static baseline, prefix
-reuse), and prints one line per phase:
+reuse), then a fleet of olmo-1b engines over one pool (live migration,
+the placement policy), and prints one line per phase:
 
 1. environment — the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions;
@@ -163,9 +164,37 @@ reuse), and prints one line per phase:
        once; engine 0's D2H is olmo-1b's plus one lane a publish, engine
        3's olmo-1b's.
 
-Each path and each run of phase 9 is driven with every launch count set
-to 0 just before it and read just after.  Then a ``{"kernels": [...]}`` line, the card line again,
-and as the last line ``{"ok": true, "device": {...}}``.  Any failed check
+10. the fleet (``repro_torch.serve.fleet``) on olmo-1b at full width and
+    depth, one weight set from a torch.Generator seeded 0 shared by every
+    engine, the fleet bench's trace at prompt 512: 24 requests over 2
+    prompts, budgets 4,8,16,24, 2 slots an engine, prefix reuse on, a
+    commit every 4 ticks (schedule sync):
+    (a) one engine with a pool, then a 2-engine fleet over one pool with
+        rebalancing on: tokens bit-identical; the per-round speedup (the
+        fleet's tokens per lockstep round over the engine's tokens per
+        tick) at least serve.json's 1.6; the admission decisions and the
+        rebalancing migrations printed; per engine, tok/s of the fleet's
+        wall and host s in admit / decode / commit; the flash kernel once
+        per layer per prefill, and launched;
+    (b) an ``engine_id=3`` engine on the fleet's pool: 0 prefills, 24
+        hits, 0 flash launches, (a)'s tokens;
+    (c) a fresh fleet, one live migration forced from engine 1 to engine
+        2 at engine 1's tick 3: its four phases logged, token loss 0,
+        (a)'s tokens; the frames and bytes staged into engine 2's buffer,
+        each engine's D2H bytes and the objects of the handoff commit
+        printed;
+    (d) the same fleet killed right after ``mig_commit`` (the hook
+        raises), engine 2's staging buffer wiped, a fresh fleet's
+        ``resume()`` adopting the session from the pool arm (no staged
+        copy read): (a)'s tokens, one owner per session;
+    (e) the fleet of (a) under ``--commit-mode auto --topology
+        cxl20-switched-pool``: each engine's schedule and shard count and
+        the policy's priced costs (modelled CXL ns, not measured times)
+        printed; tokens and every count equal (a)'s under sync.
+
+Each path and each run of phases 9 and 10 is driven with every launch
+count set to 0 just before it and read just after.  Then a
+``{"kernels": [...]}`` line, the card line again, and as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises and the script exits non-zero; without a CUDA device, or without
 the repo's ``src/repro_torch`` beside it, it exits non-zero and prints no
 result.
@@ -1359,6 +1388,297 @@ def phase_features(torch, cfg, trace, t_max, counters) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+FLEET_REQUESTS = 24                # the fleet bench's trace at prompt 512
+FLEET_NEW_TOKENS = (4, 8, 16, 24)
+FLEET_KW = dict(n_slots=2, commit_every=4, prefix_reuse=True)
+FLEET_TOPOLOGY = "cxl20-switched-pool"
+
+
+def staged_bytes(pool: str, engine: int) -> tuple:
+    """(frames, payload bytes) staged INTO ``engine``'s buffer of the fleet
+    whose pool is ``pool``, read from the frames' headers."""
+    from repro_torch.dsm import stream
+    area = os.path.join(pool, "staging", f"w{engine}")
+    names = sorted(f for f in os.listdir(area) if f.endswith(".cxl0")) \
+        if os.path.isdir(area) else []
+    return len(names), sum(sum(stream.read_header(os.path.join(area, f))[0]
+                               ["nbytes"]) for f in names)
+
+
+def phase_fleet(torch, cfg, counters) -> dict:
+    """10. N serving engines over one pool on olmo-1b at full width and
+    depth (see the docstring): (a) one engine, then a 2-engine fleet with
+    rebalancing, (b) engine 3 on the fleet's pool, (c) a forced live
+    migration, (d) a kill at ``mig_commit`` with engine 2's staging buffer
+    wiped and a fresh fleet's resume, (e) the fleet under ``auto`` on the
+    switched-pool topology.  Every run is driven with the launch counts set
+    to 0 just before it and read just after."""
+    from repro_torch.bench.serve import force_migration
+    from repro_torch.models.registry import build
+    from repro_torch.serve.engine import build_serve_engine
+    from repro_torch.serve.fleet import FleetController, MIGRATION_POINTS
+    from repro_torch.serve.trace import synthetic_trace, trace_t_max
+    arch = cfg.arch_id
+    n_attn = sum(cfg.layer_kind(l) == "attn" for l in range(cfg.n_layers))
+    trace = synthetic_trace(FLEET_REQUESTS, seed=0, prompt_lens=(512,),
+                            new_tokens=FLEET_NEW_TOKENS,
+                            vocab_size=cfg.vocab_size, n_prompts=2)
+    t_max = trace_t_max(trace)
+    bundle = build(cfg, device="cuda")
+    params = bundle.init_params(torch.Generator("cuda").manual_seed(0))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    out = {"runs": {}, "launches": {}}
+    kw = dict(smoke=False, t_max=t_max, bundle=bundle, params=params,
+              device="cuda", **FLEET_KW)
+
+    def fleet(pool, **more):
+        return FleetController(arch, pool_path=os.path.join(tmp, pool),
+                               n_engines=2, **kw, **more)
+
+    def drive(name, fn, engines):
+        timers = {i: PhaseTimer(e) for i, e in engines.items()}
+        torch.cuda.synchronize()
+        for mod in counters.values():
+            mod.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out["launches"][name] = {k: m.LAUNCHES for k, m in counters.items()}
+        per = getattr(res, "per_engine", None) or {0: res}
+        run = dict(wall_s=dt, tokens_per_s=res.emitted_tokens / dt,
+                   emitted_tokens=res.emitted_tokens,
+                   launches=out["launches"][name], engines={
+                       i: dict(decode_ticks=r.decode_ticks,
+                               prefills=r.prefills, commits=r.commits,
+                               prefix_hits=r.prefix_hits,
+                               emitted_tokens=r.emitted_tokens,
+                               tokens_per_s=r.emitted_tokens / dt,
+                               migrated_in=r.migrated_in,
+                               migrated_out=r.migrated_out,
+                               host_s=dict(timers[i].t) if i in timers
+                               else None)
+                       for i, r in per.items()})
+        out["runs"][name] = run
+        return res, run
+
+    def flash_is_per_prefill(name, res):
+        per = getattr(res, "per_engine", None) or {0: res}
+        prefills = sum(r.prefills for r in per.values())
+        got = out["launches"][name]["flash_attention"]
+        check(got == n_attn * prefills,
+              f"{name}: {got} flash launches, expected {n_attn} x "
+              f"{prefills} prefills")
+        return got
+
+    def engines_line(run):
+        return "; ".join(
+            f"e{i}: {e['emitted_tokens']} tokens ({e['tokens_per_s']:.1f} "
+            f"tok/s of the fleet's wall), {e['decode_ticks']} ticks, "
+            f"{e['prefills']} prefills, {e['prefix_hits']} hits, "
+            f"{e['commits']} commits, migrated in/out {e['migrated_in']}/"
+            f"{e['migrated_out']}" + (
+                f", host s admit {e['host_s']['admit']:.3f} decode "
+                f"{e['host_s']['decode']:.3f} commit "
+                f"{e['host_s']['commit']:.3f}" if e["host_s"] else "")
+            for i, e in sorted(run["engines"].items()))
+
+    def one_owner(res):
+        served = [r for e in res.per_engine.values() for r in e.outputs]
+        return len(served) == len(set(served)) == len(trace)
+
+    try:
+        # -- (a) one engine, then the fleet ---------------------------------
+        single, _ = build_serve_engine(
+            arch, pool_path=os.path.join(tmp, "single"), **kw)
+        res1, run1 = drive("single", lambda: single.run(trace),
+                           {0: single})
+        single.close()
+        want = res1.outputs
+        fl = fleet("fleet")
+        resf, runf = drive("fleet", lambda: fl.run(trace), fl.engines)
+        diff = [r for r in want if resf.outputs.get(r) != want[r]]
+        check(not diff, f"(a) fleet tokens differ from one engine's for "
+                        f"{diff}")
+        rounds = max(r.decode_ticks for r in resf.per_engine.values())
+        speedup = ((resf.emitted_tokens / rounds)
+                   / (res1.emitted_tokens / res1.decode_ticks))
+        check(speedup >= 1.6, f"(a) fleet speedup {speedup:.3f} per round "
+                              f"< serve.json's 1.6")
+        admits = [d.choice for d in fl.policy.decisions_for("admit")]
+        moves = [(r, s_, d_) for p_, r, s_, d_ in fl.migration_log
+                 if p_ == "mig_release"]
+        check(resf.migrations == len(moves), "(a) migration log")
+        f1, ff = (flash_is_per_prefill("single", res1),
+                  flash_is_per_prefill("fleet", resf))
+        check(f1 > 0 and ff > 0, "(a) no flash launch on a prefill")
+        out["fleet"] = dict(speedup=speedup, single_ticks=res1.decode_ticks,
+                            rounds=rounds, admissions=admits,
+                            migrations=moves)
+        print(f"fleet (a): {arch} {FLEET_REQUESTS} requests over 2 prompts, "
+              f"prompt 512, budgets {FLEET_NEW_TOKENS}, 2 slots an engine, "
+              f"commit every 4 ticks: one engine {res1.decode_ticks} decode "
+              f"ticks, {res1.prefills} prefills, {res1.prefix_hits} hits, "
+              f"{f1} flash launches, {run1['tokens_per_s']:.1f} tok/s (wall "
+              f"{run1['wall_s']:.3f}s), host s admit "
+              f"{run1['engines'][0]['host_s']['admit']:.3f} decode "
+              f"{run1['engines'][0]['host_s']['decode']:.3f} commit "
+              f"{run1['engines'][0]['host_s']['commit']:.3f}; 2-engine "
+              f"fleet {rounds} rounds, {ff} flash launches, "
+              f"{runf['tokens_per_s']:.1f} tok/s (wall {runf['wall_s']:.3f}s)"
+              f", tokens bit-identical to one engine's; speedup per round "
+              f"{speedup:.3f} (serve.json: >= 1.6); admissions "
+              f"{' '.join(admits)}; {len(moves)} "
+              f"rebalancing migrations {moves}; {engines_line(runf)}",
+              flush=True)
+
+        # -- (b) engine 3 on the fleet's pool --------------------------------
+        e3, _ = build_serve_engine(
+            arch, pool_path=os.path.join(tmp, "fleet"), engine_id=3, **kw)
+        res3, run3 = drive("engine 3", lambda: e3.run(trace), {3: e3})
+        e3.close()
+        fl.close()
+        del fl
+        check((res3.prefills, res3.prefix_hits,
+               run3["launches"]["flash_attention"])
+              == (0, FLEET_REQUESTS, 0),
+              f"(b) engine 3: {res3.prefills} prefills, {res3.prefix_hits} "
+              f"hits, {run3['launches']['flash_attention']} flash launches; "
+              f"expected 0, {FLEET_REQUESTS}, 0")
+        check(res3.outputs == want, "(b) engine 3's tokens differ from (a)")
+        print(f"fleet (b): engine 3 on the fleet's pool: {res3.prefills} "
+              f"prefills, {res3.prefix_hits} hits, "
+              f"{run3['launches']['flash_attention']} flash launches, "
+              f"{run3['tokens_per_s']:.1f} tok/s, tokens bit-identical to "
+              f"(a)", flush=True)
+
+        # -- (c) a forced live migration ------------------------------------
+        handoff = {}
+
+        def at_point(point, rid=None, src=None, dst=None):
+            if point == "mig_commit":
+                eng = flm.engines[src]
+                handoff.update(
+                    rid=rid, fresh=eng.store.committer.stats[-1].n_objects,
+                    manifest=len(eng.store.peek_engine(src)["objects"]))
+        flm = fleet("mig", mig_hook=at_point)
+        moved_box = []
+
+        def run_migration():
+            res, rid = force_migration(flm, trace)
+            moved_box.append(rid)
+            return res
+        resm, runm = drive("migration", run_migration, flm.engines)
+        moved = moved_box[0]
+        d2h = {i: e.store.tiers.d2h_gather_bytes
+               for i, e in flm.engines.items()}
+        flm.close()
+        frames, nbytes = staged_bytes(os.path.join(tmp, "mig"), 2)
+        loss = res1.emitted_tokens - resm.emitted_tokens
+        check(moved is not None and resm.migrations == 1
+              and [p_ for p_, r, *_ in flm.migration_log if r == moved]
+              == list(MIGRATION_POINTS), "(c) the migration did not run "
+                                         "its four phases")
+        check(loss == 0 and resm.outputs == want,
+              f"(c) token loss {loss}, outputs equal: "
+              f"{resm.outputs == want}")
+        check(frames > 0 and handoff.get("rid") == moved,
+              f"(c) {frames} frames staged into engine 2's buffer")
+        flash_is_per_prefill("migration", resm)
+        out["migration"] = dict(rid=moved, staged_frames=frames,
+                                staged_bytes=nbytes, d2h_bytes=d2h,
+                                handoff=handoff)
+        print(f"fleet (c): {moved} live-migrated from engine 1 to engine 2 "
+              f"at engine 1's tick 3: token loss 0, outputs bit-identical "
+              f"to (a); {frames} frames of {nbytes} bytes staged into "
+              f"engine 2's buffer; D2H bytes e1 {d2h[1]} e2 {d2h[2]}; the "
+              f"handoff commit flushed {handoff['fresh']} objects, its "
+              f"manifest holds {handoff['manifest']}; "
+              f"{runm['tokens_per_s']:.1f} tok/s; {engines_line(runm)}",
+              flush=True)
+
+        # -- (d) kill at mig_commit, staging wiped, resume ------------------
+        class Kill(Exception):
+            pass
+
+        def kill(point, rid=None, src=None, dst=None):
+            if point == "mig_commit":
+                raise Kill(rid)
+        flk = fleet("kill", mig_hook=kill)
+        try:
+            force_migration(flk, trace)
+            check(False, "(d) the kill at mig_commit never fired")
+        except Kill as e:
+            killed = str(e)
+        del flk                       # the fleet process is dead
+        fl2 = fleet("kill")
+        fl2.staging.wipe(2)
+        hits = []
+        view = fl2.staging.view
+
+        def counted_view(rank, templates):
+            got = view(rank, templates)
+            hits.append(len(got.staging))
+            return got
+        fl2.staging.view = counted_view
+        steps = fl2.resume()
+        fl2.staging.view = view
+        adopted = list(fl2.migration_log)
+        resd, rund = drive("resume", lambda: fl2.run(trace), fl2.engines)
+        fl2.close()
+        check([p_ for p_, r, *_ in adopted if r == killed]
+              == ["mig_adopt", "mig_release"] and hits and not any(hits),
+              f"(d) the resume did not adopt {killed} from the pool arm "
+              f"(log {adopted}, staged hits {hits})")
+        check(resd.outputs == want, "(d) resumed streams differ from (a)")
+        check(one_owner(resd), "(d) a session has more or less than one "
+                               "owner")
+        print(f"fleet (d): killed at mig_commit of {killed}, engine 2's "
+              f"staging wiped, a fresh fleet resumed (ticks "
+              f"{ {i: s_ for i, s_ in steps.items()} }) and adopted it from "
+              f"the pool arm (0 staged hits); every stream bit-identical "
+              f"to (a), one owner per session; {rund['tokens_per_s']:.1f} "
+              f"tok/s", flush=True)
+
+        # -- (e) the fleet under auto on the switched pool --------------------
+        fla = fleet("auto", commit_mode="auto", topology=FLEET_TOPOLOGY)
+        resa, runa = drive("auto", lambda: fla.run(trace), fla.engines)
+        chosen = {}
+        for i, e in fla.engines.items():
+            pol = e.store.placement
+            chosen[i] = dict(
+                schedule=e.store.committer.mode,
+                n_shards=e.store.committer.n_shards,
+                decisions=[(d.kind, d.nbytes, d.choice, d.costs)
+                           for d in pol.decisions])
+        fla.close()
+        check(resa.outputs == want, "(e) auto's tokens differ from (a)")
+        same = {i: (e["decode_ticks"], e["prefills"], e["prefix_hits"],
+                    e["commits"], e["migrated_in"], e["migrated_out"])
+                for i, e in runa["engines"].items()} == \
+            {i: (e["decode_ticks"], e["prefills"], e["prefix_hits"],
+                 e["commits"], e["migrated_in"], e["migrated_out"])
+             for i, e in runf["engines"].items()}
+        check(same and resa.migrations == resf.migrations,
+              f"(e) counts under auto differ from (a)'s sync fleet: "
+              f"{runa['engines']} vs {runf['engines']}")
+        flash_is_per_prefill("auto", resa)
+        out["auto"] = chosen
+        print(f"fleet (e): --commit-mode auto --topology {FLEET_TOPOLOGY}: "
+              + "; ".join(
+                  f"e{i} chose {c['schedule']} with {c['n_shards']} shard(s)"
+                  f", priced (modelled CXL ns, not measured): "
+                  + ", ".join(f"{k} {nb} B -> {ch} {costs}"
+                              for k, nb, ch, costs in c["decisions"])
+                  for i, c in sorted(chosen.items()))
+              + f"; tokens and counts equal (a)'s under sync; "
+              f"{runa['tokens_per_s']:.1f} tok/s; {engines_line(runa)}",
+              flush=True)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", default=None,
@@ -1489,9 +1809,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     report["features"] = phase_features(torch, get_config("olmo-1b"), trace,
                                         t_max, counters)
+    # -- 10. the fleet on olmo-1b ---------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["fleet"] = phase_fleet(torch, get_config("olmo-1b"), counters)
     by_run = {a: p["launches"] for a, p in paths.items()}
     by_run.update({f"olmo-1b {r}": n
                    for r, n in report["features"]["launches"].items()})
+    by_run.update({f"olmo-1b fleet {r}": n
+                   for r, n in report["fleet"]["launches"].items()})
 
     mains = {"flash_attention": report["kernel_cases"]["path_s512"],
              "grouped_matmul": report["gmm_cases"]["decode_up"],

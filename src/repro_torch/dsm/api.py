@@ -29,14 +29,17 @@ of ``repro.dsm.api``.
 * ``ctx.crash()`` / ``ctx.recover()`` — f_i and THE recovery path.
 
 The four schedules ``sync`` / ``async`` / ``sharded`` / ``sharded-async``
-and ``n_shards`` are ported (``repro_torch.dsm.flit_runtime``).  Not ported
-yet, and refused with ``NotImplementedError`` naming the reference:
-topologies and placement policies (``repro.dsm.placement``,
-``repro.dsm.emu``) and with them the ``"auto"`` schedule, mesh-native
-commits (``repro.dsm.meshio``) and peer staging (RStore into a peer and
-recovery from it, ``repro.dsm.tiers`` / ``repro.dsm.recovery``).  The
-port's default schedule is therefore ``"sync"`` (the reference's is
-``"auto"``).
+and ``n_shards`` are ported (``repro_torch.dsm.flit_runtime``), and so are
+``topology=`` / ``placement=`` (``dsm.emu``, ``dsm.placement``): the
+policy prices the shard count and resolves the ``"auto"`` schedule at the
+first commit.  ``h.rstore(peer)`` stages into an explicit peer (a context
+is one: it exposes ``.staging``).  Not ported yet, and refused with
+``NotImplementedError`` naming the reference: mesh-native commits
+(``repro.dsm.meshio``, ROADMAP A7) and the peer-staging wiring of the
+committer and of recovery (``peers=``, ``replicate_to=``:
+``repro.dsm.recovery`` / ``repro.dsm.flit_runtime``, ROADMAP A5).  The
+port's default schedule is ``"sync"`` (the reference's is ``"auto"``,
+which without a topology resolves to ``"sharded-async"`` in both).
 """
 from __future__ import annotations
 
@@ -46,19 +49,22 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.dsm.flit_runtime import (CommitStats, DurableCommitter,
-                                          check_mode)
+from repro_torch.dsm.flit_runtime import (AUTO_MODE, CommitStats,
+                                          DurableCommitter, check_mode)
 from repro_torch.dsm.pool import DSMPool, PoolObject
 from repro_torch.dsm.recovery import ColdStartError, RecoveryManager
 from repro_torch.dsm.tiers import TierManager
 
 _NOT_PORTED = {
-    "topology": "repro.dsm.emu / repro.dsm.placement",
-    "placement": "repro.dsm.placement.PlacementPolicy",
-    "mesh": "repro.dsm.meshio",
-    "peers": "repro.dsm.recovery (peer-staging recovery)",
-    "replicate_to": "repro.dsm.tiers.TierManager.rstore (peer staging)",
+    "mesh": "repro.dsm.meshio (ROADMAP A7)",
+    "peers": "repro.dsm.recovery (peer-staging recovery, ROADMAP A5)",
+    "replicate_to": "repro.dsm.flit_runtime.DurableCommitter(replicate_to=)"
+                    " (ROADMAP A5)",
 }
+
+#: what ``schedule="auto"`` resolves to when no topology or policy is
+#: configured (the reference's production default)
+DEFAULT_SCHEDULE = "sharded-async"
 
 
 @dataclasses.dataclass
@@ -82,7 +88,29 @@ class CXL0Config:
                 raise NotImplementedError(
                     f"CXL0Config({knob}=...) is not ported yet "
                     f"(reference: {ref})")
-        check_mode(self.schedule)
+        if self.schedule != AUTO_MODE:      # "auto" resolves at open time
+            check_mode(self.schedule)
+
+    def resolved_placement(self):
+        """The PlacementPolicy this stack runs under: an explicit policy
+        wins; else one is built from ``topology``; else None."""
+        if self.placement is not None:
+            return self.placement
+        if self.topology is not None:
+            from repro_torch.dsm.placement import PlacementPolicy
+            return PlacementPolicy(self.topology)
+        return None
+
+    def resolved_schedule(self, placement=None) -> str:
+        """``"auto"`` defers to the placement policy when one is configured
+        (the committer prices the flush at the first commit) and otherwise
+        takes ``DEFAULT_SCHEDULE``; explicit schedules pass through."""
+        if self.schedule != AUTO_MODE:
+            return self.schedule
+        if placement is not None or self.placement is not None \
+                or self.topology is not None:
+            return AUTO_MODE
+        return DEFAULT_SCHEDULE
 
     def open(self, pool: Optional[DSMPool] = None) -> "CXL0Context":
         return CXL0Context(self, pool=pool)
@@ -142,15 +170,14 @@ class DurableHandle:
         self.ctx.tiers.lstore(self.name, tree)
         return self
 
-    def rstore(self, peer: Any = None):
-        """Stage the current value into a peer's host buffer: not ported
-        yet (peer staging)."""
+    def rstore(self, peer: Any = None, tag: Optional[int] = None):
+        """Stage the current value into a peer's host buffer (it survives
+        OUR crash).  The peer is explicit: a context has no replication
+        target here (``replicate_to=`` is not ported)."""
         if peer is None:
             raise ValueError(f"rstore({self.name!r}): no peer given and the "
                              f"context has no replicate_to target")
-        raise NotImplementedError(
-            f"rstore({self.name!r}) into a peer is not ported yet "
-            f"(reference: {_NOT_PORTED['replicate_to']})")
+        self.ctx.tiers.rstore(self.name, peer, tag=tag)
 
     def rflush(self) -> PoolObject:
         """Durable write into the pool; returns once on storage."""
@@ -240,15 +267,22 @@ class CXL0Context:
                              "already-open DSMPool)")
         self.config = config
         self.pool = pool if pool is not None else DSMPool(config.path)
-        self.placement = None
+        self.placement = config.resolved_placement()
         # built through TierManager.open: the layering check in
         # tests/test_api.py counts direct constructions anywhere in src/
         # outside repro/dsm
         self.tiers = TierManager.open(self.pool)
         self.committer = DurableCommitter(
-            self.tiers, mode=config.schedule, n_shards=config.n_shards,
-            retention=config.retention, complete_fn=config.complete_fn)
+            self.tiers, mode=config.resolved_schedule(self.placement),
+            n_shards=config.n_shards, retention=config.retention,
+            placement=self.placement, complete_fn=config.complete_fn)
         self.recovery = RecoveryManager(self.pool)
+
+    @property
+    def staging(self) -> Dict[str, Tuple[int, Any]]:
+        """Peer-staged copies held BY this worker: a context is an RStore
+        target wherever a ``.staging``-bearing peer is expected."""
+        return self.tiers.staging
 
     def durable(self, name: str, init: Any = None) -> DurableHandle:
         """A named durable-object handle; ``init`` LStores an initial value
@@ -318,8 +352,8 @@ def open_cxl0(path, *,
               mesh: Optional[Any] = None,
               complete_fn: Optional[Callable] = None) -> CXL0Context:
     """Open a CXL0 context over a pool directory (or an open DSMPool).
-    ``peers`` / ``replicate_to`` (peer staging) are not ported yet and
-    raise, like ``topology`` and ``mesh``."""
+    ``peers`` / ``replicate_to`` (peer staging wiring) are not ported yet
+    and raise, like ``mesh``."""
     pool = path if isinstance(path, DSMPool) else None
     cfg = CXL0Config(
         path=path if pool is None else path.path,

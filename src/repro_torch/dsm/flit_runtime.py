@@ -36,9 +36,14 @@ completeOp.  ``complete_fn`` delegation is ported — the paged session
 store merges its carried block entries through it (and a delegated
 completeOp turns retention GC off, as in the reference).
 
-Not ported yet: ``auto`` (the placement policy's schedule choice,
-``repro.dsm.placement``), mesh-native shard pipelines (``repro.dsm
-.meshio``), RStore staging to a peer (``replicate_to``) and the
+With a placement policy (``dsm.placement``, ``placement=``) the shard
+count comes from ``placement.choose_shards`` of the state's bytes under
+the policy's topology, and ``mode="auto"`` resolves at the first commit
+to ``placement.choose_schedule`` (``sync`` or ``sharded-async``); both
+decisions are logged on the policy with their priced costs.
+
+Not ported yet: mesh-native shard pipelines (``repro.dsm.meshio``), RStore
+staging to a peer on every update (``replicate_to``) and the
 fault-injection hook (``KILL_POINTS``, with the scenario slice).
 """
 from __future__ import annotations
@@ -56,14 +61,15 @@ COMMIT_MODES = ("sync", "async", "sharded", "sharded-async")
 AUTO_MODE = "auto"
 
 
-def check_mode(mode: str):
+def check_mode(mode: str, placement: Optional[Any] = None):
+    """A commit schedule, or ``"auto"`` with the policy that resolves it."""
     if mode in COMMIT_MODES:
         return
     if mode == AUTO_MODE:
-        raise NotImplementedError(
-            "commit schedule 'auto' is not ported yet: it needs a "
-            "PlacementPolicy to price the flush (reference: "
-            "repro.dsm.placement.PlacementPolicy.choose_schedule)")
+        if placement is None:
+            raise ValueError("commit schedule 'auto' needs a PlacementPolicy "
+                             "to price the flush (placement= or topology=)")
+        return
     raise ValueError(f"unknown commit schedule {mode!r}")
 
 
@@ -95,12 +101,16 @@ class DurableCommitter:
     def __init__(self, tiers: TierManager, *, mode: str = "sync",
                  n_shards: Optional[int] = None,
                  retention: Optional[int] = None,
+                 placement: Optional[Any] = None,
                  complete_fn: Optional[
                      Callable[[int, Dict[str, Any], Optional[dict]],
                               int]] = None):
-        check_mode(mode)
+        check_mode(mode, placement)
         self.tiers = tiers
         self.mode = mode
+        #: cost-driven placement (``dsm.placement``): the shard count and,
+        #: under ``mode="auto"``, the schedule, priced at the first commit
+        self.placement = placement
         self.n_shards = n_shards or None     # None = auto at first commit
         self.retention = retention
         #: delegated completeOp: ``complete_fn(step, written, meta) -> seq``
@@ -113,13 +123,27 @@ class DurableCommitter:
         self._pending: Optional[Tuple[int, List[str], Optional[dict]]] = None
         self.stats: list = []
 
+    def _hbm_bytes(self) -> int:
+        return sum(leaf_nbytes(l) for l in tree_leaves(dict(self.tiers.hbm)))
+
     def _resolve_shards(self) -> int:
         """Lazy auto shard count, sized from the HBM state volume at the
-        first sharded flush."""
+        first sharded flush: by the placement policy's cost model when one
+        is configured, else the device-count heuristic."""
         if self.n_shards is None:
-            self.n_shards = auto_shard_count(sum(
-                leaf_nbytes(l) for l in tree_leaves(dict(self.tiers.hbm))))
+            total = self._hbm_bytes()
+            self.n_shards = (self.placement.choose_shards(total)
+                             if self.placement is not None
+                             else auto_shard_count(total))
         return self.n_shards
+
+    def _resolve_mode(self) -> str:
+        """``mode="auto"`` waits for the first commit, when the state's
+        bytes are known: the policy prices the flush under its topology
+        and picks ``sync`` or ``sharded-async``."""
+        if self.mode == AUTO_MODE:
+            self.mode = self.placement.choose_schedule(self._hbm_bytes())
+        return self.mode
 
     def _complete_op(self, step: int, written: Dict[str, Any],
                      meta, t0, label: str) -> CommitStats:
@@ -151,6 +175,7 @@ class DurableCommitter:
         PREVIOUS step whose flushes were just joined (None on the first
         call)."""
         t0 = time.perf_counter()
+        self._resolve_mode()
         if self.mode == "async":
             return self._commit_async(step, meta, t0)
         if self.mode == "sharded-async":

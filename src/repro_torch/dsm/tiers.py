@@ -10,6 +10,10 @@ Per worker, per object:
 * ``rflush(name)``        — durable write of the current HBM value into the
                             pool; completes only when on storage (fsync).
 * ``mstore(name, tree)``  — lstore + rflush fused (Prop. 1.8).
+* ``rstore(name, peer)``  — stage the current value into a PEER's host
+                            buffer (``peer.staging``): it survives OUR
+                            crash.  ``rload(name)`` reads back a copy a
+                            peer staged into this worker's ``staging``.
 
 A background ``flush_async`` thread overlaps rflush I/O with compute; the
 commit barrier (``DurableCommitter``) joins it before completeOp.
@@ -31,9 +35,15 @@ its snapshot to the host AT LAUNCH, on the caller's thread: a CUDA leaf
 through ONE counted ``.cpu()`` (``d2h_gather_bytes``), and, for the
 asynchronous flushes, a host leaf the caller still holds through a copy
 (``.cpu()`` of a host tensor is the tensor itself).  A flush thread never
-sees a CUDA tensor or a tensor the caller may write later.  The
-device-local (mesh) shard pipelines and peer staging (``rstore`` /
-``rload``) are not ported yet.
+sees a CUDA tensor or a tensor the caller may write later.
+
+Peer staging copies to the host where the reference does: a peer whose
+``staging`` declares ``materializes_leaves`` (the spill-file buffer of
+``dsm.cluster``) gets the tree as it is and copies each leaf to the host
+as it writes the frame, through this manager's counted ``to_host``; any
+other peer gets a counted host snapshot up front.  Either way the bytes
+staged from the card show in ``d2h_gather_bytes``.  The device-local
+(mesh) shard pipelines are not ported yet.
 """
 from __future__ import annotations
 
@@ -61,6 +71,9 @@ class TierManager:
     def __init__(self, pool: DSMPool):
         self.pool = pool
         self.hbm: Dict[str, Any] = {}               # C_i — device tier
+        #: peer-staged copies: name -> (tag, host tree) staged INTO this
+        #: worker by peers' rstore
+        self.staging: Dict[str, Tuple[int, Any]] = {}
         self.versions: Dict[str, int] = {}
         self.flit_counter: Dict[str, int] = {}
         self._flush_threads: Dict[str, threading.Thread] = {}
@@ -154,6 +167,31 @@ class TierManager:
         """Drop an object from the volatile HBM tier.  The version counter
         is KEPT, so a later lstore of the name keeps rising."""
         self.hbm.pop(name, None)
+
+    def rstore(self, name: str, peer: Any, tag: Optional[int] = None):
+        """Stage our current value into a peer's host buffer: on our crash
+        the peer still holds it.  ``tag`` (a step) makes staged copies
+        comparable with pool manifests; it defaults to the version.
+        ``peer`` is anything exposing a ``.staging`` mapping: a
+        TierManager, a ``CXL0Context`` or a ``dsm.cluster.StagingProxy``.
+
+        The D2H copy is DEFERRED when the peer's buffer declares
+        ``materializes_leaves``: it is handed ``to_host`` and copies each
+        leaf as it writes its frame, so an emulator-priced placement can
+        reject the spill before any copy is paid.  In-process peers get
+        a counted host snapshot now."""
+        tree = self.hbm[name]
+        tag = self.versions.get(name, 0) if tag is None else tag
+        if getattr(peer.staging, "materializes_leaves", False):
+            peer.staging.put(name, tag, tree, self.to_host)
+        else:
+            peer.staging[name] = (tag, self._to_host_counted(tree))
+
+    def rload(self, name: str) -> Optional[Any]:
+        """Read back a value a peer staged INTO this worker's host buffer.
+        Returns the host tree or None."""
+        staged = self.staging.get(name)
+        return None if staged is None else staged[1]
 
     def rflush(self, name: str) -> PoolObject:
         """Durable write; returns once the object is on storage."""
@@ -367,5 +405,6 @@ class TierManager:
         self.abort_flushes()
         self.close()
         self.hbm.clear()
+        self.staging.clear()
         self.versions.clear()
         self.flit_counter.clear()

@@ -30,12 +30,20 @@ requests with their committed cache restored into a lane
 run: the restored bytes ARE the committed lane bytes, and every step is
 deterministic with fixed shapes.
 
+Live migration (driven by ``serve.fleet``): ``begin_migration`` freezes a
+session and frees its slot mid-flight, ``stage_migration`` RStores its
+dirty blocks into the target's staging buffer, ``commit_handoff`` makes
+the handoff durable, and the target's ``install_session`` re-admits it at
+the FRONT of its queue — the token stream is bit-identical across the
+handoff because the adopted cache bytes equal the frozen lane bytes.
+``resume()`` keeps the table of each session this engine handed off
+(``_handoffs``) for the fleet to finish an interrupted adoption.
+
 ``run_static`` is the static-batch baseline the benchmark compares
 against: batched prefill (B = ``n_slots``), then decode until the LONGEST
 sequence of the batch finishes.
 
-Not ported yet: live migration (fleet handoffs) and the legacy whole-lane
-commit layout.
+Not ported yet: the legacy whole-lane commit layout.
 """
 from __future__ import annotations
 
@@ -66,6 +74,8 @@ class ServeResult:
     resumed_sessions: int = 0
     commits: int = 0
     prefix_hits: int = 0              # admissions served from shared blocks
+    migrated_in: int = 0
+    migrated_out: int = 0
 
 
 class ServeEngine:
@@ -76,8 +86,11 @@ class ServeEngine:
                  restore_mode: str = "cache",
                  retire_done: bool = False,
                  block_tokens: int = BLOCK_TOKENS,
+                 allocator: Optional[BlockAllocator] = None,
                  prefix_reuse: bool = False,
                  prefix_key: str = ""):
+        """``allocator``: a frame allocator shared with other engines (a
+        fleet's); by default the engine sizes its own."""
         if restore_mode not in ("cache", "replay"):
             raise ValueError(restore_mode)
         if bundle.cfg.is_encdec:
@@ -108,10 +121,14 @@ class ServeEngine:
         self.sessions: Dict[str, Session] = {}
         self.results: Dict[str, List[int]] = {}
         self._resume_cache: Dict[str, Any] = {}
+        #: recovered handoff tables of sessions this engine migrated OUT
+        #: whose target may not have committed its adoption — the fleet
+        #: resume completes these (``serve.fleet.FleetController.resume``)
+        self._handoffs: Dict[str, Optional[BlockTable]] = {}
         if store is not None:
             self.pager = BlockPager(bundle, t_max, block_tokens)
             frames = n_slots * (self.pager.n_blocks(t_max) + 1) + 8
-            self.allocator = BlockAllocator(max(64, 4 * frames))
+            self.allocator = allocator or BlockAllocator(max(64, 4 * frames))
             self.tables: Dict[str, BlockTable] = {}
         # host-side slot state
         self.pos = np.zeros(n_slots, np.int32)
@@ -123,6 +140,8 @@ class ServeEngine:
         self._n_prefills = 0
         self._n_commits = 0
         self._n_prefix_hits = 0
+        self._n_migrated_in = 0
+        self._n_migrated_out = 0
 
     # -- request intake ------------------------------------------------------
     def submit(self, requests: Sequence[Request]):
@@ -133,7 +152,7 @@ class ServeEngine:
                                  f"budget {r.max_new_tokens} > t_max "
                                  f"{self.t_max}")
             if r.rid in self.sessions or r.rid in self.results:
-                continue    # recovered, resuming or retired
+                continue    # recovered, resuming, migrated or retired
             fresh.append(r)
         self.sched.submit(fresh)
 
@@ -141,19 +160,22 @@ class ServeEngine:
     def resume(self) -> Optional[int]:
         """Recover the newest session commit from the pool.  Finished
         sessions become results; unfinished ones are queued AHEAD of any
-        fresh request.  Returns the recovered tick or None (cold pool)."""
+        fresh request.  Sessions handed off to another engine stay as
+        tombstones: ``submit`` skips them and the adopting engine (or the
+        fleet resume) serves them.  Returns the recovered tick or None
+        (cold pool)."""
         if self.store is None:
             return None
         rec = self.store.recover(self.pager)
         if rec is None:
             return None
         for rid, s in rec.sessions.items():
-            if s.migrated_to is not None:
-                raise NotImplementedError(
-                    f"{rid} was migrated to engine {s.migrated_to}: fleet "
-                    f"handoffs are not ported yet (reference: "
-                    f"repro.serve.fleet)")
             self.sessions[rid] = s
+            if s.migrated_to is not None:
+                # owned by the target engine; keep the handoff table so
+                # the fleet resume can finish an interrupted adoption
+                self._handoffs[rid] = rec.tables.get(rid)
+                continue
             if s.done:
                 self.results[rid] = list(s.emitted)
             else:
@@ -203,7 +225,9 @@ class ServeEngine:
             resumed_step=self._resumed_step,
             resumed_sessions=self._n_resumed,
             commits=self._n_commits,
-            prefix_hits=self._n_prefix_hits)
+            prefix_hits=self._n_prefix_hits,
+            migrated_in=self._n_migrated_in,
+            migrated_out=self._n_migrated_out)
 
     def _admit(self, slot: int, req: Request):
         rid = req.rid
@@ -301,8 +325,11 @@ class ServeEngine:
                     self.allocator.free(bid)
             self.store.discard_session_blocks(rid)
 
-    def _stage_paged(self, rid: str, cache1: Any):
-        """Stage a running session's DIRTY blocks for the next commit."""
+    def _stage_paged(self, rid: str, cache1: Any, proxy=None,
+                     tag: Optional[int] = None):
+        """Stage a running session's DIRTY blocks for the next commit, and
+        RStore each into ``proxy``'s buffer when one is given (a
+        migration's target)."""
         s = self.sessions[rid]
         table = self.tables.setdefault(rid, BlockTable())
         for blk, leaves in self.pager.slice_dirty(
@@ -316,6 +343,8 @@ class ServeEngine:
             if blk != STATE_BLOCK:
                 ref.tokens = self.pager.tokens_in_block(blk, s.pos)
             self.store.stage_block(s, ref, leaves)
+            if proxy is not None:
+                self.store.tiers.rstore(ref.name, proxy, tag=tag)
 
     def _commit(self):
         for rid, slot in self.sched.running.items():
@@ -328,6 +357,62 @@ class ServeEngine:
             # retire them so commit cost stays O(live sessions)
             for rid in [r for r, s in self.sessions.items() if s.done]:
                 del self.sessions[rid]
+
+    # -- live migration mechanics (driven by serve.fleet) --------------------
+    def begin_migration(self, rid: str):
+        """Freeze an in-flight session: copy its lane and free the slot —
+        freed by MIGRATION, not completion, so the scheduler refills it
+        with the next pending request this very tick."""
+        slot = self.sched.running[rid]
+        cache1 = self.kv.read_slot(slot)
+        self.active[slot] = False
+        self.sched.release(rid)
+        self._n_migrated_out += 1
+        return (self.sessions[rid],
+                self.tables.setdefault(rid, BlockTable()), cache1)
+
+    def stage_migration(self, rid: str, cache1: Any, proxy, tag: int
+                        ) -> BlockTable:
+        """mig_stage: LStore the session's dirty blocks (the handoff commit
+        flushes them — the pool arm) and RStore each into the TARGET's
+        staging buffer (the hot arm).  Clean blocks move zero bytes: the
+        target reads them from the pool entries the table carries."""
+        self._stage_paged(rid, cache1, proxy, tag)
+        return self.tables[rid]
+
+    def commit_handoff(self, rid: str, target_id: int):
+        """mig_commit: mark the session migrated and commit — ONE paged
+        commit makes the marker, the block table and the staged dirty
+        blocks durable atomically.  After this manifest lands the target
+        owns the session, crash or no crash."""
+        self.sessions[rid].migrated_to = target_id
+        self._commit()
+
+    def release_migrated(self, rid: str):
+        """mig_release: the target's adoption commit landed — drop our
+        copy.  Frame ids move WITH the table (one fleet allocator); staged
+        payloads leave the host tier; the tombstone leaves the committed
+        table at our next commit."""
+        self.sessions.pop(rid, None)
+        self.tables.pop(rid, None)
+        self.store.discard_session_blocks(rid)
+
+    def install_session(self, s: Session, table: BlockTable, cache1: Any,
+                        *, claim_frames: bool = False):
+        """Adopt a migrated-in session: queue it AHEAD of fresh requests
+        with its cache ready to fast-forward into a lane.  ``claim_frames``
+        re-asserts the table's frame ids in our allocator (restart
+        recovery; a live handoff moves frames the shared fleet allocator
+        already holds)."""
+        s.migrated_to = None
+        self.sessions[s.rid] = s
+        self.tables[s.rid] = table
+        if claim_frames:
+            for bid in table.bids():
+                self.allocator.adopt(bid)
+        self._resume_cache[s.rid] = cache1
+        self._n_migrated_in += 1
+        self.sched.submit_front(Request(s.rid, s.prompt, s.max_new_tokens))
 
     # -- static baseline -----------------------------------------------------
     def run_static(self, requests: Sequence[Request]) -> ServeResult:
@@ -379,8 +464,10 @@ def build_serve_engine(arch: str = "olmo-1b", *, smoke: bool = True,
                        retire_done: bool = False, seed: int = 0,
                        engine_id: int = 0,
                        block_tokens: int = BLOCK_TOKENS,
+                       allocator: Optional[BlockAllocator] = None,
                        prefix_reuse: bool = False,
                        prefix_key: Optional[str] = None,
+                       topology: Optional[str] = None,
                        bundle=None, params=None, device="cuda"):
     """Config -> bundle -> params -> optional durable session store ->
     engine.  Returns (engine, cfg).
@@ -394,7 +481,10 @@ def build_serve_engine(arch: str = "olmo-1b", *, smoke: bool = True,
     sessions: a ``SessionStore`` of engine ``engine_id`` over that pool,
     committed under ``commit_mode`` (``n_shards`` flush pipelines for the
     sharded schedules; None sizes them at the first commit) every
-    ``commit_every`` ticks.
+    ``commit_every`` ticks.  ``topology`` (a ``dsm.emu`` preset) prices
+    the shard count through its placement policy, and with
+    ``commit_mode="auto"`` the schedule too; ``allocator`` shares one
+    frame allocator across engines (the fleet's).
 
     ``prefix_key`` names the weights for prefix reuse.  Its default is
     the reference's key with ``|torch`` appended: the port's generated
@@ -415,12 +505,13 @@ def build_serve_engine(arch: str = "olmo-1b", *, smoke: bool = True,
     store = None
     if pool_path is not None:
         store = SessionStore(pool_path, mode=commit_mode, n_shards=n_shards,
-                             engine_id=engine_id)
+                             engine_id=engine_id, topology=topology)
     if prefix_key is None:
         prefix_key = f"{arch}|{'smoke' if smoke else 'full'}|s{seed}|torch"
     engine = ServeEngine(
         bundle, params, n_slots=n_slots, t_max=t_max, store=store,
         commit_every=commit_every, restore_mode=restore_mode,
         retire_done=retire_done, block_tokens=block_tokens,
-        prefix_reuse=prefix_reuse, prefix_key=prefix_key)
+        allocator=allocator, prefix_reuse=prefix_reuse,
+        prefix_key=prefix_key)
     return engine, cfg

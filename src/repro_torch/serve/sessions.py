@@ -30,8 +30,13 @@ restores them so a second engine serving the same prompt skips its
 prefill.  A torn publish is invisible — the frames self-validate, and any
 read failure degrades to a normal prefill.
 
-Not ported yet: the legacy whole-lane layout (``stage`` / ``commit``) and
-migration handoffs (``peek_engine``, with the fleet).
+Migration handoffs (``serve.fleet``): a session handed to another engine
+carries ``migrated_to`` and keeps its committed block table in the
+manifest (a tombstone); ``recover`` returns that table with the others so
+a fleet restart can finish an interrupted adoption, and ``peek_engine``
+reads a sibling engine's newest manifest.
+
+Not ported yet: the legacy whole-lane layout (``stage`` / ``commit``).
 """
 from __future__ import annotations
 
@@ -63,7 +68,8 @@ class Session:
     emitted: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     cache_version: Optional[int] = None
-    #: set by a migration handoff commit (the reference's fleet)
+    #: set by a migration handoff commit: this engine no longer owns the
+    #: session, engine ``migrated_to`` does (``serve.fleet``)
     migrated_to: Optional[int] = None
 
     @property
@@ -101,16 +107,20 @@ class RecoveredState:
 
 class SessionStore:
     def __init__(self, pool, *, mode: str = "sync",
-                 n_shards: Optional[int] = None, engine_id: int = 0):
+                 n_shards: Optional[int] = None, engine_id: int = 0,
+                 topology: Optional[str] = None):
         """``pool``: a pool directory or an open ``DSMPool``, committed
         through ``open_cxl0`` under ``mode`` (``n_shards`` pipelines for
-        the sharded schedules).  The paged commit's delegated completeOp
-        owns the manifests, so no retention GC runs and the store takes
-        no ``retention`` (the reference's knob does nothing on this
-        layout).  ``engine_id`` namespaces this store's objects and
-        manifests in a shared pool."""
-        self.ctx = open_cxl0(pool, schedule=mode, n_shards=n_shards)
+        the sharded schedules; ``"auto"`` and the shard count priced by
+        the placement policy of ``topology``).  The paged
+        commit's delegated completeOp owns the manifests, so no retention
+        GC runs and the store takes no ``retention`` (the reference's knob
+        does nothing on this layout).  ``engine_id`` namespaces this
+        store's objects and manifests in a shared pool."""
+        self.ctx = open_cxl0(pool, schedule=mode, n_shards=n_shards,
+                             topology=topology)
         self.pool: DSMPool = self.ctx.pool
+        self.placement = self.ctx.placement
         self.engine_id = engine_id
         self.ns = engine_ns(engine_id)
         #: clean-block manifest entries carried into the next completeOp
@@ -184,7 +194,9 @@ class SessionStore:
         self._last_written = {}
 
     def discard_session_blocks(self, rid: str):
-        """Drop a finished session's staged blocks from the host tier."""
+        """Drop a finished or migrated session's staged blocks from the
+        host tier (its carried entries leave with its table at the next
+        commit)."""
         prefix = f"{self.ns}{KV_PREFIX}{rid}/"
         for name in [n for n in self.tiers.hbm if n.startswith(prefix)]:
             self.tiers.ldiscard(name)
@@ -314,3 +326,12 @@ class SessionStore:
                 return None
             caches[rid] = pager.assemble(blocks)
         return sessions, caches, tables
+
+    def peek_engine(self, engine_id: int) -> Optional[dict]:
+        """Newest serve manifest of a SIBLING engine (its meta carries the
+        session and block tables)."""
+        for m in self.pool.manifests_desc():
+            meta = m.get("meta") or {}
+            if "sessions" in meta and int(meta.get("engine", 0)) == engine_id:
+                return m
+        return None

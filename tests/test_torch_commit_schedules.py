@@ -215,7 +215,8 @@ def test_auto_shard_count_and_the_unported_auto_schedule(tmp_path):
     c.update({"x": [torch.zeros(1 << 19)]})             # 2 MiB
     c.commit(0)
     assert c.n_shards == auto_shard_count(2 << 20)
-    with pytest.raises(NotImplementedError, match="repro.dsm.placement"):
+    # "auto" is ported now: it needs the policy that resolves it
+    with pytest.raises(ValueError, match="PlacementPolicy"):
         DurableCommitter(c.tiers, mode="auto")
     with pytest.raises(ValueError):
         DurableCommitter(c.tiers, mode="eager")

@@ -57,6 +57,12 @@ machine with the card, where there is no JAX:
   is a host tensor (no CUDA tensor reaches a flush thread), the D2H is
   counted once per leaf, and a CUDA leaf written in place right after an
   async ``commit()`` is recovered with the value it had at launch;
+* a 2-engine olmo-1b smoke fleet on the card with one live migration
+  forced from engine 1 to engine 2: every stream equal to one engine's
+  on the card, 0 tokens lost, the flash kernel once per layer per
+  prefill, the migrated blocks staged as frames in engine 2's buffer and
+  their bytes counted as D2H; an RStore of a CUDA tree into a spill-file
+  buffer counts its bytes once, and the emulator prices it from metadata;
 * the CXL0 model's tensor twin (``core.semantics_torch``, plain PyTorch:
   no kernel of its own) gives on the card the bits it gives on the CPU
   for 4,096 schedules on two systems, and ``random_schedules`` with a
@@ -246,6 +252,69 @@ def test_flush_threads_get_host_snapshots_taken_at_launch(mode, cuda,
     assert torch.equal(objs["x"][0], torch.arange(8, dtype=torch.float32))
     assert torch.equal(objs["x"][1], torch.ones(4, 3))
     ctx.close()
+
+
+def test_fleet_migrates_on_the_card_without_token_loss(cuda, tmp_path):
+    import os
+    from repro_torch.serve.engine import ServeEngine, build_serve_engine
+    from repro_torch.serve.fleet import FleetController
+    from repro_torch.serve.trace import synthetic_trace, trace_t_max
+    trace = synthetic_trace(6, prompt_lens=(20,), new_tokens=(4, 8, 12),
+                            seed=5)
+    t_max = trace_t_max(trace)
+    single, cfg = build_serve_engine("olmo-1b", smoke=True, n_slots=2,
+                                     t_max=t_max, device=cuda)
+    want = single.run(trace).outputs
+    fl = FleetController("olmo-1b", pool_path=str(tmp_path / "pool"),
+                         n_engines=2, n_slots=2, t_max=t_max,
+                         commit_every=2, bundle=single.bundle,
+                         params=single.params, device=cuda)
+    assert all(isinstance(e, ServeEngine) and e.device.type == "cuda"
+               for e in fl.engines.values())
+    before = ops.LAUNCHES
+    fl.submit(trace)
+    moved = None
+    while not fl.done:
+        fl.tick(rebalance=False)
+        if moved is None and fl.engines[1]._tick >= 3:
+            src = fl.engines[1]
+            moved = next((r for r in src.sched.admission_order
+                          if r in src.sched.running), None)
+            if moved is not None:
+                fl.migrate(moved, 1, 2)
+    d2h = {i: e.store.tiers.d2h_gather_bytes for i, e in fl.engines.items()}
+    res = fl.finish()
+    fl.close()
+    assert moved is not None and res.migrations == 1
+    assert res.outputs == want
+    assert res.emitted_tokens == sum(len(v) for v in want.values())
+    prefills = sum(r.prefills for r in res.per_engine.values())
+    assert ops.LAUNCHES - before == cfg.n_layers * prefills
+    staged = os.listdir(tmp_path / "pool" / "staging" / "w2")
+    assert any(f.startswith(f"e1__kv__{moved}__") and f.endswith(".cxl0")
+               for f in staged)
+    assert d2h[1] > 0 and d2h[2] > 0
+
+
+def test_rstore_of_a_cuda_tree_counts_its_d2h_once(cuda, tmp_path):
+    from repro_torch.dsm.cluster import FileStagingArea
+    from repro_torch.dsm.emu import TopologyEmulator, attach_emulator
+    from repro_torch.dsm.pool import DSMPool
+    from repro_torch.dsm.tiers import TierManager
+    emu = TopologyEmulator("cxl20-switched-pool")
+    tiers = attach_emulator(TierManager(DSMPool(str(tmp_path / "p"))), emu)
+    area = FileStagingArea(str(tmp_path / "staging"))
+    tree = [torch.arange(256, dtype=torch.float32, device=cuda),
+            torch.ones(8, 16, dtype=torch.bfloat16, device=cuda)]
+    tiers.lstore("kv/r0/b0", tree)
+    assert tiers.d2h_gather_bytes == 0
+    tiers.rstore("kv/r0/b0", area.proxy(1), tag=3)
+    assert tiers.d2h_gather_bytes == 1024 + 256
+    assert [(p.op, p.nbytes) for p in emu.trace] == \
+        [("lstore", 1280), ("rstore", 1280)]
+    got = area.view(1, {"kv/r0/b0": [0, 0]}).staging["kv/r0/b0"][1]
+    assert torch.equal(got[0], tree[0].cpu())
+    assert torch.equal(got[1], tree[1].cpu())
 
 
 GMM_CASES = [  # E, C, D, F

@@ -11,7 +11,8 @@
   returns, on a pool either package committed;
 * the port's own crash contract: a torn object falls back to the previous
   manifest, an exception inside a commit region publishes nothing, and
-  knobs that are not ported (peer staging among them) raise.
+  knobs that are not ported (mesh, the peer-staging wiring) raise while
+  the ported ones (topology, placement, ``"auto"``) open.
 """
 import io
 import json
@@ -236,14 +237,27 @@ def test_exception_inside_commit_region_publishes_nothing(tmp_path):
 
 
 def test_unported_knobs_raise_naming_the_reference(tmp_path):
+    from repro_torch.dsm.placement import PlacementPolicy
     ctx = open_cxl0(str(tmp_path))
-    for kw in ({"mesh": object()}, {"schedule": "auto"},
-               {"topology": "cxl20-switched-pool"}, {"placement": object()},
-               {"peers": (ctx,)}, {"replicate_to": ctx}):
+    for kw in ({"mesh": object()}, {"peers": (ctx,)},
+               {"replicate_to": ctx}):
         with pytest.raises(NotImplementedError, match="repro.dsm"):
             CXL0Config(path=str(tmp_path), **kw)
         with pytest.raises(NotImplementedError, match="repro.dsm"):
             open_cxl0(str(tmp_path), **kw)
+    # ported: "auto" (resolved by a policy, or the default without one),
+    # a topology (builds the policy) and an explicit policy
+    policy = PlacementPolicy("cxl30-fabric")
+    for kw, mode, topo in (
+            ({"schedule": "auto"}, "sharded-async", None),
+            ({"topology": "cxl20-switched-pool"}, "sync",
+             "cxl20-switched-pool"),
+            ({"placement": policy, "schedule": "auto"}, "auto",
+             "cxl30-fabric")):
+        opened = open_cxl0(str(tmp_path), **kw)
+        assert opened.committer.mode == mode
+        assert (opened.placement and opened.placement.topology.name) == topo
+        opened.close()
     h = ctx.durable("x", init=[torch.ones(2)])      # handles are ported
     assert (h.mstore([torch.zeros(2)]).version, h.version) == (2, 2)
 

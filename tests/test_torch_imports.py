@@ -55,6 +55,9 @@ SLICE_MODULES = [
     "repro_torch.bench.serve",
     "repro_torch.examples", "repro_torch.examples.quickstart",
     "repro_torch.examples.durable_kv",
+    "repro_torch.dsm.emu", "repro_torch.dsm.placement",
+    "repro_torch.dsm.cluster", "repro_torch.serve.fleet",
+    "repro_torch.bench.placement",
 ]
 
 _FORBIDDEN = re.compile(

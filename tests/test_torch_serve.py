@@ -12,7 +12,9 @@ configs (fp32).
 * pools cross over: the reference's ``SessionStore.recover`` reads a pool
   the port committed (same sessions, same block tables, same cache bytes)
   and the port reads the reference's;
-* the launcher runs end to end on the CPU and resumes from its pool.
+* the launcher runs end to end on the CPU and resumes from its pool; each
+  fleet flag (``--engines 2``, ``--topology``, ``--commit-mode auto``,
+  ``--no-prefix-reuse``) runs on the CPU, and misused flags exit 2.
 """
 import os
 import subprocess
@@ -233,14 +235,59 @@ def test_launcher_pages_at_the_block_size_it_is_given(tmp_path):
         {"b0", "b1", "b2"}
 
 
+#: each case: the flags, then what the launcher must say on its way out
+FLEET_FLAGS = {
+    "engines": ["--engines", "2"],
+    "topology": ["--topology", "cxl30-fabric"],
+    "auto": ["--commit-mode", "auto", "--topology", "cxl20-switched-pool"],
+    "no-prefix-reuse": ["--engines", "2", "--no-prefix-reuse"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLEET_FLAGS))
+def test_launcher_runs_each_fleet_flag_on_cpu(tmp_path, case):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    pool = str(tmp_path / "pool")
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--device",
+           "cpu", "--smoke", "--requests", "6", "--prompt-len", "16",
+           "--new-tokens", "2,5,9", "--pool", pool, "--commit-every", "2",
+           "--slots", "2"] + FLEET_FLAGS[case]
+    run = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert run.returncode == 0, run.stderr
+    fleet = "--engines" in cmd
+    assert ("fleet[2] on cpu: 6 requests" if fleet else "6 requests") \
+        in run.stdout
+    metas = [m["meta"] for m in DSMPool(pool).manifests_desc()]
+    assert {m["engine"] for m in metas} == ({1, 2} if fleet else {0})
+    if case == "auto":
+        # the policy priced the first commit's smoke blocks: small, so sync
+        assert "session commits (schedule sync)" in run.stdout
+    if case == "no-prefix-reuse":
+        assert "0 prefix hits" in run.stdout
+        assert not os.path.isdir(os.path.join(pool, "objects", "kvblk"))
+    if fleet:
+        again = subprocess.run(cmd, env=env, capture_output=True,
+                               text=True, timeout=300)
+        assert again.returncode == 0, again.stderr
+        assert "resumed: e1@" in again.stdout and "0 prefills" in again.stdout
+
+
 @pytest.mark.parametrize("flag", [["--engines", "2"],
-                                  ["--commit-mode", "auto", "--topology",
-                                   "cxl20-switched-pool"],
-                                  ["--no-prefix-reuse"],
+                                  ["--commit-mode", "auto"],
+                                  ["--engines", "2", "--pool", "unused",
+                                   "--mode", "static"],
                                   ["--topology", "cxl20-switched-pool"]])
 def test_launcher_refuses_flags_of_unported_features(flag, capsys):
+    """Every fleet flag is ported; what the launcher still refuses is a
+    flag without what it needs: a fleet or a topology without a pool,
+    ``auto`` without a topology, a static fleet."""
     from repro_torch.launch.serve import main
     with pytest.raises(SystemExit) as ei:
         main(["--device", "cpu", "--smoke"] + flag)
     assert ei.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    want = {"--engines": "needs --pool", "--commit-mode":
+            "requires --topology", "--topology": "needs --pool"}
+    assert ("continuous-batching only" if "static" in flag
+            else want[flag[0]]) in err

@@ -3,7 +3,8 @@
 (``ctx.transform``), against the reference's ``repro.dsm.api``.
 
 * a handle's ``lstore`` / ``rflush`` / ``mstore`` / ``value`` /
-  ``version``, and ``rstore`` refused (peer staging is not ported);
+  ``version``, and ``rstore`` into an explicit peer (a context), refused
+  without one;
 * a transformed counter, stack (tuple states) and KV map keep every
   acknowledged op across a crash;
 * the same ops give the same pool as the reference's, file for file and
@@ -63,9 +64,10 @@ def test_durable_handle_primitives(tmp_path):
     assert ctx.tiers.flit_counter["w"] == 0              # no flush in flight
     with pytest.raises(ValueError, match="no peer"):
         h.rstore()
-    with pytest.raises(NotImplementedError,
-                       match="repro.dsm.tiers.TierManager.rstore"):
-        h.rstore(peer=object())
+    peer = open_cxl0(str(tmp_path / "peer"), schedule="sync")
+    h.rstore(peer=peer)                       # tag defaults to the version
+    tag, staged = peer.staging["w"]
+    assert tag == 3 and torch.equal(staged["a"], torch.full((4,), 2.0))
     ctx.crash()
     assert ctx.durable("w").value is None                # HBM tier is gone
 
