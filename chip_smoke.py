@@ -8,12 +8,15 @@ olmoe-1b-7b, of rwkv6-7b and of jamba-1.5-large-398b (depth cut to 5
 layers), then the CXL0 model's tensor twin at a fuzzing run's batch, then
 olmo-1b's serving features (commit schedules, static baseline, prefix
 reuse), then a fleet of olmo-1b engines over one pool (live migration,
-the placement policy), and prints one line per phase:
+the placement policy), then durable training of olmo-1b at full width and
+depth through the flash forward and backward kernels, and prints one line
+per phase:
 
 1. environment — the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions;
-2. build — compiles the four kernels of the paths from
-   ``src/repro_torch/csrc`` (one ``nvcc`` each, started together) and
+2. build — compiles the five kernel libraries of the paths from
+   ``src/repro_torch/csrc`` (one ``nvcc`` each, started together: the four
+   TPU kernels' counterparts and the flash backward) and
    shows ptxas's register / spill / static shared-memory report for each
    kernel instantiation (template arguments kept); the dynamic shared
    memory, ring stages and blocks of each flash and grouped-matmul launch
@@ -25,6 +28,21 @@ the placement policy), and prints one line per phase:
    library are timed in turns (library, kernel, kernel, library, twice)
    and the median of each is kept, printed beside kernel/library and
    kernel/bound; speed is printed, never checked:
+   * the flash backward (``csrc/flash_attention_bwd.cu``: delta, then
+     dK / dV a kv tile a block walking its G q heads, then dQ a q tile a
+     block; mma.sync, no atomics) at the training shape (8, 16, 512, 128)
+     causal, the serving shape (1, 16, 512, 128), GQA (2, 32 over 8, 200,
+     128), ragged S = T = 77 at hd 64, and non-causal (2, 16, 300, 700,
+     128): the forward's logsumexp within 1e-4 abs of the plain
+     ``logsumexp``; dq, dk, dv against the fp32 plain backward on the same
+     bf16 inputs (the kernel's own output and logsumexp), elementwise
+     within 2e-2 x max|plain| (bf16 P and dS operands and outputs, fp32
+     sums in another order); two launches bit-identical; kernel, kernel
+     forward + backward, plain, SDPA backward and forward + backward (with
+     deterministic algorithms, and without them) and the bound (bytes of
+     q, k, v, o, dO, lse in and dq, dk, dv out at 3.35 TB/s vs the five
+     products at 989 TFLOP/s) printed.  The forward's time at the serving
+     shape is printed beside its time before it gained the logsumexp;
    * flash attention (one block a 64-row q tile, its kv tiles split
      between two warpgroups while q tiles are fewer than SMs; K / V by TMA
      into an mbarrier ring, both products on wgmma) at the path's shape
@@ -192,7 +210,28 @@ the placement policy), and prints one line per phase:
         the policy's priced costs (modelled CXL ns, not measured times)
         printed; tokens and every count equal (a)'s under sync.
 
-Each path and each run of phases 9 and 10 is driven with every launch
+11. durable training (``repro_torch.train``) of olmo-1b at full width
+    and depth (1,176,764,416 parameters, random weights from a
+    torch.Generator seeded 0, deterministic algorithms on):
+    (a) the loss and the global grad norm of one (1, 64) batch on the card
+        through the kernels (16 layers: 32 forward launches under remat,
+        16 backward) against the port on the CPU with the same weights in
+        fp32 and plain attention: within 2e-2 relative;
+    (b) ``run_durable_loop``: 8 steps at the reference launcher's global
+        batch 8 x seq 512, a ``sync`` commit every 4 steps, retention 2,
+        on a pool in a temp dir (the free disk printed first: the phase
+        fails below ~36 GB): losses, ms a step, host s a commit, peak
+        memory and the bf16 param elements that moved printed; each
+        commit exactly 11,767,644,188 bytes (params bf16, mu and nu fp32,
+        28 bytes of counters and pipeline); 256 forward and 128 backward
+        flash launches;
+    (c) the same run on a fresh pool with a crash before the commit of
+        step 6: 1 crash, recovered from the pool at step 3, steps 4-7 run
+        again; params, mu, nu, the step, the key data and the pipeline
+        state bit-identical to (b)'s, and the losses of steps 4-7 too.
+    The phase's time is printed.
+
+Each path and each run of phases 9, 10 and 11 is driven with every launch
 count set to 0 just before it and read just after.  Then a
 ``{"kernels": [...]}`` line, the card line again, and as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises and the script exits non-zero; without a CUDA device, or without
@@ -206,6 +245,7 @@ import contextlib
 import gc
 import io
 import json
+import math
 import os
 import shutil
 import statistics
@@ -233,6 +273,10 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
              "src/repro/kernels/rwkv6/kernel.py:91"),
     "selective_scan": ("src/repro_torch/csrc/selective_scan.cu",
                        "src/repro/kernels/mamba/kernel.py:70"),
+    # no TPU kernel: the reference differentiates its plain attention
+    # (jax.grad through attention_ref, use_pallas off for training)
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/models/attention.py:164"),
 }
 ARCHS = ("olmo-1b", "olmoe-1b-7b", "rwkv6-7b", "jamba-1.5-large-398b")
 #: the depth each path runs at (the rest of each config as published):
@@ -256,6 +300,17 @@ class CheckFailed(Exception):
 def check(cond: bool, msg: str):
     if not cond:
         raise CheckFailed(msg)
+
+
+def reset_counts(counters: dict):
+    """Set every kernel's launch count to 0 (``counters``: kernel name ->
+    (dispatcher module, count attribute))."""
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+
+
+def read_counts(counters: dict) -> dict:
+    return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
 
 
 def card_line() -> str:
@@ -474,6 +529,150 @@ def phase_kernel(torch, ops):
               f"{kernel_ms / fast_ms:.3f}); launch: {config[0]} warpgroups "
               f"a block, {config[1]} stages, {config[2]} bytes of shared "
               f"memory, {config[3]} blocks", flush=True)
+    return rows
+
+
+#: the forward's time at the serving shape (1, 16, 512, 128) causal before
+#: the logsumexp output came (PERF.md; H100 80GB HBM3, 700 W): printed
+#: beside this run's, so a slower serving launch shows
+FLASH_SERVE_MS_BEFORE = 0.01065
+
+
+def attention_bwd_bound_ms(B, H, K, Sq, Sk, hd, causal) -> tuple:
+    """Least time for the backward: q, k, v, o, dO read once and dq, dk,
+    dv written once (bf16; the fp32 lse rows read once too), vs
+    the five products over the unmasked (q, kv) pairs (q·k, dO·v, P·dO,
+    dS·k, dS·q: 2 hd multiply-adds each)."""
+    nbytes = (2 * (3 * B * H * Sq * hd + 4 * B * K * Sk * hd
+                   + B * H * Sq * hd) + 4 * B * H * Sq)
+    pairs = (sum(min(i + 1, Sk) for i in range(Sq)) if causal
+             else Sq * Sk)
+    flops = 5 * 2 * hd * pairs * B * H
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def sdpa_ms(torch, qh, kh, vh, dout_h, causal: bool) -> tuple:
+    """SDPA's forward + backward and its backward alone (autograd through
+    ``scaled_dot_product_attention`` on requires-grad copies), each a
+    ``call_ms``, under the determinism setting in force."""
+    import torch.nn.functional as F
+    qg, kg, vg = (t.detach().clone().requires_grad_(True)
+                  for t in (qh, kh, vh))
+
+    def fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        torch.autograd.grad(o, (qg, kg, vg), dout_h)
+
+    o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+    return (call_ms(fwd_bwd, iters=10, warmup=2),
+            call_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), dout_h,
+                                                retain_graph=True),
+                    iters=10, warmup=2))
+
+
+def phase_flash_bwd(torch, ops):
+    """Phase 3, the backward: the forward's logsumexp and the backward
+    kernel against their plain versions, two launches bit for bit, and
+    times beside SDPA's and the bound."""
+    from repro_torch.kernels.attention import kernel
+    cases = [  # (name, B, H, K, Sq, Sk, hd, causal)
+        ("train_b8_s512", 8, 16, 16, 512, 512, 128, True),
+        ("path_s512", 1, 16, 16, 512, 512, 128, True),
+        ("gqa_h32_k8_s200", 2, 32, 8, 200, 200, 128, True),
+        ("ragged_s77_hd64", 1, 16, 16, 77, 77, 64, True),
+        ("noncausal_sq300_sk700", 2, 16, 16, 300, 700, 128, False),
+    ]
+    gen = torch.Generator("cuda").manual_seed(4321)
+    rows = {}
+    for name, B, H, K, Sq, Sk, hd, causal in cases:
+        G = H // K
+        scale = hd ** -0.5
+        rn = lambda *shape: torch.randn(shape, generator=gen, device="cuda"
+                                        ).to(torch.bfloat16)
+        q, k, v = rn(B, Sq, K, G, hd), rn(B, Sk, K, hd), rn(B, Sk, K, hd)
+        dout = rn(B, Sq, K, G, hd)
+        out = torch.empty_like(q)
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device="cuda")
+        kernel.flash_attention_fwd(q, k, v, out, causal=causal, scale=scale,
+                                   lse=lse)
+        grads = [torch.empty_like(t) for t in (q, k, v, q, k, v)]
+        kernel.flash_attention_bwd(q, k, v, out, lse, dout, *grads[:3],
+                                   causal=causal, scale=scale)
+        kernel.flash_attention_bwd(q, k, v, out, lse, dout, *grads[3:],
+                                   causal=causal, scale=scale)
+        torch.cuda.synchronize()
+        _, ref_lse = ops.plain_attention_lse(q, k, v, causal=causal)
+        lse_err = float((lse - ref_lse).abs().max())
+        check(lse_err <= 1e-4, f"bwd {name}: lse max abs err {lse_err} "
+                               f"> 1e-4")
+        ref = ops.plain_attention_bwd(q, k, v, out, lse, dout,
+                                      causal=causal)
+        errs = {}
+        for g_name, got, want, again in zip(("dq", "dk", "dv"), grads[:3],
+                                            ref, grads[3:]):
+            check(bool(torch.isfinite(got).all()),
+                  f"bwd {name}: non-finite {g_name}")
+            check(torch.equal(got, again),
+                  f"bwd {name}: {g_name} differs between two launches")
+            rel = float((got.float() - want).abs().max()
+                        / want.abs().max())
+            check(rel <= TOL, f"bwd {name}: {g_name} max abs err "
+                              f"{rel:.3e} x max|plain| > {TOL}")
+            errs[g_name] = rel
+        bufs = grads[:3]
+        kernel_ms = call_ms(lambda: kernel.flash_attention_bwd(
+            q, k, v, out, lse, dout, *bufs, causal=causal, scale=scale),
+            iters=20, warmup=3)
+        fwd_bwd_ms = call_ms(lambda: (
+            kernel.flash_attention_fwd(q, k, v, out, causal=causal,
+                                       scale=scale, lse=lse),
+            kernel.flash_attention_bwd(q, k, v, out, lse, dout, *bufs,
+                                       causal=causal, scale=scale)),
+            iters=20, warmup=3)
+        plain_ms = call_ms(lambda: ops.plain_attention_bwd(
+            q, k, v, out, lse, dout, causal=causal), iters=3, warmup=1)
+        qh = q.reshape(B, Sq, H, hd).transpose(1, 2).contiguous()
+        kh = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+        vh = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+        doh = dout.reshape(B, Sq, H, hd).transpose(1, 2).contiguous()
+        torch.use_deterministic_algorithms(False)
+        try:
+            fast_fb, fast_bwd = sdpa_ms(torch, qh, kh, vh, doh, causal)
+        finally:
+            torch.use_deterministic_algorithms(True)
+        try:      # a yardstick only: SDPA may refuse a deterministic bwd
+            lib_fb, lib_bwd = sdpa_ms(torch, qh, kh, vh, doh, causal)
+        except RuntimeError as e:
+            print(f"kernel flash_attention_bwd {name}: SDPA backward under "
+                  f"deterministic algorithms not available ({e}); library "
+                  f"times below are without them", flush=True)
+            lib_fb, lib_bwd = fast_fb, fast_bwd
+        bound_ms, bound_by = attention_bwd_bound_ms(B, H, K, Sq, Sk, hd,
+                                                    causal)
+        rows[name] = dict(shape=[B, H, K, Sq, Sk, hd, hd], causal=causal,
+                          max_abs_err=max(errs.values()), errs=errs,
+                          lse_err=lse_err, kernel_ms=kernel_ms,
+                          fwd_bwd_ms=fwd_bwd_ms, plain_ms=plain_ms,
+                          library_ms=lib_bwd, library_fwd_bwd_ms=lib_fb,
+                          library_nondeterministic_ms=fast_bwd,
+                          library_nondeterministic_fwd_bwd_ms=fast_fb,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          kernel_over_bound=kernel_ms / bound_ms,
+                          kernel_over_library=kernel_ms / lib_bwd)
+        print(f"kernel flash_attention_bwd {name}: B={B} H={H} K={K} "
+              f"Sq={Sq} Sk={Sk} hd={hd} causal={causal} err/max|plain| dq "
+              f"{errs['dq']:.3e} dk {errs['dk']:.3e} dv {errs['dv']:.3e} "
+              f"(tol {TOL}) lse_err={lse_err:.3e} (tol 1e-4) two launches "
+              f"bit-identical; kernel_ms={kernel_ms:.5f} (fwd+bwd "
+              f"{fwd_bwd_ms:.5f}) plain_ms={plain_ms:.5f} "
+              f"library_ms(sdpa bwd)={lib_bwd:.5f} (fwd+bwd {lib_fb:.5f}) "
+              f"[deterministic algorithms off: bwd {fast_bwd:.5f}, fwd+bwd "
+              f"{fast_fb:.5f}] bound_ms={bound_ms:.5f} ({bound_by}) "
+              f"kernel/bound={kernel_ms / bound_ms:.2f} "
+              f"kernel/library={kernel_ms / lib_bwd:.3f}", flush=True)
     return rows
 
 
@@ -848,9 +1047,9 @@ def phase_path(torch, cfg, trace, t_max, counters) -> dict:
     the depth ``cfg`` has), then its profile window, then crash and
     resume.  The model is built from ``cfg`` and its weights drawn from a
     torch.Generator seeded 0, then handed to ``build_serve_engine``.
-    ``counters`` maps a kernel name to its dispatcher module
-    (``LAUNCHES``); every count is set to 0 just before the path runs and
-    read just after."""
+    ``counters`` maps a kernel name to its dispatcher module and count
+    (``reset_counts`` / ``read_counts``); every count is set to 0 just
+    before the path runs and read just after."""
     from repro_torch.models.registry import build
     from repro_torch.serve.engine import build_serve_engine
     from repro_torch.utils.tree import tree_leaves
@@ -886,13 +1085,12 @@ def phase_path(torch, cfg, trace, t_max, counters) -> dict:
         timer = PhaseTimer(engine)
         before = pool_objects(pools[0])
         torch.cuda.synchronize()
-        for mod in counters.values():
-            mod.LAUNCHES = 0
+        reset_counts(counters)
         t0 = time.perf_counter()
         res = engine.run(trace)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches = {k: mod.LAUNCHES for k, mod in counters.items()}
+        launches = read_counts(counters)
         d2h = engine.store.tiers.d2h_gather_bytes
         engine.close()
         flushed = {k: n - before[k]
@@ -1211,13 +1409,12 @@ def phase_features(torch, cfg, trace, t_max, counters) -> dict:
     def drive(name, fn, e):
         timer = PhaseTimer(e)
         torch.cuda.synchronize()
-        for mod in counters.values():
-            mod.LAUNCHES = 0
+        reset_counts(counters)
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        out["launches"][name] = {k: m.LAUNCHES for k, m in counters.items()}
+        out["launches"][name] = read_counts(counters)
         run = dict(wall_s=dt, tokens_per_s=res.emitted_tokens / dt,
                    decode_ticks=res.decode_ticks, prefills=res.prefills,
                    commits=res.commits, prefix_hits=res.prefix_hits,
@@ -1438,13 +1635,12 @@ def phase_fleet(torch, cfg, counters) -> dict:
     def drive(name, fn, engines):
         timers = {i: PhaseTimer(e) for i, e in engines.items()}
         torch.cuda.synchronize()
-        for mod in counters.values():
-            mod.LAUNCHES = 0
+        reset_counts(counters)
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        out["launches"][name] = {k: m.LAUNCHES for k, m in counters.items()}
+        out["launches"][name] = read_counts(counters)
         per = getattr(res, "per_engine", None) or {0: res}
         run = dict(wall_s=dt, tokens_per_s=res.emitted_tokens / dt,
                    emitted_tokens=res.emitted_tokens,
@@ -1679,6 +1875,191 @@ def phase_fleet(torch, cfg, counters) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+#: olmo-1b's parameters (``PUBLISHED_PARAMS``) and its committed bytes:
+#: params bf16 + mu and nu fp32 + 28 bytes of counters (int32 step, (2,)
+#: uint32 key data) and pipeline (two int64)
+OLMO_PARAMS = 1_176_764_416
+OLMO_CKPT_BYTES = 11_767_644_188
+#: phase 11's run: the reference launcher's batch and sequence
+#: (``repro/launch/train.py`` defaults), 8 steps, a sync commit every 4,
+#: two manifests kept
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+TRAIN_KW = dict(n_steps=8, commit_every=4, commit_mode="sync", retention=2)
+#: retention 2 keeps at most three ~11.8 GB commits on disk at once
+TRAIN_DISK_BYTES = 36e9
+
+
+def _loss_and_grad_norm(torch, bundle, params, batch) -> tuple:
+    """The loss and the global grad norm of one batch (no update)."""
+    from repro_torch.utils.tree import tree_flatten
+    leaves, treedef = tree_flatten(params)
+    live = [x.detach().requires_grad_(True) for x in leaves]
+    loss, _ = bundle.loss(treedef.unflatten(live), batch)
+    grads = torch.autograd.grad(loss, live)
+    norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+    return float(loss.detach()), float(norm)
+
+
+def _timing_means(r) -> tuple:
+    comp = [t.compute_s for t in r.timings if t.compute_s]
+    commits = [t.commit_s for t in r.timings if t.commit_s]
+    return (statistics.mean(comp) * 1e3 if comp else 0.0,
+            statistics.mean(commits) if commits else 0.0, len(commits))
+
+
+def phase_train(torch, cfg, counters) -> dict:
+    """Phase 11: durable training of olmo-1b at full width and depth
+    through the hand-written forward and backward kernels (see the module
+    docstring)."""
+    from repro_torch.data.pipeline import DataPipeline, SyntheticLMSource
+    from repro_torch.dsm.pool import DSMPool
+    from repro_torch.models.registry import build
+    from repro_torch.train.loop import run_durable_loop
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    t_phase = time.perf_counter()
+    L = cfg.n_layers
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    print(f"train: free disk in {tmp}: {free / 1e9:.1f} GB", flush=True)
+    check(free >= TRAIN_DISK_BYTES,
+          f"train: the temp filesystem {tmp} holds {free / 1e9:.1f} GB free; "
+          f"phase 11 keeps up to three ~11.8 GB commits (retention 2) and "
+          f"needs ~{TRAIN_DISK_BYTES / 1e9:.0f} GB")
+    out = {}
+    bundle = build(cfg, device="cuda")
+    params = bundle.init_params(torch.Generator("cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    check(n_params == OLMO_PARAMS,
+          f"train: olmo-1b holds {n_params} params, expected {OLMO_PARAMS}")
+
+    # (a) the kernel path against the plain path: one (1, 64) batch
+    tok = torch.randint(0, cfg.vocab_size, (1, 65),
+                        generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+    reset_counts(counters)
+    card = _loss_and_grad_norm(torch, bundle, params,
+                               {k: v.cuda() for k, v in batch.items()})
+    a_launches = read_counts(counters)
+    cpu_cfg = cfg.with_(param_dtype="float32", compute_dtype="float32")
+    t0 = time.perf_counter()
+    plain = _loss_and_grad_norm(torch, build(cpu_cfg, device="cpu"),
+                                tree_map(lambda x: x.float().cpu(), params),
+                                batch)
+    cpu_s = time.perf_counter() - t0
+    rel = [abs(c - p) / abs(p) for c, p in zip(card, plain)]
+    out["kernel_vs_plain"] = dict(card=card, cpu_fp32=plain, rel=rel,
+                                  launches=a_launches, cpu_s=cpu_s)
+    print(f"train (a): olmo-1b (1, 64) loss {card[0]:.6f} grad norm "
+          f"{card[1]:.6f} on the card (bf16, kernels: "
+          f"{a_launches['flash_attention']} forward, "
+          f"{a_launches['flash_attention_bwd']} backward launches) vs "
+          f"{plain[0]:.6f} / {plain[1]:.6f} plain fp32 on the CPU "
+          f"({cpu_s:.1f} s); rel {rel[0]:.2e} / {rel[1]:.2e} (tol 2e-2)",
+          flush=True)
+    check(max(rel) <= TOL, f"train (a): card vs plain rel {rel} > {TOL}")
+    check(a_launches["flash_attention"] == 2 * L
+          and a_launches["flash_attention_bwd"] == L,
+          f"train (a): launches {a_launches}, expected {2 * L} forward "
+          f"(remat runs each twice) and {L} backward")
+
+    # (b) the clean run
+    state0 = init_train_state(params, 0, cfg.moment_dtype)
+    step = make_train_step(bundle)
+
+    def loop(pool, **kw):
+        pipe = DataPipeline(SyntheticLMSource(cfg.vocab_size), TRAIN_BATCH,
+                            TRAIN_SEQ)
+        reset_counts(counters)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = run_durable_loop(step, state0, pipe, pool, **TRAIN_KW, **kw)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0, read_counts(counters)
+
+    pool_b = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        rb, wall_b, b_launches = loop(pool_b)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        man = DSMPool(pool_b).latest_manifest()
+        n_manifests = len(DSMPool(pool_b).manifests_desc())
+    finally:
+        shutil.rmtree(pool_b, ignore_errors=True)
+    nbytes = sum(o["nbytes"] for o in man["objects"].values())
+    step_ms, commit_s, n_commits = _timing_means(rb)
+    moved = sum(int((a != b).sum()) for a, b in
+                zip(tree_leaves(rb.state.params), tree_leaves(params)))
+    n_steps = TRAIN_KW["n_steps"]
+    out["clean"] = dict(losses=rb.losses, wall_s=wall_b, step_ms=step_ms,
+                        commit_s=commit_s, commits_timed=n_commits,
+                        ckpt_bytes_per_commit=nbytes, launches=b_launches,
+                        peak_gb=peak_gb, params_moved=moved,
+                        manifests_kept=n_manifests)
+    print(f"train (b): {n_steps} steps of ({TRAIN_BATCH}, {TRAIN_SEQ}), "
+          f"losses {[round(x, 6) for x in rb.losses]}; {step_ms:.1f} ms a "
+          f"step (compute), {commit_s:.3f} host s a commit ({n_commits} "
+          f"timed, schedule sync), wall {wall_b:.1f} s; "
+          f"ckpt_bytes_per_commit {nbytes}; launches {b_launches}; peak "
+          f"{peak_gb:.2f} GB; bf16 param elements moved {moved} of "
+          f"{n_params}; manifests kept {n_manifests}", flush=True)
+    check(nbytes == OLMO_CKPT_BYTES,
+          f"train (b): {nbytes} bytes a commit, expected {OLMO_CKPT_BYTES}")
+    check(man["step"] == n_steps - 1 and int(rb.state.opt.step) == n_steps,
+          f"train (b): newest manifest step {man['step']}, opt step "
+          f"{int(rb.state.opt.step)}")
+    check(all(math.isfinite(x) for x in rb.losses) and len(rb.losses)
+          == n_steps, f"train (b): losses {rb.losses}")
+    check(b_launches["flash_attention"] == n_steps * 2 * L
+          and b_launches["flash_attention_bwd"] == n_steps * L,
+          f"train (b): launches {b_launches}, expected {n_steps * 2 * L} "
+          f"forward and {n_steps * L} backward")
+
+    # (c) crash before the commit of step 6, recover, finish
+    pool_c = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        rc, wall_c, c_launches = loop(pool_c,
+                                      crash_at={6: "before_commit"})
+    finally:
+        shutil.rmtree(pool_c, ignore_errors=True)
+    check(rc.crashes == 1 and rc.recoveries == ["pool"],
+          f"train (c): {rc.crashes} crashes, recoveries {rc.recoveries}")
+    # steps 0-6, then 4-7 again from the commit of step 3
+    check(len(rc.losses) == n_steps + 3,
+          f"train (c): {len(rc.losses)} losses, expected steps 0-6 then "
+          f"4-7")
+    check(rc.losses[-4:] == rb.losses[4:],
+          f"train (c): losses of steps 4-7 {rc.losses[-4:]} != clean "
+          f"{rb.losses[4:]}")
+    same = {
+        "params": all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(rc.state.params), tree_leaves(rb.state.params))),
+        "opt_mu": all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(rc.state.opt.mu), tree_leaves(rb.state.opt.mu))),
+        "opt_nu": all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(rc.state.opt.nu), tree_leaves(rb.state.opt.nu))),
+        "opt_step": int(rc.state.opt.step) == int(rb.state.opt.step),
+        "rng": torch.equal(rc.state.rng, rb.state.rng),
+        "pipeline": rc.pipeline_state == rb.pipeline_state,
+    }
+    step_ms_c, commit_s_c, _ = _timing_means(rc)
+    out["crash"] = dict(losses=rc.losses, wall_s=wall_c, step_ms=step_ms_c,
+                        commit_s=commit_s_c, launches=c_launches,
+                        recoveries=rc.recoveries, bit_identical=same)
+    print(f"train (c): crash before the commit of step 6: {rc.crashes} "
+          f"crash, recoveries {rc.recoveries}, resumed at step 4; losses "
+          f"of steps 4-7 bit-identical to (b)'s; bit-identical to (b): "
+          f"{same}; wall {wall_c:.1f} s, {step_ms_c:.1f} ms a step, "
+          f"{commit_s_c:.3f} host s a commit; launches {c_launches}",
+          flush=True)
+    check(all(same.values()), f"train (c): not bit-identical: {same}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"train: phase 11 took {out['phase_s']:.1f} s", flush=True)
+    out["launches"] = {"train (a)": a_launches, "train (b)": b_launches,
+                       "train (c)": c_launches}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", default=None,
@@ -1705,8 +2086,11 @@ def main(argv=None) -> int:
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
     from repro_torch.kernels.rwkv6 import ops as wkv_ops
     from repro_torch.serve.trace import synthetic_trace, trace_t_max
-    counters = {"flash_attention": ops, "grouped_matmul": gmm_ops,
-                "wkv6": wkv_ops, "selective_scan": scan_ops}
+    counters = {"flash_attention": (ops, "LAUNCHES"),
+                "flash_attention_bwd": (ops, "BWD_LAUNCHES"),
+                "grouped_matmul": (gmm_ops, "LAUNCHES"),
+                "wkv6": (wkv_ops, "LAUNCHES"),
+                "selective_scan": (scan_ops, "LAUNCHES")}
 
     report = {}
     # -- 1. environment ------------------------------------------------------
@@ -1733,6 +2117,12 @@ def main(argv=None) -> int:
 
     # -- 3. kernels against their plain versions ----------------------------
     report["kernel_cases"] = phase_kernel(torch, ops)
+    serve_ms = report["kernel_cases"]["path_s512"]["kernel_ms"]
+    print(f"kernel flash_attention path_s512 with the logsumexp output in "
+          f"the source (a null pointer at serving): {serve_ms:.5f} ms "
+          f"beside {FLASH_SERVE_MS_BEFORE} before it (PERF.md); "
+          f"ratio {serve_ms / FLASH_SERVE_MS_BEFORE:.3f}", flush=True)
+    report["bwd_cases"] = phase_flash_bwd(torch, ops)
     report["gmm_cases"] = phase_gmm(torch, gmm_ops)
     report["wkv_cases"] = phase_wkv(torch, wkv_ops)
     report["scan_cases"] = phase_scan(torch, scan_ops)
@@ -1813,19 +2203,27 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     report["fleet"] = phase_fleet(torch, get_config("olmo-1b"), counters)
+    # -- 11. durable training of olmo-1b ------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["train"] = phase_train(torch, get_config("olmo-1b"), counters)
     by_run = {a: p["launches"] for a, p in paths.items()}
     by_run.update({f"olmo-1b {r}": n
                    for r, n in report["features"]["launches"].items()})
     by_run.update({f"olmo-1b fleet {r}": n
                    for r, n in report["fleet"]["launches"].items()})
+    by_run.update({f"olmo-1b {r}": n
+                   for r, n in report["train"]["launches"].items()})
 
     mains = {"flash_attention": report["kernel_cases"]["path_s512"],
              "grouped_matmul": report["gmm_cases"]["decode_up"],
              "wkv6": report["wkv_cases"]["prefill"],
-             "selective_scan": report["scan_cases"]["prefill"]}
+             "selective_scan": report["scan_cases"]["prefill"],
+             "flash_attention_bwd": report["bwd_cases"]["train_b8_s512"]}
     timed = {"flash_attention": report["kernel_cases"],
              "grouped_matmul": report["gmm_cases"],
-             "wkv6": report["wkv_cases"], "selective_scan": report["scan_cases"]}
+             "wkv6": report["wkv_cases"], "selective_scan": report["scan_cases"],
+             "flash_attention_bwd": report["bwd_cases"]}
     kernels = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
         row = mains[name]

@@ -55,6 +55,11 @@
 //
 // Deterministic: no atomics, and every sum is taken in a fixed order.
 //
+// For training, the launch may also write the natural-log logsumexp of each
+// row's scaled, masked scores, fp32 (B, H, Sq), which the backward
+// (flash_attention_bwd.cu) recomputes the probabilities from: warpgroup 0
+// writes it after the merge, one lane a row.  Serving passes a null pointer.
+//
 // C interface (loaded with ctypes): repro_flash_attention_fwd_bf16 returns a
 // cudaError_t (0 on success).  Strides are in elements and multiples of 8
 // (TMA takes 16-byte strides).  The tensor maps are encoded on the host at
@@ -242,8 +247,8 @@ template <int DQK, int DV, int NWG>
 __global__ void __launch_bounds__(NWG * 128, NWG == 1 ? 2 : 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
                  const __grid_constant__ CUtensorMap tmv, __nv_bfloat16* __restrict__ o,
-                 int group, int Sq, int Sk, int hd_v, long long sob, long long soh,
-                 long long sos, float scale_log2, int causal) {
+                 float* __restrict__ lse, int group, int Sq, int Sk, int hd_v, long long sob,
+                 long long soh, long long sos, float scale_log2, int causal) {
   using K_ = Cfg<DQK, DV, NWG>;
   constexpr int BK = K_::BK, STAGES = K_::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -438,6 +443,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant_
       c0[r] = ex2(m[r] - base);
       c1[r] = ex2(m1 - base);
       l[r] = l[r] * c0[r] + l1 * c1[r];
+      m[r] = m_new;
     }
 #pragma unroll
     for (int j = 0; j < DV / 8; ++j)
@@ -459,6 +465,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant_
       if (col < hd_v)
         *reinterpret_cast<uint32_t*>(orow + col) =
             pack_f32(acc[nt][2 * r] / denom, acc[nt][2 * r + 1] / denom);
+    }
+  }
+  // The natural-log logsumexp of each row's scaled, masked scores, for the
+  // backward: the row's max and denominator are in the log2 domain, and
+  // the four lanes of a row group hold the same pair after the merge.
+  if (lse != nullptr && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= Sq) continue;
+      const float base = (m[r] == -INFINITY) ? 0.f : m[r];
+      lse[((long long)b * gridDim.x + h) * Sq + row] = (base + log2f(l[r])) * 0.6931471805599453f;
     }
   }
 }
@@ -502,7 +520,7 @@ bool encode_4d(CUtensorMap* map, const void* ptr, int d, int n, int heads, int B
 int last_launch[4];
 
 template <int DQK, int DV, int NWG>
-cudaError_t launch_nwg(const void* q, const void* k, const void* v, void* o, int B,
+cudaError_t launch_nwg(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                        int H, int KH, int Sq, int Sk, int hd, int hd_v,
                        const long long* st, float scale_log2, int causal,
                        cudaStream_t stream) {
@@ -522,7 +540,7 @@ cudaError_t launch_nwg(const void* q, const void* k, const void* v, void* o, int
   last_launch[1] = K_::STAGES;
   last_launch[2] = (int)smem;
   last_launch[3] = (int)(grid.x * grid.y * grid.z);
-  kern<<<grid, NWG * 128, smem, stream>>>(tmq, tmk, tmv, static_cast<__nv_bfloat16*>(o),
+  kern<<<grid, NWG * 128, smem, stream>>>(tmq, tmk, tmv, static_cast<__nv_bfloat16*>(o), lse,
                                           H / KH, Sq, Sk, hd_v, st[9], st[10], st[11],
                                           scale_log2, causal);
   return cudaGetLastError();
@@ -532,7 +550,7 @@ cudaError_t launch_nwg(const void* q, const void* k, const void* v, void* o, int
 // tiles than SMs (the longest tile's walk is the time); one warpgroup a
 // block, two blocks an SM, once there are more.
 template <int DQK, int DV>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                    int H, int KH, int Sq, int Sk, int hd, int hd_v,
                    const long long* st, float scale_log2, int causal,
                    cudaStream_t stream) {
@@ -546,24 +564,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
   }
   const long long tiles = (long long)((Sq + BQ - 1) / BQ) * H * B;
   if (tiles <= n_sm)
-    return launch_nwg<DQK, DV, 2>(q, k, v, o, B, H, KH, Sq, Sk, hd, hd_v, st, scale_log2,
+    return launch_nwg<DQK, DV, 2>(q, k, v, o, lse, B, H, KH, Sq, Sk, hd, hd_v, st, scale_log2,
                                   causal, stream);
-  return launch_nwg<DQK, DV, 1>(q, k, v, o, B, H, KH, Sq, Sk, hd, hd_v, st, scale_log2,
+  return launch_nwg<DQK, DV, 1>(q, k, v, o, lse, B, H, KH, Sq, Sk, hd, hd_v, st, scale_log2,
                                 causal, stream);
 }
 
 template <int DQK>
 cudaError_t dispatch_dv(int dv, const void* q, const void* k, const void* v, void* o,
-                        int B, int H, int KH, int Sq, int Sk, int hd, int hd_v,
+                        float* lse, int B, int H, int KH, int Sq, int Sk, int hd, int hd_v,
                         const long long* st, float scale_log2, int causal,
                         cudaStream_t stream) {
   switch (dv) {
     case 64:
-      return launch<DQK, 64>(q, k, v, o, B, H, KH, Sq, Sk, hd, hd_v, st, scale_log2, causal, stream);
+      return launch<DQK, 64>(q, k, v, o, lse, B, H, KH, Sq, Sk, hd, hd_v, st, scale_log2, causal, stream);
     case 128:
-      return launch<DQK, 128>(q, k, v, o, B, H, KH, Sq, Sk, hd, hd_v, st, scale_log2, causal, stream);
+      return launch<DQK, 128>(q, k, v, o, lse, B, H, KH, Sq, Sk, hd, hd_v, st, scale_log2, causal, stream);
     default:
-      return launch<DQK, 256>(q, k, v, o, B, H, KH, Sq, Sk, hd, hd_v, st, scale_log2, causal, stream);
+      return launch<DQK, 256>(q, k, v, o, lse, B, H, KH, Sq, Sk, hd, hd_v, st, scale_log2, causal, stream);
   }
 }
 
@@ -572,7 +590,7 @@ int bucket(int d) { return d <= 64 ? 64 : (d <= 128 ? 128 : 256); }
 }  // namespace
 
 extern "C" int repro_flash_attention_fwd_bf16(
-    const void* q, const void* k, const void* v, void* o, int B, int H, int KH, int Sq,
+    const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int KH, int Sq,
     int Sk, int hd, int hd_v, long long sqb, long long sqh, long long sqs, long long skb,
     long long skh, long long sks, long long svb, long long svh, long long svs,
     long long sob, long long soh, long long sos, float scale, int causal, void* stream) {
@@ -588,13 +606,13 @@ extern "C" int repro_flash_attention_fwd_bf16(
   cudaError_t err;
   switch (bucket(hd)) {
     case 64:
-      err = dispatch_dv<64>(bucket(hd_v), q, k, v, o, B, H, KH, Sq, Sk, hd, hd_v, st, scale_log2, causal, s);
+      err = dispatch_dv<64>(bucket(hd_v), q, k, v, o, lse, B, H, KH, Sq, Sk, hd, hd_v, st, scale_log2, causal, s);
       break;
     case 128:
-      err = dispatch_dv<128>(bucket(hd_v), q, k, v, o, B, H, KH, Sq, Sk, hd, hd_v, st, scale_log2, causal, s);
+      err = dispatch_dv<128>(bucket(hd_v), q, k, v, o, lse, B, H, KH, Sq, Sk, hd, hd_v, st, scale_log2, causal, s);
       break;
     default:
-      err = dispatch_dv<256>(bucket(hd_v), q, k, v, o, B, H, KH, Sq, Sk, hd, hd_v, st, scale_log2, causal, s);
+      err = dispatch_dv<256>(bucket(hd_v), q, k, v, o, lse, B, H, KH, Sq, Sk, hd, hd_v, st, scale_log2, causal, s);
       break;
   }
   return static_cast<int>(err);

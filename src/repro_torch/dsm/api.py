@@ -32,20 +32,23 @@ The four schedules ``sync`` / ``async`` / ``sharded`` / ``sharded-async``
 and ``n_shards`` are ported (``repro_torch.dsm.flit_runtime``), and so are
 ``topology=`` / ``placement=`` (``dsm.emu``, ``dsm.placement``): the
 policy prices the shard count and resolves the ``"auto"`` schedule at the
-first commit.  ``h.rstore(peer)`` stages into an explicit peer (a context
-is one: it exposes ``.staging``).  Not ported yet, and refused with
-``NotImplementedError`` naming the reference: mesh-native commits
-(``repro.dsm.meshio``, ROADMAP A7) and the peer-staging wiring of the
-committer and of recovery (``peers=``, ``replicate_to=``:
-``repro.dsm.recovery`` / ``repro.dsm.flit_runtime``, ROADMAP A5).  The
-port's default schedule is ``"sync"`` (the reference's is ``"auto"``,
-which without a topology resolves to ``"sharded-async"`` in both).
+first commit.  Peer staging is wired as in the reference: ``peers`` are
+recovery sources (anything with a ``.staging`` mapping — a TierManager, a
+``CXL0Context``, a cluster staging view), ``replicate_to`` is the RStore
+target of every ``put`` (tagged with the step), and a newer consistent
+staged copy beats the pool at recovery.  ``worker_id`` names the flush
+threads, and ``fault_hook(point, step)`` fires inside the commit window
+(``pre_flush``, ``mid_flush``, ``post_completeOp``).  Not ported yet, and
+refused with ``NotImplementedError`` naming the reference: mesh-native
+commits (``repro.dsm.meshio``, ROADMAP A7).  The port's default schedule
+is ``"sync"`` (the reference's is ``"auto"``, which without a topology
+resolves to ``"sharded-async"`` in both).
 """
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -55,12 +58,6 @@ from repro_torch.dsm.pool import DSMPool, PoolObject
 from repro_torch.dsm.recovery import ColdStartError, RecoveryManager
 from repro_torch.dsm.tiers import TierManager
 
-_NOT_PORTED = {
-    "mesh": "repro.dsm.meshio (ROADMAP A7)",
-    "peers": "repro.dsm.recovery (peer-staging recovery, ROADMAP A5)",
-    "replicate_to": "repro.dsm.flit_runtime.DurableCommitter(replicate_to=)"
-                    " (ROADMAP A5)",
-}
 
 #: what ``schedule="auto"`` resolves to when no topology or policy is
 #: configured (the reference's production default)
@@ -69,25 +66,31 @@ DEFAULT_SCHEDULE = "sharded-async"
 
 @dataclasses.dataclass
 class CXL0Config:
-    """Every wiring knob of the tier stack in one place."""
+    """Every wiring knob of the tier stack in one place: ``path`` /
+    ``worker_id`` locate the pool and name the worker; ``peers`` are
+    recovery sources and ``replicate_to`` the RStore target (an empty
+    ``peers`` means none); ``fault_hook(point, step)`` and ``complete_fn``
+    are the scenario / cluster extension points."""
 
     path: Optional[str] = None
+    worker_id: int = 0
     topology: Optional[str] = None
     schedule: str = "sync"
     n_shards: Optional[int] = None
     retention: Optional[int] = None
-    peers: Optional[Any] = None
+    peers: Tuple[Any, ...] = ()
     replicate_to: Optional[Any] = None
     placement: Optional[Any] = None
     mesh: Optional[Any] = None
+    fault_hook: Optional[Callable[[str, int], None]] = None
     complete_fn: Optional[Callable] = None
 
     def __post_init__(self):
-        for knob, ref in _NOT_PORTED.items():
-            if getattr(self, knob) is not None:
-                raise NotImplementedError(
-                    f"CXL0Config({knob}=...) is not ported yet "
-                    f"(reference: {ref})")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "CXL0Config(mesh=...) is not ported yet (reference: "
+                "repro.dsm.meshio, ROADMAP A7)")
+        self.peers = tuple(self.peers or ())
         if self.schedule != AUTO_MODE:      # "auto" resolves at open time
             check_mode(self.schedule)
 
@@ -172,8 +175,9 @@ class DurableHandle:
 
     def rstore(self, peer: Any = None, tag: Optional[int] = None):
         """Stage the current value into a peer's host buffer (it survives
-        OUR crash).  The peer is explicit: a context has no replication
-        target here (``replicate_to=`` is not ported)."""
+        OUR crash).  ``peer`` defaults to the context's replication
+        target."""
+        peer = peer if peer is not None else self.ctx.committer.replicate_to
         if peer is None:
             raise ValueError(f"rstore({self.name!r}): no peer given and the "
                              f"context has no replicate_to target")
@@ -271,10 +275,12 @@ class CXL0Context:
         # built through TierManager.open: the layering check in
         # tests/test_api.py counts direct constructions anywhere in src/
         # outside repro/dsm
-        self.tiers = TierManager.open(self.pool)
+        self.tiers = TierManager.open(self.pool, config.worker_id)
+        self.peers: Tuple[Any, ...] = config.peers
         self.committer = DurableCommitter(
             self.tiers, mode=config.resolved_schedule(self.placement),
-            n_shards=config.n_shards, retention=config.retention,
+            replicate_to=config.replicate_to, n_shards=config.n_shards,
+            retention=config.retention, fault_hook=config.fault_hook,
             placement=self.placement, complete_fn=config.complete_fn)
         self.recovery = RecoveryManager(self.pool)
 
@@ -283,6 +289,10 @@ class CXL0Context:
         """Peer-staged copies held BY this worker: a context is an RStore
         target wherever a ``.staging``-bearing peer is expected."""
         return self.tiers.staging
+
+    @property
+    def worker_id(self) -> int:
+        return self.config.worker_id
 
     def durable(self, name: str, init: Any = None) -> DurableHandle:
         """A named durable-object handle; ``init`` LStores an initial value
@@ -297,9 +307,10 @@ class CXL0Context:
         ``TransformedObject``)."""
         return TransformedObject(self, spec, name=name, recover=recover)
 
-    def put(self, objects: Dict[str, Any]):
-        """Per-step LStore of new state WITHOUT committing."""
-        self.committer.update(objects)
+    def put(self, objects: Dict[str, Any], step: Optional[int] = None):
+        """Per-step LStore of new state (and the RStore replication, when
+        configured, tagged ``step``) WITHOUT committing."""
+        self.committer.update(objects, step=step)
 
     def commit(self, step: int, meta: Optional[dict] = None) -> CommitRegion:
         return CommitRegion(self, step, meta)
@@ -307,17 +318,22 @@ class CXL0Context:
     def drain(self, meta: Optional[dict] = None) -> Optional[CommitStats]:
         return self.committer.drain(meta)
 
-    def recover(self, templates: Dict[str, Any], *,
+    def recover(self, templates: Dict[str, Any],
+                peers: Optional[Sequence[Any]] = None, *,
                 exact: bool = True) -> Tuple[Dict[str, Any], int, str]:
-        """THE recovery path: the newest fully-CRC-valid manifest.  Raises
-        ``ColdStartError`` when nothing is recoverable."""
-        return self.recovery.recover(templates, exact=exact)
+        """THE recovery path: a surviving peer's RStore-staged copy beats
+        the pool when newer; else the newest fully-CRC-valid manifest.
+        ``peers`` defaults to the context's; raises ``ColdStartError``
+        when nothing is recoverable."""
+        use = tuple(peers) if peers is not None else self.peers
+        return self.recovery.recover(templates, use, exact=exact)
 
-    def try_recover(self, templates: Dict[str, Any], *,
+    def try_recover(self, templates: Dict[str, Any],
+                    peers: Optional[Sequence[Any]] = None, *,
                     exact: bool = True
                     ) -> Optional[Tuple[Dict[str, Any], int, str]]:
         try:
-            return self.recover(templates, exact=exact)
+            return self.recover(templates, peers, exact=exact)
         except ColdStartError:
             return None
 
@@ -341,24 +357,24 @@ class CXL0Context:
         return False
 
 
-def open_cxl0(path, *,
+def open_cxl0(path, worker_id: int = 0, *,
               topology: Optional[str] = None,
               placement: Optional[Any] = None,
               schedule: str = "sync",
               n_shards: Optional[int] = None,
               retention: Optional[int] = None,
-              peers: Optional[Any] = None,
+              peers: Sequence[Any] = (),
               replicate_to: Optional[Any] = None,
               mesh: Optional[Any] = None,
+              fault_hook: Optional[Callable[[str, int], None]] = None,
               complete_fn: Optional[Callable] = None) -> CXL0Context:
-    """Open a CXL0 context over a pool directory (or an open DSMPool).
-    ``peers`` / ``replicate_to`` (peer staging wiring) are not ported yet
-    and raise, like ``mesh``."""
+    """Open a CXL0 context over a pool directory (or an open DSMPool), with
+    the reference's signature; ``mesh`` is not ported yet and raises."""
     pool = path if isinstance(path, DSMPool) else None
     cfg = CXL0Config(
         path=path if pool is None else path.path,
-        topology=topology, placement=placement,
+        worker_id=worker_id, topology=topology, placement=placement,
         schedule=schedule, n_shards=n_shards, retention=retention,
-        peers=peers, replicate_to=replicate_to, mesh=mesh,
-        complete_fn=complete_fn)
+        peers=tuple(peers), replicate_to=replicate_to, mesh=mesh,
+        fault_hook=fault_hook, complete_fn=complete_fn)
     return cfg.open(pool=pool)

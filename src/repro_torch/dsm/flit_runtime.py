@@ -42,9 +42,12 @@ the policy's topology, and ``mode="auto"`` resolves at the first commit
 to ``placement.choose_schedule`` (``sync`` or ``sharded-async``); both
 decisions are logged on the policy with their priced costs.
 
-Not ported yet: mesh-native shard pipelines (``repro.dsm.meshio``), RStore
-staging to a peer on every update (``replicate_to``) and the
-fault-injection hook (``KILL_POINTS``, with the scenario slice).
+``replicate_to`` RStores every object to a peer on each ``update``,
+tagged with the step (a newer consistent staged copy beats the pool at
+recovery), and ``fault_hook(point, step)`` fires at the reference's three
+points of the commit window: ``pre_flush``, ``mid_flush`` (after the first
+object, or the first shard, is durable) and ``post_completeOp``.  Not
+ported yet: mesh-native shard pipelines (``repro.dsm.meshio``).
 """
 from __future__ import annotations
 
@@ -99,8 +102,10 @@ def auto_shard_count(total_bytes: int, *,
 
 class DurableCommitter:
     def __init__(self, tiers: TierManager, *, mode: str = "sync",
+                 replicate_to: Optional[Any] = None,
                  n_shards: Optional[int] = None,
                  retention: Optional[int] = None,
+                 fault_hook: Optional[Callable[[str, int], None]] = None,
                  placement: Optional[Any] = None,
                  complete_fn: Optional[
                      Callable[[int, Dict[str, Any], Optional[dict]],
@@ -111,8 +116,11 @@ class DurableCommitter:
         #: cost-driven placement (``dsm.placement``): the shard count and,
         #: under ``mode="auto"``, the schedule, priced at the first commit
         self.placement = placement
+        #: peer for RStore staging (anything with a ``.staging`` mapping)
+        self.replicate_to = replicate_to
         self.n_shards = n_shards or None     # None = auto at first commit
         self.retention = retention
+        self.fault_hook = fault_hook
         #: delegated completeOp: ``complete_fn(step, written, meta) -> seq``
         #: replaces ``pool.commit_manifest`` (and turns off retention GC:
         #: the delegate owns the manifest protocol)
@@ -122,6 +130,18 @@ class DurableCommitter:
         #: that was actually flushed
         self._pending: Optional[Tuple[int, List[str], Optional[dict]]] = None
         self.stats: list = []
+
+    def _hook(self, point: str, step: int):
+        if self.fault_hook is not None:
+            self.fault_hook(point, step)
+
+    def _mid_flush_probe(self, first: bool, step: int):
+        """The mid-flush callback of a sharded flush — only built when a
+        hook is installed, because the tiers then wait on the first shard
+        to fire it (which would serialize shard 0 otherwise)."""
+        if not first or self.fault_hook is None:
+            return None
+        return lambda: self._hook("mid_flush", step)
 
     def _hbm_bytes(self) -> int:
         return sum(leaf_nbytes(l) for l in tree_leaves(dict(self.tiers.hbm)))
@@ -161,12 +181,16 @@ class DurableCommitter:
                          (self.n_shards or 1) if "sharded" in self.mode
                          else 1)
         self.stats.append(st)
+        self._hook("post_completeOp", step)
         return st
 
-    def update(self, objects: Dict[str, Any]):
-        """LStore the new state into HBM."""
+    def update(self, objects: Dict[str, Any], step: Optional[int] = None):
+        """LStore the new state into HBM; with a peer configured, also
+        RStore-stage each object, tagged with the step."""
         for name, tree in objects.items():
             self.tiers.lstore(name, tree)
+            if self.replicate_to is not None:
+                self.tiers.rstore(name, self.replicate_to, tag=step)
 
     def commit(self, step: int, meta: Optional[dict] = None
                ) -> Optional[CommitStats]:
@@ -180,22 +204,31 @@ class DurableCommitter:
             return self._commit_async(step, meta, t0)
         if self.mode == "sharded-async":
             return self._commit_sharded_async(step, meta, t0)
+        self._hook("pre_flush", step)
         written: Dict[str, Any] = {}
+        first = True
         for name in self.tiers.hbm:
             if self.mode == "sharded":
                 written[name] = self.tiers.rflush_sharded(
-                    name, self._resolve_shards())
+                    name, self._resolve_shards(),
+                    post_first_shard=self._mid_flush_probe(first, step))
             else:
                 written[name] = self.tiers.rflush(name)
+                if first:
+                    self._hook("mid_flush", step)
+            first = False
         return self._complete_op(step, written, meta, t0, self.mode)
 
     def _commit_async(self, step: int, meta, t0) -> Optional[CommitStats]:
         """Join the previous async flushes, completeOp them, then launch
         flushes of the CURRENT state in the background."""
         st = self._join_pending(t0, "async")
+        self._hook("pre_flush", step)
         names = list(self.tiers.hbm)
-        for name in names:
+        for i, name in enumerate(names):
             self.tiers.flush_async(name)
+            if i == 0:      # the first write in flight, no manifest yet
+                self._hook("mid_flush", step)
         self._pending = (step, names, meta)
         return st
 
@@ -204,9 +237,14 @@ class DurableCommitter:
         """Double-buffered sharded commit: join + completeOp step s-1's
         shard pipelines, then launch step s's and return."""
         st = self._join_pending(t0, "sharded-async")
+        self._hook("pre_flush", step)
         names = list(self.tiers.hbm)
+        first = True
         for name in names:
-            self.tiers.flush_async_sharded(name, self._resolve_shards())
+            self.tiers.flush_async_sharded(
+                name, self._resolve_shards(),
+                post_first_shard=self._mid_flush_probe(first, step))
+            first = False
         self._pending = (step, names, meta)
         return st
 

@@ -1,11 +1,15 @@
 """Crash injection + recovery (partial-crash model, paper §3.1) — the port
 of ``repro.dsm.recovery``.
 
-A worker crash loses its HBM tier; the pool is uninterrupted.  Recovery
-reads the **pool manifest**: the newest manifest whose every object
-CRC-validates; torn objects fall back to the previous manifest.  The
-reference's other source, a surviving peer's newer RStore-staged copy,
-comes with peer staging (``repro.dsm.recovery``).
+A worker crash loses its HBM and host-staging tiers; the pool and OTHER
+workers are uninterrupted.  Recovery sources, best first:
+
+1. **peer staging** — a surviving peer's RStore-staged copy NEWER than the
+   pool's manifest, if it holds every requested object at one tag (the
+   peer: anything with a ``.staging`` mapping of ``name -> (tag, host
+   tree)``);
+2. **pool manifest** — the newest manifest whose every object
+   CRC-validates; torn objects fall back to the previous manifest.
 
 Reads go through ``DSMPool.read_entry`` (plain and sharded entries).
 """
@@ -21,7 +25,10 @@ class CrashError(Exception):
 
 
 class ColdStartError(RuntimeError):
-    """No recoverable state exists (no fully-valid manifest)."""
+    """No recoverable state exists anywhere (no fully-valid manifest, no
+    consistent peer staging).  Resume paths catch THIS and nothing
+    broader, so a real failure during recovery is never taken for a cold
+    start."""
 
 
 class RecoveryManager:
@@ -66,13 +73,31 @@ class RecoveryManager:
             return objs, m
         return None
 
-    def recover(self, templates: Dict[str, Any], *,
+    def recover(self, templates: Dict[str, Any],
+                peers: Tuple[Any, ...] = (), *,
                 exact: bool = True) -> Tuple[Dict[str, Any], int, str]:
-        """The recovery path: the newest fully-valid manifest.  Returns
-        ``(objects, step, "pool")``; raises ColdStartError when nothing is
-        recoverable."""
+        """The recovery path: ``(objects, step, source)`` with source
+        ``"peer-staging"`` when a peer's staged copy covers every template
+        at one tag newer than the pool's newest valid manifest, else
+        ``"pool"``.  Raises ColdStartError when neither exists."""
         pool_state = self.recover_from_pool(templates, exact=exact)
-        if pool_state is None:
+        best_peer: Optional[Dict[str, Any]] = None
+        best_ver = -1
+        for peer in peers:
+            if not set(templates) <= set(peer.staging):
+                continue
+            staged = {n: peer.staging[n] for n in templates}
+            vers = {v for v, _ in staged.values()}
+            if len(vers) != 1:      # mixed-step staging: not consistent
+                continue
+            v = vers.pop()
+            if v > best_ver:
+                best_ver = v
+                best_peer = {n: t for n, (_, t) in staged.items()}
+        if pool_state is None and best_peer is None:
             raise ColdStartError("no recoverable state (cold start)")
+        if best_peer is not None and (pool_state is None
+                                      or best_ver > pool_state[1]):
+            return best_peer, best_ver, "peer-staging"
         objs, step, _ = pool_state
         return objs, step, "pool"

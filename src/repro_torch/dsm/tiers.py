@@ -49,7 +49,7 @@ from __future__ import annotations
 
 import threading
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,8 +68,10 @@ def leaf_nbytes(leaf: Any) -> int:
 
 
 class TierManager:
-    def __init__(self, pool: DSMPool):
+    def __init__(self, pool: DSMPool, worker_id: int = 0):
         self.pool = pool
+        #: names this worker's flush threads (``rflush-w<id>``)
+        self.worker_id = worker_id
         self.hbm: Dict[str, Any] = {}               # C_i — device tier
         #: peer-staged copies: name -> (tag, host tree) staged INTO this
         #: worker by peers' rstore
@@ -94,10 +96,10 @@ class TierManager:
         self.d2h_shard_bytes = 0
 
     @classmethod
-    def open(cls, pool: DSMPool) -> "TierManager":
+    def open(cls, pool: DSMPool, worker_id: int = 0) -> "TierManager":
         """The tier stack over ``pool`` — how the dsm layer
         (``CXL0Context``) builds one."""
-        return cls(pool)
+        return cls(pool, worker_id)
 
     def count_d2h(self, kind: str, nbytes: int):
         with self._lock:
@@ -138,7 +140,8 @@ class TierManager:
         sharded flush (the shard count is constant for a run)."""
         if self._executor is None:
             self._executor = ThreadPoolExecutor(
-                max_workers=max(1, n_workers), thread_name_prefix="rflush")
+                max_workers=max(1, n_workers),
+                thread_name_prefix=f"rflush-w{self.worker_id}")
         return self._executor
 
     def _get_fsync_lane(self) -> ThreadPoolExecutor:
@@ -149,7 +152,7 @@ class TierManager:
         with self._lock:
             if self._fsync_lane is None:
                 self._fsync_lane = ThreadPoolExecutor(
-                    max_workers=1, thread_name_prefix="fsync")
+                    max_workers=1, thread_name_prefix=f"fsync-w{self.worker_id}")
             return self._fsync_lane
 
     # -- CXL0 primitive realizations ----------------------------------------
@@ -210,11 +213,14 @@ class TierManager:
 
     # -- sharded flush (parallel per-shard RFlush pipelines) -----------------
     def _shard_submit(self, name: str, n_shards: int, *, own: bool,
+                      post_first_shard: Optional[Callable] = None,
                       device_local: bool = False
                       ) -> Tuple[int, int, List[List[int]], List[Future]]:
         """Snapshot the object NOW (``_snapshot_leaves``), partition its
         leaves into byte-balanced shards and submit one write per shard to
-        the flush pool as a split-phase pipeline."""
+        the flush pool as a split-phase pipeline.  ``post_first_shard``
+        runs once the FIRST shard is durable, before the rest are joined —
+        the mid-flush fault-injection point."""
         if device_local:
             raise NotImplementedError(
                 "device-local (mesh) shard pipelines are not ported yet "
@@ -230,6 +236,9 @@ class TierManager:
             for k, shard in enumerate(shards):
                 futs.append(self._submit_split_phase(
                     ex, f"{name}.s{k}", version, shard))
+                if k == 0 and post_first_shard is not None:
+                    futs[0].result()
+                    post_first_shard()
         except BaseException:
             # already-submitted shard writes must fully land (or fail)
             # before the caller unwinds: an untracked stale write could
@@ -296,6 +305,7 @@ class TierManager:
                              n_leaves, shards, assignment)
 
     def rflush_sharded(self, name: str, n_shards: int,
+                       post_first_shard: Optional[Callable] = None,
                        device_local: bool = False) -> ShardedObject:
         """Blocking sharded durable write: all shards written in parallel,
         returns once every shard is on storage."""
@@ -303,11 +313,13 @@ class TierManager:
         try:
             return self._shard_join(
                 name, *self._shard_submit(name, n_shards, own=False,
+                                          post_first_shard=post_first_shard,
                                           device_local=device_local))
         finally:
             self.flit_counter[name] -= 1
 
     def flush_async_sharded(self, name: str, n_shards: int,
+                            post_first_shard: Optional[Callable] = None,
                             device_local: bool = False):
         """Start a sharded durable write in the background (the double-
         buffered commit path); join via flush_wait.  The FliT counter
@@ -315,7 +327,8 @@ class TierManager:
         self.flit_counter[name] = self.flit_counter.get(name, 0) + 1
         try:
             self._sharded_futures[name] = self._shard_submit(
-                name, n_shards, own=True, device_local=device_local)
+                name, n_shards, own=True, post_first_shard=post_first_shard,
+                device_local=device_local)
         except BaseException:
             self.flit_counter[name] -= 1     # nothing tracked -> no join
             raise

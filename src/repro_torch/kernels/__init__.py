@@ -8,14 +8,17 @@ import torch
 def refuse_grad(name: str, *tensors) -> None:
     """Raise before a kernel launch that autograd would not see.
 
-    The CUDA kernels have no backward yet: a launch fills a fresh tensor
-    that has no ``grad_fn``, so an input that requires grad would get no
-    gradient through the kernel, silently.  Each dispatcher's CUDA branch
-    calls this first; the CPU branch runs the differentiable plain
-    versions.  ``None`` entries are skipped."""
+    The grouped-matmul, WKV-6 and selective-scan kernels have no backward
+    yet: a launch fills a fresh tensor that has no ``grad_fn``, so an
+    input that requires grad would get no gradient through the kernel,
+    silently.  Each of their dispatchers' CUDA branches calls this first
+    (the flash kernel has its backward, ``attention.ops.FlashAttention``);
+    the CPU branches run the differentiable plain versions.  ``None``
+    entries are skipped."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name}: an input requires grad, and the CUDA kernel has no "
-            f"backward yet (the training slice brings one); run it under "
-            f"torch.no_grad() or on tensors that do not require grad")
+            f"backward yet (ROADMAP A2: it comes when its architecture "
+            f"trains on the card); run it under torch.no_grad() or on "
+            f"tensors that do not require grad")

@@ -1,8 +1,10 @@
-"""Binding of the hand-written Hopper flash-attention forward
+"""Bindings of the hand-written Hopper flash attention: the forward
 (``csrc/flash_attention.cu``), the port of the TPU kernel
-``repro/kernels/attention/kernel.py:flash_attention_kernel``.
+``repro/kernels/attention/kernel.py:flash_attention_kernel``, and its
+backward (``csrc/flash_attention_bwd.cu``), which training needs (the JAX
+package differentiates its plain attention instead).
 
-The CUDA source has a plain C interface; it is compiled at first use by
+Each CUDA source has a plain C interface; it is compiled at first use by
 ``kernels.build`` and loaded with ctypes.  Every pointer and the stream go
 over as ``c_void_p`` (a plain int would cut a 64-bit pointer), strides as
 ``c_longlong``.  The kernel works directly on the model layout through
@@ -12,56 +14,96 @@ hd_v) — so the dispatcher needs no transposes on the card.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.kernels import build
 
 NAME = "flash_attention"
+BWD_NAME = "flash_attention_bwd"
 _C = ctypes.c_int
 _L = ctypes.c_longlong
 _P = ctypes.c_void_p
-_ARGTYPES = ([_P] * 4 + [_C] * 7 + [_L] * 12
+_ARGTYPES = ([_P] * 5 + [_C] * 7 + [_L] * 12
              + [ctypes.c_float, _C, _P])
+_BWD_ARGTYPES = [_P] * 10 + [_C] * 6 + [_L] * 6 + [ctypes.c_float, _C, _P]
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _load(name: str, fn_name: str, argtypes) -> ctypes.CDLL:
+    """Build (first use only) and load a kernel library."""
+    if name not in _libs:
+        lib = build.load(name)
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _libs[name] = lib
+    return _libs[name]
 
 
 def library() -> ctypes.CDLL:
-    """Build (first use only) and load the kernel library."""
-    global _lib
-    if _lib is None:
-        lib = build.load(NAME)
-        fn = lib.repro_flash_attention_fwd_bf16
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    return _load(NAME, "repro_flash_attention_fwd_bf16", _ARGTYPES)
+
+
+def bwd_library() -> ctypes.CDLL:
+    return _load(BWD_NAME, "repro_flash_attention_bwd_bf16", _BWD_ARGTYPES)
+
+
+def _check(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError_t {err}")
+
+
+def _bhs(t: torch.Tensor) -> list:
+    """(batch, head, sequence) strides in elements: the head stride of a
+    (B, S, K, G, d) tensor walks the flattened (K, G) axes, of a
+    (B, T, K, d) tensor the K axis."""
+    if t.ndim == 5:
+        return [t.stride(0), t.stride(3), t.stride(1)]
+    return [t.stride(0), t.stride(2), t.stride(1)]
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        out: torch.Tensor, *, causal: bool,
-                        scale: float) -> None:
+                        out: torch.Tensor, *, causal: bool, scale: float,
+                        lse: Optional[torch.Tensor] = None) -> None:
     """Launch the kernel on the current stream.  q (B,S,K,G,hd), k
     (B,T,K,hd), v (B,T,K,hd_v), out (B,S,K,G,hd_v): bf16, contiguous, on
     one CUDA device — the dispatcher (``ops.flash_attention``) checks all
-    of that.  Raises if the launch is refused."""
+    of that.  ``lse``, if given, is a contiguous fp32 (B, K*G, S) that the
+    kernel fills with each row's natural-log logsumexp (for the backward).
+    Raises if the launch is refused."""
     B, S, K, G, hd = q.shape
     T, hd_v = k.shape[1], v.shape[-1]
-    strides = []
-    for t in (q, k, v, out):
-        # (batch, head, sequence) strides in elements; the head stride of
-        # q / out walks the flattened (K, G) axes, of k / v the K axis
-        if t.ndim == 5:
-            strides += [t.stride(0), t.stride(3), t.stride(1)]
-        else:
-            strides += [t.stride(0), t.stride(2), t.stride(1)]
+    strides = _bhs(q) + _bhs(k) + _bhs(v) + _bhs(out)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = library().repro_flash_attention_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         B, K * G, K, S, T, hd, hd_v, *strides, float(scale), int(causal),
         stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"cudaError_t {err}")
+    _check(err, "flash_attention")
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, dq: torch.Tensor,
+                        dk: torch.Tensor, dv: torch.Tensor, *, causal: bool,
+                        scale: float) -> None:
+    """Launch the backward's three kernels on the current stream: delta =
+    rowsum(dout * out) into an fp32 scratch, then dk / dv, then dq.  q,
+    out, dout, dq (B,S,K,G,hd) and k, v, dk, dv (B,T,K,hd): bf16,
+    contiguous, hd 64 or 128; lse fp32 (B, K*G, S) from the forward —
+    ``ops.FlashAttention`` checks all of that.  Raises if a launch is
+    refused."""
+    B, S, K, G, hd = q.shape
+    T = k.shape[1]
+    delta = torch.empty((B, K * G, S), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = bwd_library().repro_flash_attention_bwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), delta.data_ptr(), B, K * G, K, S, T, hd,
+        *_bhs(q), *_bhs(k), float(scale), int(causal), stream)
+    _check(err, "flash_attention_bwd")

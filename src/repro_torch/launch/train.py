@@ -1,0 +1,107 @@
+"""Training launcher: the durable FliT-commit training loop on one device —
+the port of ``repro.launch.train`` (no mesh, one process).
+
+    python -m repro_torch.launch.train --arch olmo-1b --steps 100 \\
+        --global-batch 8 --seq 512 --pool "$TMPDIR/pool" \\
+        [--commit-every 10] [--mode sharded-async] [--shards 8] \\
+        [--retention 5] [--resume]
+
+    # the CPU dev loop (plain PyTorch versions of the kernels)
+    python -m repro_torch.launch.train --device cpu --smoke --steps 4 \\
+        --global-batch 2 --seq 64 --pool "$TMPDIR/pool" --commit-every 2
+
+``--device cuda`` (the default) runs on the card, where every attention
+forward and backward is the hand-written flash kernel, and raises without
+one.  The backward kernel takes head dims 64 and 128, so on the card
+olmo-1b trains at its published width, and the smoke configs (head dim
+16) raise ``ValueError``; on the CPU everything runs the plain versions.
+Only olmo-1b trains on the card so far: the grouped-matmul, WKV-6 and
+scan kernels have no backward yet (ROADMAP A2).  Weights are random,
+from a ``torch.Generator`` seeded 0; the key data committed with them is
+the reference's ``PRNGKey(0)``.  The mesh flags, ``--compress`` and
+``--distributed`` are not offered yet (ROADMAP A7).
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+
+from repro_torch.launch.serve import set_determinism
+
+
+def main(argv=None):
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.dsm.emu import PRESETS
+    from repro_torch.dsm.flit_runtime import AUTO_MODE, COMMIT_MODES
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="olmo-1b", choices=ARCH_IDS)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU dev loop)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--pool", required=True, help="DSM pool directory")
+    ap.add_argument("--commit-every", type=int, default=10)
+    ap.add_argument("--mode", default="sharded-async",
+                    choices=COMMIT_MODES + (AUTO_MODE,),
+                    help="flush schedule; 'auto' defers to the placement "
+                         "policy (requires --topology)")
+    ap.add_argument("--topology", default=None, choices=sorted(PRESETS),
+                    help="emulated CXL topology: cost-driven commit shard "
+                         "count (and schedule, with --mode auto)")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="shard pipelines per object (0 = auto)")
+    ap.add_argument("--retention", type=int, default=5,
+                    help="manifests kept by GC after each commit "
+                         "(0 = unbounded)")
+    ap.add_argument("--resume", action="store_true",
+                    help="recover from the pool before training "
+                         "(restart of a crashed or preempted worker)")
+    ap.add_argument("--microbatch", type=int, default=1)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = ap.parse_args(argv)
+    if args.mode == AUTO_MODE and args.topology is None:
+        ap.error("--mode auto requires --topology")
+
+    set_determinism()
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.pipeline import DataPipeline, SyntheticLMSource
+    from repro_torch.dsm.api import CXL0Config
+    from repro_torch.models.registry import build
+    from repro_torch.train.loop import run_durable_loop
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.step import make_train_step
+
+    cfg = (get_smoke_config(args.arch) if args.smoke
+           else get_config(args.arch))
+    bundle = build(cfg, device=args.device)
+    state = init_train_state(bundle.init_params(seed=0), 0,
+                             cfg.moment_dtype)
+    step = make_train_step(bundle, microbatch=args.microbatch,
+                           total_steps=args.steps)
+    pipe = DataPipeline(SyntheticLMSource(cfg.vocab_size),
+                        args.global_batch, args.seq)
+    ctx = CXL0Config(path=args.pool, schedule=args.mode,
+                     topology=args.topology, n_shards=args.shards or None,
+                     retention=args.retention or None).open()
+    pool = ctx.pool
+    r = run_durable_loop(step, state, pipe, ctx, n_steps=args.steps,
+                         commit_every=args.commit_every, resume=args.resume)
+    if r.resumed_from is not None:
+        print(f"resumed from step {r.resumed_from} "
+              f"(source: {r.recoveries[0]})")
+    if not r.losses:        # resume found every step already committed
+        print(f"done: nothing to do; commits in pool up to step "
+              f"{pool.latest_manifest()['step']}")
+        return r
+    print(f"done: {len(r.losses)} steps, loss {r.losses[0]:.3f} -> "
+          f"{r.losses[-1]:.3f}; commits in pool: "
+          f"{pool.latest_manifest()['step'] + 1}")
+    comp = np.mean([t.compute_s for t in r.timings if t.compute_s])
+    print(f"mean step {comp*1e3:.1f} ms")
+    return r
+
+
+if __name__ == "__main__":
+    main()

@@ -14,7 +14,8 @@ Caches are updated IN PLACE (the reference donates them): ``prefill``
 writes the prompt's k / v at t = 0, ``decode_step`` writes one position
 per sequence.  olmoe-1b-7b has the same structure with a MoE channel
 mixer in every block (``models.moe``; its aux loss is returned by
-``block_forward`` as in the reference, and discarded by serving).
+``block_forward`` as in the reference, summed for training by
+``loss_fn`` and discarded by serving).
 rwkv6-7b is one group of 32 rwkv blocks (``models.rwkv``: time mix, then
 its own channel mix, no ``mlp``), whose cache is ``RWKVCache(last_tm,
 last_cm, S)`` with no token axis: prefill and decode both overwrite it
@@ -23,6 +24,12 @@ scan, then a dense or MoE channel mixer, as an attention block has) carry
 ``MambaCache(conv, ssm)``, also with no token axis, beside the attention
 blocks' ``KVCache``: prefill and decode overwrite it whole, in place.
 MLA blocks come with their slice.
+
+Training (``loss_fn``): next-token cross entropy plus the weighted MoE aux
+loss, each repeat of a stacked group under ``torch.utils.checkpoint`` when
+``cfg.remat`` is ``"full"`` or ``"dots"`` (both recompute the whole block
+in the backward: the reference's ``"dots"`` keeps the matmul outputs, a
+memory policy with the same values).
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ import dataclasses
 from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common, mamba, moe, rwkv
@@ -201,23 +209,43 @@ def _rwkv_block(cfg: ModelConfig, p, x, cache):
 
 
 def _run_groups(cfg: ModelConfig, params, x, positions, *, caches=None,
-                pos=None, decode: bool = False, per_sequence: bool = True):
+                pos=None, decode: bool = False, per_sequence: bool = True,
+                with_remat: bool = False):
     """Apply all layer groups; the stacked (repeats,) dim is a loop.
-    Serving discards the MoE aux loss (training will sum it)."""
+    Returns ``(x, aux)``: the MoE aux loss summed as the reference sums it
+    (per repeat of a group, then over repeats; a dense model's stays the
+    float 0.0, so serving it issues no extra op).  ``with_remat``
+    checkpoints each repeat of a stacked group (the reference remats its
+    scanned groups, not the singletons) when ``cfg.remat`` asks for it;
+    the backward re-runs that repeat, so the group is bound at
+    definition."""
+    aux_total = 0.0
+    remat = with_remat and cfg.remat in ("full", "dots")
     for gi, g in enumerate(layer_groups(cfg)):
         gp = params["groups"][gi]["blocks"]
         gc = caches[gi]["blocks"] if caches is not None else None
-        for r in range(g.n_repeats):
+
+        def superblock(x, r, g=g, gp=gp, gc=gc):
+            aux_sb = 0.0
             for pi, _ in enumerate(g.kinds):
                 bp, bc = gp[pi], (gc[pi] if gc is not None else None)
                 if g.n_repeats > 1:
                     bp = tree_map(lambda a: a[r], bp)
                     if bc is not None:
                         bc = tree_map(lambda a: a[r], bc)
-                x, _, _ = block_forward(cfg, bp, x, positions, cache=bc,
-                                        pos=pos, decode=decode,
-                                        per_sequence=per_sequence)
-    return x
+                x, _, aux = block_forward(cfg, bp, x, positions, cache=bc,
+                                          pos=pos, decode=decode,
+                                          per_sequence=per_sequence)
+                aux_sb = aux_sb + aux
+            return x, aux_sb
+
+        for r in range(g.n_repeats):
+            if remat and g.n_repeats > 1:
+                x, aux = checkpoint(superblock, x, r, use_reentrant=False)
+            else:
+                x, aux = superblock(x, r)
+            aux_total = aux_total + aux
+    return x, aux_total
 
 
 def embed_inputs(cfg: ModelConfig, params, tokens):
@@ -229,15 +257,54 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
 
 
-def forward(cfg: ModelConfig, params, tokens):
+def forward(cfg: ModelConfig, params, tokens, *, with_remat: bool = False,
+            with_aux: bool = False):
     """Full forward (train / prefill without cache): (B, S, V) logits in
-    ``cfg.logit_dtype``."""
+    ``cfg.logit_dtype``; with ``with_aux`` (training) also the MoE aux
+    loss, as the reference's ``forward`` returns ``(logits, aux)``."""
     B, S = tokens.shape[:2]
     x = embed_inputs(cfg, params, tokens)
-    x = _run_groups(cfg, params, x, _positions(B, S, tokens.device))
+    x, aux = _run_groups(cfg, params, x, _positions(B, S, tokens.device),
+                         with_remat=with_remat)
     x = common.apply_norm(cfg, params["final_norm"], x)
-    logits = common.unembed(cfg, params["embed"], x)
-    return logits.to(torch_dtype(cfg.logit_dtype))
+    logits = common.unembed(cfg, params["embed"], x).to(
+        torch_dtype(cfg.logit_dtype))
+    if not with_aux:
+        return logits
+    return logits, torch.as_tensor(aux, dtype=torch.float32,
+                                   device=tokens.device)
+
+
+def loss_fn(cfg: ModelConfig, params, batch, *, aux_weight: float = 0.01,
+            with_remat: bool = True):
+    """Next-token cross entropy + MoE aux — the reference's ``loss_fn``.
+    ``batch``: {tokens, (targets, mask)}; without targets, the shifted
+    tokens with the last position masked.  Returns ``(loss, {"nll",
+    "aux"})``, loss = nll + aux_weight * aux.  The target logit is a
+    gather, whose backward (a scatter-add) has a deterministic CUDA
+    implementation under ``torch.use_deterministic_algorithms``."""
+    tokens = batch["tokens"]
+    targets = batch.get("targets")
+    if targets is None:
+        targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                            dim=1)
+        ones = torch.ones(tokens[:, 1:].shape, dtype=torch.float32,
+                          device=tokens.device)
+        mask = torch.cat([ones, torch.zeros_like(ones[:, :1])], dim=1)
+    else:
+        mask = batch.get("mask")
+        if mask is None:
+            mask = torch.ones(targets.shape, dtype=torch.float32,
+                              device=targets.device)
+    logits, aux = forward(cfg, params, tokens, with_remat=with_remat,
+                          with_aux=True)
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt = torch.take_along_dim(logits, targets[..., None].long(),
+                               dim=-1)[..., 0]
+    nll = (logz - tgt) * mask
+    loss = torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+    return loss + aux_weight * aux, {"nll": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -254,8 +321,8 @@ def prefill(cfg: ModelConfig, params, tokens, caches):
     Returns (last-token logits (B, V), ServeState)."""
     B, S = tokens.shape[:2]
     x = embed_inputs(cfg, params, tokens)
-    x = _run_groups(cfg, params, x, _positions(B, S, tokens.device),
-                    caches=caches)
+    x, _ = _run_groups(cfg, params, x, _positions(B, S, tokens.device),
+                       caches=caches)
     x = common.apply_norm(cfg, params["final_norm"], x[:, -1:])
     logits = common.unembed(cfg, params["embed"], x)
     return (logits[:, 0].to(torch_dtype(cfg.logit_dtype)),
@@ -271,8 +338,8 @@ def decode_step(cfg: ModelConfig, params, tokens, state: ServeState, *,
     tokens share one routing (the reference's batched ``decode_step``,
     which the static baseline runs).  Returns (logits (B, V), state)."""
     x = embed_inputs(cfg, params, tokens)
-    x = _run_groups(cfg, params, x, None, caches=state.caches,
-                    pos=state.pos, decode=True, per_sequence=per_sequence)
+    x, _ = _run_groups(cfg, params, x, None, caches=state.caches,
+                       pos=state.pos, decode=True, per_sequence=per_sequence)
     x = common.apply_norm(cfg, params["final_norm"], x)
     logits = common.unembed(cfg, params["embed"], x)
     return (logits[:, 0].to(torch_dtype(cfg.logit_dtype)),

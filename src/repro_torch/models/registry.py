@@ -1,8 +1,9 @@
-"""Model registry: config -> params / serve steps — the port of
-``repro.models.registry`` for decoder-only dense models.
+"""Model registry: config -> params / loss / serve steps — the port of
+``repro.models.registry`` for decoder-only models.
 
     bundle = build(cfg, device="cuda")
     params = bundle.init_params(torch.Generator("cuda").manual_seed(0))
+    loss, metrics = bundle.loss(params, {"tokens": t, "targets": y})
     logits, state = bundle.prefill(params, {"tokens": t}, caches)
     logits, state = bundle.decode(params, tokens, state)
 
@@ -30,6 +31,7 @@ class ModelBundle:
     device: torch.device
     descs: Any
     forward: Callable
+    loss: Callable             # (params, batch, **kw) -> (loss, metrics)
     prefill: Callable
     decode: Callable
     cache_descs: Callable      # (batch, t_max) -> cache desc tree
@@ -72,6 +74,7 @@ def build(cfg: ModelConfig, dec_pos_len: int = 448,
     return ModelBundle(
         cfg=cfg, device=dev, descs=lm.model_descs(cfg),
         forward=lambda p, t: lm.forward(cfg, p, t),
+        loss=lambda p, b, **kw: lm.loss_fn(cfg, p, b, **kw),
         prefill=lambda p, b, caches: lm.prefill(cfg, p, b["tokens"], caches),
         decode=lambda p, t, s, per_sequence=True: lm.decode_step(
             cfg, p, t, s, per_sequence=per_sequence),

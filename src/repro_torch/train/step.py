@@ -1,5 +1,12 @@
-"""Serve-step factories — the port of ``repro.train.step`` lines 117-189
-(``make_train_step`` comes with the training slice).
+"""Step factories: the train step and the serve steps — the port of
+``repro.train.step``.
+
+``make_train_step(bundle)`` returns ``step(state, batch) -> (state,
+metrics)`` with the loss and its gradient under remat (``cfg.remat``),
+optional microbatching (gradient accumulation in fp32 over microbatch
+slices, as the reference's ``lax.scan``), an optional gradient hook and
+the AdamW update on a cosine schedule.  The update is out of place: the
+state handed in is left as it is.
 
 ``make_slot_decode_step`` is the continuous-batching decode: every slot
 advances by one token at its OWN position.  The reference builds it as a
@@ -15,11 +22,73 @@ other rows hold.
 """
 from __future__ import annotations
 
+from typing import Any, Callable, Dict, Optional, Tuple
+
 import torch
 
 from repro_torch.models.lm import ServeState
 from repro_torch.models.params import tree_map_descs
 from repro_torch.models.registry import ModelBundle
+from repro_torch.optim.adamw import adamw_update
+from repro_torch.optim.schedule import cosine_schedule
+from repro_torch.train.state import TrainState
+from repro_torch.utils.tree import tree_flatten, tree_map
+
+
+def make_train_step(bundle: ModelBundle, *, microbatch: int = 1,
+                    peak_lr: float = 3e-4, total_steps: int = 10_000,
+                    grad_transform: Optional[Callable] = None) -> Callable:
+    """The train step.  ``grad_transform(grads, None) -> grads`` is the
+    reference's gradient hook (its second argument, the mesh context, has
+    no counterpart here).  Metrics: ``loss``, ``lr``, ``grad_norm``,
+    ``step`` (after the increment), ``nll`` and ``aux`` — with
+    microbatches, the loss is their mean and ``nll`` / ``aux`` come from
+    the last one, as the reference's scan returns them."""
+
+    def grads_of(params, batch):
+        leaves, treedef = tree_flatten(params)
+        live = [p.detach().requires_grad_(True) for p in leaves]
+        loss, metrics = bundle.loss(treedef.unflatten(live), batch,
+                                    with_remat=True)
+        grads = torch.autograd.grad(loss, live)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return loss.detach(), metrics, treedef.unflatten(grads)
+
+    def accumulate(params, batch):
+        if microbatch <= 1:
+            return grads_of(params, batch)
+        B = batch["tokens"].shape[0]
+        if B % microbatch:
+            raise ValueError(f"batch {B} does not split into {microbatch} "
+                             f"microbatches")
+        mb = B // microbatch
+        loss_sum = torch.zeros((), dtype=torch.float32,
+                               device=batch["tokens"].device)
+        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                             device=p.device), params)
+        for i in range(microbatch):
+            part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            loss, metrics, grads = grads_of(params, part)
+            acc = tree_map(torch.add, acc, grads)
+            loss_sum = loss_sum + loss
+        inv = 1.0 / microbatch
+        return (loss_sum * inv, metrics,
+                tree_map(lambda g: g * inv, acc))
+
+    def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
+        loss, metrics, grads = accumulate(state.params, batch)
+        if grad_transform is not None:
+            grads = grad_transform(grads, None)
+        lr = cosine_schedule(state.opt.step, peak_lr=peak_lr,
+                             total=total_steps)
+        params, opt, gnorm = adamw_update(
+            state.params, grads, state.opt, lr, weight_decay=0.1,
+            grad_clip=1.0)
+        new_state = TrainState(params=params, opt=opt, rng=state.rng)
+        return new_state, {"loss": loss, "lr": lr, "grad_norm": gnorm,
+                           "step": opt.step, **metrics}
+
+    return step
 
 
 def make_serve_steps(bundle: ModelBundle):

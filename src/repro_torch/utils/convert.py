@@ -23,7 +23,7 @@ import torch
 TOKEN_TO_TORCH = {
     "bool": torch.bool,
     "int8": torch.int8, "int16": torch.int16, "int32": torch.int32,
-    "int64": torch.int64, "uint8": torch.uint8,
+    "int64": torch.int64, "uint8": torch.uint8, "uint32": torch.uint32,
     "float16": torch.float16, "float32": torch.float32,
     "float64": torch.float64, "bfloat16": torch.bfloat16,
     "float8_e4m3fn": torch.float8_e4m3fn, "float8_e5m2": torch.float8_e5m2,

@@ -11,6 +11,12 @@
   metrics of ``benchmarks/baselines/serve.json`` exactly, the fleet's
   three (``serve_fleet_speedup_ge_1.6``, the migration's token loss and
   outputs) included;
+* ``python -m repro_torch.bench.checkpoint --device cpu`` meets
+  ``benchmarks/baselines/checkpoint.json`` on the two metrics it produces
+  (``ckpt_bytes_per_commit`` 3,768,348 and ``ckpt_recoveries`` 1, from
+  ``['peer-staging']``), through ``scripts/bench_gate.py`` on a baseline
+  cut to those two; the rest (the legacy writer's speedup, the mesh rows)
+  are ROADMAP A5 / A7 and reported missing;
 * ``python -m repro_torch.examples.{quickstart,durable_kv}`` print what
   the reference examples print, line for line.
 """
@@ -27,8 +33,8 @@ sys.path.insert(0, str(ROOT))              # scripts/ as a package
 
 from scripts.bench_gate import gate_bench  # noqa: E402
 
-from repro_torch.bench import (flit, latency, model_fuzz,  # noqa: E402
-                               placement, serve, table1)
+from repro_torch.bench import (checkpoint, flit, latency,  # noqa: E402
+                               model_fuzz, placement, serve, table1)
 from repro_torch.bench.report import check_against  # noqa: E402
 
 BENCHES = {"flit": (flit, []), "table1": (table1, []),
@@ -78,6 +84,41 @@ def test_serve_twin_meets_the_baseline_on_the_metrics_it_produces(
     assert (values["serve_fleet_migration_token_loss"],
             values["serve_fleet_migration_outputs_match"]) == (0, True)
     assert [r.split(",", 1)[0] for r in rows] == list(doc["metrics"])
+
+
+def test_checkpoint_twin_meets_the_baseline_on_the_metrics_it_produces(
+        tmp_path, capsys):
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        assert checkpoint.main(["--out", str(tmp_path), "--device",
+                                "cpu"]) == 0
+    finally:
+        torch.set_num_threads(n)
+    lines = capsys.readouterr().out.splitlines()
+    rows = [l for l in lines if not l.startswith(("bench_json,", "#"))]
+    baseline_path = ROOT / "benchmarks" / "baselines" / "checkpoint.json"
+    baseline = json.loads(baseline_path.read_text())
+    doc = json.loads((tmp_path / "BENCH_checkpoint.json").read_text())
+    assert doc["bench"] == "checkpoint"
+    values = {k: m["value"] for k, m in doc["metrics"].items()}
+    produced = ["ckpt_bytes_per_commit", "ckpt_recoveries"]
+    assert (values["ckpt_bytes_per_commit"], values["ckpt_recoveries"]) \
+        == (3768348, 1)
+    assert doc["metrics"]["ckpt_recoveries"]["note"] == "source=peer-staging"
+    cut = {"bench": "checkpoint",
+           "metrics": {k: baseline["metrics"][k] for k in produced}}
+    cut_path = tmp_path / "checkpoint_cut.json"
+    cut_path.write_text(json.dumps(cut))
+    assert gate_bench(str(cut_path), str(tmp_path)) == ("checkpoint", [])
+    # what is not produced yet is reported missing, and nothing else fails
+    _, failures = gate_bench(str(baseline_path), str(tmp_path))
+    assert sorted(f.split(":")[0] for f in failures) == sorted(
+        k for k in baseline["metrics"] if k not in produced)
+    assert all("missing" in f for f in failures)
+    assert [r.split(",", 1)[0] for r in rows] == list(doc["metrics"])
+    assert sum(l.startswith("# ckpt_") for l in lines) == 2
 
 
 def test_check_against_catches_a_regression():

@@ -47,8 +47,14 @@ machine with the card, where there is no JAX:
   launches it once per mamba layer per prefill chunk and per decode tick,
   the flash kernel once per attention layer per prefill and the grouped
   matmul 3 times per MoE layer per forward;
-* each of the four dispatchers, given an input that requires grad under
-  grad mode, raises before it launches (the kernels have no backward
+* the flash backward kernel against the fp32 plain backward at ragged,
+  GQA, non-causal and Sq > Sk shapes (2e-2 x max|plain|), the forward's
+  logsumexp (1e-4), two launches with the same bits, and the dispatcher's
+  refusal of head dims the backward does not take;
+* the flash dispatcher, given inputs that require grad under grad mode,
+  runs the forward kernel (with its logsumexp) and the backward kernel,
+  and the gradients match the plain backward; each of the other three
+  dispatchers raises before it launches (their kernels have no backward
   yet), and launches the same call under ``torch.no_grad()``;
 * the flash kernel at the static baseline's batched prefill shape (4, 16,
   512, 128) causal against its plain version (2e-2), and ``run_static``
@@ -160,6 +166,53 @@ def test_kernel_edges_match_plain_version_bit_for_bit_twice(case, cuda):
     assert out.shape == (B, Sq, K, H // K, hd_v)
     ref = ops.plain_attention(q.float(), k.float(), v.float(), causal=causal)
     assert float((out.float() - ref).abs().max()) <= 2e-2
+
+
+BWD_CASES = [
+    # B, H, K, Sq, Sk, hd, causal
+    (1, 2, 2, 37, 37, 64, True),            # ragged, one partial tile
+    (2, 4, 2, 130, 130, 128, True),         # GQA, three tiles
+    (1, 2, 1, 77, 200, 64, False),          # non-causal, Sq != Sk
+    (1, 2, 2, 200, 77, 128, True),          # causal, Sq > Sk
+]
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=[
+    f"B{c[0]}H{c[1]}K{c[2]}S{c[3]}x{c[4]}hd{c[5]}{'c' if c[6] else 'f'}"
+    for c in BWD_CASES])
+def test_flash_backward_matches_plain_version_bit_for_bit_twice(case, cuda):
+    """dq, dk, dv of the backward kernel against the fp32 plain backward on
+    the same bf16 inputs (2e-2 x max|plain|), the forward's logsumexp
+    within 1e-4, and two backward launches with the same bits."""
+    B, H, K, Sq, Sk, hd, causal = case
+    q, k, v = _inputs((B, H, K, Sq, Sk, hd, hd, causal), cuda, 41)
+    dout = torch.randn(q.shape, device=cuda).to(torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = ops.flash_attention(*leaves, causal=causal)
+        out.backward(dout)
+        runs.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    out, lse = ops._forward(q, k, v, causal=causal, scale=hd ** -0.5,
+                            with_lse=True)
+    _, ref_lse = ops.plain_attention_lse(q, k, v, causal=causal)
+    assert float((lse - ref_lse).abs().max()) <= 1e-4
+    want = ops.plain_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    for got, ref in zip(runs[0], want):
+        assert bool(torch.isfinite(got).all())
+        assert float((got.float() - ref).abs().max()) <= \
+            2e-2 * float(ref.abs().max())
+
+
+def test_flash_backward_refuses_head_dims_it_does_not_take(cuda):
+    q, k, v = _inputs((1, 2, 2, 16, 16, 32, 32, True), cuda, 42)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fwd = ops.LAUNCHES
+    with pytest.raises(ValueError, match="hd == hd_v"):
+        ops.flash_attention(*leaves, causal=True)
+    assert ops.LAUNCHES == fwd                      # refused before launch
 
 
 @pytest.mark.parametrize("bad", ["float32", "strided", "hd_not_mult_8"])
@@ -569,6 +622,25 @@ def _grad_case(name, device):
                                   "wkv6", "selective_scan"])
 def test_cuda_dispatchers_refuse_inputs_that_require_grad(name, cuda):
     module, call, inputs = _grad_case(name, cuda)
+    if name == "flash_attention":
+        # the flash kernel has its backward: a gradient goes through both
+        # kernels and matches the plain backward (2e-2 x max|plain|: bf16
+        # P / dS operands and outputs)
+        leaves = [t.clone().requires_grad_(True) for t in inputs]
+        dout = torch.randn(inputs[0].shape, device=cuda).to(torch.bfloat16)
+        fwd, bwd = ops.LAUNCHES, ops.BWD_LAUNCHES
+        out = call(*leaves, causal=True)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        assert (ops.LAUNCHES, ops.BWD_LAUNCHES) == (fwd + 1, bwd + 1)
+        _, lse = ops.plain_attention_lse(*inputs, causal=True)
+        want = ops.plain_attention_bwd(*inputs, out.detach(), lse, dout,
+                                       causal=True)
+        for got, ref in zip(leaves, want):
+            assert bool(torch.isfinite(got.grad).all())
+            assert float((got.grad.float() - ref).abs().max()) <= \
+                2e-2 * float(ref.abs().max())
+        return
     inputs[0] = inputs[0].clone().requires_grad_(True)
     before = module.LAUNCHES
     with pytest.raises(RuntimeError, match="no backward"):

@@ -11,7 +11,7 @@
   returns, on a pool either package committed;
 * the port's own crash contract: a torn object falls back to the previous
   manifest, an exception inside a commit region publishes nothing, and
-  knobs that are not ported (mesh, the peer-staging wiring) raise while
+  knobs that are not ported (mesh) raise while
   the ported ones (topology, placement, ``"auto"``) open.
 """
 import io
@@ -239,12 +239,17 @@ def test_exception_inside_commit_region_publishes_nothing(tmp_path):
 def test_unported_knobs_raise_naming_the_reference(tmp_path):
     from repro_torch.dsm.placement import PlacementPolicy
     ctx = open_cxl0(str(tmp_path))
-    for kw in ({"mesh": object()}, {"peers": (ctx,)},
-               {"replicate_to": ctx}):
-        with pytest.raises(NotImplementedError, match="repro.dsm"):
-            CXL0Config(path=str(tmp_path), **kw)
-        with pytest.raises(NotImplementedError, match="repro.dsm"):
-            open_cxl0(str(tmp_path), **kw)
+    with pytest.raises(NotImplementedError, match="repro.dsm.meshio"):
+        CXL0Config(path=str(tmp_path), mesh=object())
+    with pytest.raises(NotImplementedError, match="repro.dsm.meshio"):
+        open_cxl0(str(tmp_path), mesh=object())
+    # the peer-staging wiring is ported: recovery sources and the RStore
+    # target reach the context and its committer
+    wired = open_cxl0(str(tmp_path / "w"), 2, peers=(ctx,),
+                      replicate_to=ctx)
+    assert wired.peers == (ctx,) and wired.committer.replicate_to is ctx
+    assert wired.worker_id == 2
+    wired.close()
     # ported: "auto" (resolved by a policy, or the default without one),
     # a topology (builds the policy) and an explicit policy
     policy = PlacementPolicy("cxl30-fabric")

@@ -1,9 +1,13 @@
 """The guard that keeps the port's CUDA kernel paths from cutting autograd.
 
-The CUDA kernels have no backward yet: a launch fills a fresh tensor with
-no ``grad_fn``.  ``repro_torch.kernels.refuse_grad`` raises before such a
-launch when grad mode is on and an input requires grad; each of the four
-dispatchers calls it first in its CUDA branch.  Here, on the CPU:
+Three CUDA kernels have no backward yet (grouped matmul, WKV-6, the
+selective scan): a launch fills a fresh tensor with no ``grad_fn``.
+``repro_torch.kernels.refuse_grad`` raises before such a launch when grad
+mode is on and an input requires grad; each of those three dispatchers
+calls it first in its CUDA branch.  The flash kernel has its backward
+(``kernels.attention.ops.FlashAttention``: the forward kernel writes the
+logsumexp, ``csrc/flash_attention_bwd.cu`` computes dq, dk, dv), so its
+dispatcher runs both kernels under autograd instead.  Here, on the CPU:
 
 * ``refuse_grad`` raises for an input that requires grad under grad mode,
   and passes under ``torch.no_grad()``, for inputs that do not require
@@ -12,8 +16,10 @@ dispatchers calls it first in its CUDA branch.  Here, on the CPU:
   differentiable: the same inputs that require grad give finite gradients
   equal to autograd's through the plain version called directly.
 
-``tests/test_torch_cuda.py`` checks the CUDA branches on the card: each
-raises without launching, and launches under ``torch.no_grad()``.
+``tests/test_torch_cuda.py`` checks the CUDA branches on the card: the
+flash dispatcher's gradient goes through both kernels and matches the
+plain backward; each of the other three raises without launching, and
+launches under ``torch.no_grad()``.
 """
 import numpy as np
 import pytest

@@ -58,6 +58,11 @@ SLICE_MODULES = [
     "repro_torch.dsm.emu", "repro_torch.dsm.placement",
     "repro_torch.dsm.cluster", "repro_torch.serve.fleet",
     "repro_torch.bench.placement",
+    "repro_torch.data", "repro_torch.data.pipeline", "repro_torch.optim",
+    "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+    "repro_torch.train.state", "repro_torch.train.step",
+    "repro_torch.train.loop", "repro_torch.launch.train",
+    "repro_torch.bench.checkpoint",
 ]
 
 _FORBIDDEN = re.compile(

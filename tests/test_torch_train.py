@@ -1,0 +1,244 @@
+"""The training slice against the reference, on the CPU: the data pipeline,
+the schedule, AdamW, the loss of all four ported architectures and the
+train step.
+
+Every case feeds the JAX function and its port the same numpy inputs and
+the same weights (the reference's params through ``from_reference``):
+
+* the data pipeline's batches, ``shard_plan`` and ``PipelineState`` are
+  equal exactly (the port's module is a copy);
+* ``cosine_schedule`` is equal in fp32, bit for bit, at steps 0, 1, 99, 100
+  and 5000 (step 0 runs at lr 0: the schedule reads the counter before
+  its increment);
+* ``adamw_update`` on a random fp32 tree with a 1-D leaf (no decay),
+  clipped and unclipped, within 1e-6 x max|ref| per leaf;
+* ``loss_fn`` on the smoke configs of olmo-1b, olmoe-1b-7b, rwkv6-7b and
+  jamba-1.5-large-398b: fp32 within 1e-5 relative, bf16 within 2e-2 (bf16
+  rounds at other places in the two frameworks);
+* ``make_train_step`` on olmo-1b smoke for 3 steps (a single step would
+  run at lr 0), microbatch 1 and 2: in fp32 the loss, grad norm and lr of
+  each step and the params, mu and nu after it within 1e-5 x max|ref| per
+  leaf (fp32 sums in another order; Adam divides by sqrt(nu)); in bf16
+  the same within 2e-2.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as ref_smoke_config
+from repro.data import pipeline as ref_pipeline
+from repro.models.registry import build as ref_build
+from repro.optim.adamw import AdamWState as RefAdamWState
+from repro.optim.adamw import adamw_update as ref_adamw_update
+from repro.optim.schedule import cosine_schedule as ref_cosine_schedule
+from repro.train.state import init_train_state as ref_init_train_state
+from repro.train.step import make_train_step as ref_make_train_step
+from repro_torch.configs import get_smoke_config
+from repro_torch.data import pipeline
+from repro_torch.models.params import from_reference
+from repro_torch.models.registry import build
+from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update
+from repro_torch.optim.schedule import cosine_schedule
+from repro_torch.train.state import init_train_state
+from repro_torch.train.step import make_train_step
+from repro_torch.utils.tree import tree_leaves
+
+ARCHS = ["olmo-1b", "olmoe-1b-7b", "rwkv6-7b", "jamba-1.5-large-398b"]
+DTYPES = {"fp32": "float32", "bf16": "bfloat16"}
+TOL = {"fp32": 1e-5, "bf16": 2e-2}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x).astype(np.float32)
+
+
+def _assert_trees_close(ours, theirs, tol, what):
+    a, b = tree_leaves(ours), jax.tree_util.tree_leaves(theirs)
+    assert len(a) == len(b), what
+    for i, (x, y) in enumerate(zip(a, b)):
+        x, y = _f32(x), _f32(y)
+        assert x.shape == y.shape, (what, i)
+        bound = tol * max(float(np.abs(y).max()), 1e-30)
+        err = float(np.abs(x - y).max())
+        assert err <= bound, f"{what} leaf {i}: {err} > {bound}"
+
+
+# -- the data pipeline ------------------------------------------------------
+
+@pytest.mark.parametrize("vocab,seed,gb,seq", [(256, 0, 4, 16),
+                                               (50304, 7, 8, 33),
+                                               (1000, 3, 5, 1)])
+def test_pipeline_batches_equal_the_reference(vocab, seed, gb, seq):
+    state = pipeline.PipelineState(seed=seed, step=2)
+    ours = pipeline.DataPipeline(pipeline.SyntheticLMSource(vocab), gb, seq,
+                                 state=state)
+    theirs = ref_pipeline.DataPipeline(
+        ref_pipeline.SyntheticLMSource(vocab), gb, seq,
+        state=ref_pipeline.PipelineState(seed=seed, step=2))
+    for _ in range(3):
+        a, b = ours.next_global(), theirs.next_global()
+        assert sorted(a) == sorted(b) == ["targets", "tokens"]
+        for k in a:
+            assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+        assert (ours.state.seed, ours.state.step) == (theirs.state.seed,
+                                                      theirs.state.step)
+    for rank in range(3):
+        assert np.array_equal(ours.shard_at(4, rank, 3),
+                              theirs.shard_at(4, rank, 3))
+    assert ours.state.advance(5) == pipeline.PipelineState(seed, 10)
+
+
+@pytest.mark.parametrize("weights", [None, [1, 1, 1, 0.5], [3, 1, 2]])
+def test_shard_plan_equals_the_reference(weights):
+    n = len(weights) if weights else 4
+    for gb in (1, 7, 100, 513):
+        assert (pipeline.shard_plan(gb, n, weights)
+                == ref_pipeline.shard_plan(gb, n, weights))
+
+
+def test_memmap_source_equals_the_reference(tmp_path):
+    path = str(tmp_path / "tokens.bin")
+    np.random.default_rng(0).integers(0, 500, 4000, np.int32).tofile(path)
+    a = pipeline.MemmapSource(path, 500).sequence_batch(3, 5, 4, 64)
+    b = ref_pipeline.MemmapSource(path, 500).sequence_batch(3, 5, 4, 64)
+    assert np.array_equal(a, b)
+
+
+# -- schedule and optimizer -------------------------------------------------
+
+@pytest.mark.parametrize("step", [0, 1, 99, 100, 5000])
+def test_cosine_schedule_equals_the_reference_in_fp32(step):
+    ours = cosine_schedule(torch.tensor(step, dtype=torch.int32))
+    theirs = np.asarray(ref_cosine_schedule(jnp.asarray(step, jnp.int32)))
+    assert ours.dtype == torch.float32 and theirs.dtype == np.float32
+    assert ours.numpy().tobytes() == theirs.tobytes()
+    if step == 0:
+        assert float(ours) == 0.0
+
+
+def _adam_tree(seed, scale=1.0):
+    g = np.random.default_rng(seed)
+    return {"w": (g.standard_normal((6, 5)) * scale).astype(np.float32),
+            "b": (g.standard_normal((5,)) * scale).astype(np.float32),
+            "stack": [(g.standard_normal((3, 4, 2)) * scale
+                       ).astype(np.float32)]}
+
+
+@pytest.mark.parametrize("case", ["unclipped", "clipped", "no_clip"])
+def test_adamw_update_matches_the_reference(case):
+    params = _adam_tree(0)
+    grads = _adam_tree(1, scale=10.0 if case == "clipped" else 0.05)
+    mu = _adam_tree(2, scale=0.01)
+    nu = jax.tree_util.tree_map(np.abs, _adam_tree(3, scale=0.01))
+    clip = None if case == "no_clip" else 1.0
+    tt = lambda t: jax.tree_util.tree_map(torch.from_numpy, t)
+    p1, s1, n1 = adamw_update(
+        tt(params), tt(grads), AdamWState(torch.tensor(4, dtype=torch.int32),
+                                          tt(mu), tt(nu)),
+        torch.tensor(1e-3), grad_clip=clip)
+    p2, s2, n2 = ref_adamw_update(
+        params, grads, RefAdamWState(jnp.asarray(4, jnp.int32), mu, nu),
+        jnp.asarray(1e-3, jnp.float32), grad_clip=clip)
+    assert int(s1.step) == int(s2.step) == 5
+    assert abs(float(n1) - float(n2)) <= 1e-6 * max(float(n2), 1.0)
+    if case == "clipped":
+        assert float(n2) > 1.0
+    for ours, theirs, what in ((p1, p2, "params"), (s1.mu, s2.mu, "mu"),
+                               (s1.nu, s2.nu, "nu")):
+        _assert_trees_close(ours, theirs, 1e-6, what)
+    # the 1-D leaf takes no weight decay: with a zero gradient it does not
+    # move at all, while a 2-D leaf decays
+    zero = jax.tree_util.tree_map(np.zeros_like, grads)
+    zeros = jax.tree_util.tree_map(np.zeros_like, mu)
+    p3, _, _ = adamw_update(tt(params), tt(zero), adamw_init(tt(params)),
+                            torch.tensor(1e-2))
+    assert torch.equal(p3["b"], torch.from_numpy(params["b"]))
+    assert not torch.equal(p3["w"], torch.from_numpy(params["w"]))
+    assert all(not t.any() for t in tree_leaves(adamw_init(tt(zeros)).mu))
+
+
+# -- loss and train step ----------------------------------------------------
+
+def _models(arch, dt):
+    kw = dict(param_dtype=DTYPES[dt], compute_dtype=DTYPES[dt])
+    rb = ref_build(ref_smoke_config(arch).with_(**kw))
+    rp = rb.init_params(jax.random.PRNGKey(0))
+    b = build(get_smoke_config(arch).with_(**kw), device="cpu")
+    return rb, rp, b, from_reference(jax.tree_util.tree_map(np.asarray, rp),
+                                     "cpu")
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_loss_matches_the_reference(arch, dt):
+    rb, rp, b, p = _models(arch, dt)
+    tok = np.random.default_rng(5).integers(0, 256, (2, 17), np.int32)
+    for batch in ({"tokens": tok[:, :-1], "targets": tok[:, 1:]},
+                  {"tokens": tok}):      # shifted tokens, the last masked
+        r_loss, r_met = rb.loss(rp, {k: jnp.asarray(v)
+                                     for k, v in batch.items()})
+        loss, met = b.loss(p, {k: torch.from_numpy(v)
+                               for k, v in batch.items()})
+        for ours, theirs in ((loss, r_loss), (met["nll"], r_met["nll"]),
+                             (met["aux"], r_met["aux"])):
+            assert abs(float(ours) - float(theirs)) <= \
+                TOL[dt] * max(abs(float(theirs)), 1e-6), (arch, dt, batch)
+    if arch in ("olmoe-1b-7b", "jamba-1.5-large-398b"):
+        assert float(met["aux"]) > 0          # the MoE aux loss is summed
+
+
+def test_remat_recomputes_the_same_values():
+    _, _, b, p = _models("olmo-1b", "fp32")
+    tok = torch.from_numpy(
+        np.random.default_rng(6).integers(0, 256, (2, 9), np.int32))
+    out = []
+    for remat in (True, False):
+        leaves = [x.clone().requires_grad_(True) for x in tree_leaves(p)]
+        from repro_torch.utils.tree import tree_structure
+        params = tree_structure(p).unflatten(leaves)
+        loss, _ = b.loss(params, {"tokens": tok}, with_remat=remat)
+        out.append([loss.detach()] + list(torch.autograd.grad(loss, leaves)))
+    assert all(torch.equal(x, y) for x, y in zip(*out))
+
+
+@pytest.mark.parametrize("microbatch", [1, 2])
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_train_step_matches_the_reference_over_three_steps(dt, microbatch):
+    rb, rp, b, p = _models("olmo-1b", dt)
+    key = jax.random.PRNGKey(0)
+    r_state = ref_init_train_state(rp, key)
+    r_step = jax.jit(ref_make_train_step(rb, microbatch=microbatch))
+    state = init_train_state(p, 0)
+    assert np.array_equal(state.rng.numpy(), np.asarray(r_state.rng))
+    step = make_train_step(b, microbatch=microbatch)
+    g = np.random.default_rng(11)
+    tol = TOL[dt]
+    for i in range(3):
+        tok = g.integers(0, 256, (4, 17), np.int32)
+        batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+        r_state, r_met = r_step(r_state, {k: jnp.asarray(v)
+                                          for k, v in batch.items()})
+        state, met = step(state, {k: torch.from_numpy(v)
+                                  for k, v in batch.items()})
+        assert sorted(met) == sorted(r_met)
+        assert int(met["step"]) == int(r_met["step"]) == i + 1
+        assert float(met["lr"]) == float(r_met["lr"])
+        for k in ("loss", "grad_norm", "nll"):
+            assert abs(float(met[k]) - float(r_met[k])) <= \
+                tol * abs(float(r_met[k])), (i, k)
+        _assert_trees_close(state.params, r_state.params, tol, "params")
+        _assert_trees_close(state.opt.mu, r_state.opt.mu, tol, "mu")
+        _assert_trees_close(state.opt.nu, r_state.opt.nu, tol, "nu")
+    assert float(r_met["lr"]) > 0          # the update was exercised
