@@ -28,21 +28,26 @@ per phase:
    library are timed in turns (library, kernel, kernel, library, twice)
    and the median of each is kept, printed beside kernel/library and
    kernel/bound; speed is printed, never checked:
-   * the flash backward (``csrc/flash_attention_bwd.cu``: delta, then
-     dK / dV a kv tile a block walking its G q heads, then dQ a q tile a
-     block; mma.sync, no atomics) at the training shape (8, 16, 512, 128)
-     causal, the serving shape (1, 16, 512, 128), GQA (2, 32 over 8, 200,
-     128), ragged S = T = 77 at hd 64, and non-causal (2, 16, 300, 700,
-     128): the forward's logsumexp within 1e-4 abs of the plain
+   * the flash backward (``csrc/flash_attention_bwd.cu``: dQ a q tile a
+     block, with delta, then dK / dV a kv tile a block walking its G q
+     heads; TMA rings and wgmma, no atomics) at the training shape (8, 16,
+     512, 128) causal, the serving shape (1, 16, 512, 128), GQA (2, 32
+     over 8, 200, 128) and (1, 8 over 2, 512, 128), ragged S = T = 77 at
+     hd 64 and S = T = 300, hd 64 at 512, causal Sq 100 < Sk 300 (its dk,
+     dv rows past the last q row exactly 0) and non-causal (2, 16, 300,
+     700, 128): the forward's logsumexp within 1e-4 abs of the plain
      ``logsumexp``; dq, dk, dv against the fp32 plain backward on the same
      bf16 inputs (the kernel's own output and logsumexp), elementwise
      within 2e-2 x max|plain| (bf16 P and dS operands and outputs, fp32
-     sums in another order); two launches bit-identical; kernel, kernel
-     forward + backward, plain, SDPA backward and forward + backward (with
-     deterministic algorithms, and without them) and the bound (bytes of
-     q, k, v, o, dO, lse in and dq, dk, dv out at 3.35 TB/s vs the five
-     products at 989 TFLOP/s) printed.  The forward's time at the serving
-     shape is printed beside its time before it gained the logsumexp;
+     sums in another order); two launches bit-identical; the kernel's
+     eager call (in turns with SDPA's deterministic backward: library,
+     kernel, kernel, library, twice; medians) and its device time (a CUDA
+     graph, the host's launch cost out), kernel forward + backward, plain,
+     SDPA forward + backward (with deterministic algorithms, and backward
+     and forward + backward without them) and the bound (bytes of q, k, v,
+     o, dO, lse in and dq, dk, dv out at 3.35 TB/s vs the five products
+     at 989 TFLOP/s) printed.  The forward's time at the serving shape is
+     printed beside its time before it gained the logsumexp;
    * flash attention (one block a 64-row q tile, its kv tiles split
      between two warpgroups while q tiles are fewer than SMs; K / V by TMA
      into an mbarrier ring, both products on wgmma) at the path's shape
@@ -367,16 +372,17 @@ def device_ms(fn, reps: int = 20, replays: int = 10) -> float:
     return ms
 
 
-def paired_ms(kernel_fn, library_fn, rounds: int = 2) -> tuple:
+def paired_ms(kernel_fn, library_fn, rounds: int = 2,
+              timer=device_ms) -> tuple:
     """Kernel and library times from one card, in turns (library, kernel,
-    kernel, library) ``rounds`` times, each a ``device_ms``; the median of
-    each, and every sample."""
+    kernel, library) ``rounds`` times, each a ``timer`` (``device_ms``
+    unless given); the median of each, and every sample."""
     ks, ls = [], []
     for _ in range(rounds):
-        ls.append(device_ms(library_fn))
-        ks.append(device_ms(kernel_fn))
-        ks.append(device_ms(kernel_fn))
-        ls.append(device_ms(library_fn))
+        ls.append(timer(library_fn))
+        ks.append(timer(kernel_fn))
+        ks.append(timer(kernel_fn))
+        ls.append(timer(library_fn))
     return statistics.median(ks), statistics.median(ls), ks, ls
 
 
@@ -554,10 +560,10 @@ def attention_bwd_bound_ms(B, H, K, Sq, Sk, hd, causal) -> tuple:
                                  else "operations")
 
 
-def sdpa_ms(torch, qh, kh, vh, dout_h, causal: bool) -> tuple:
+def sdpa_calls(torch, qh, kh, vh, dout_h, causal: bool) -> tuple:
     """SDPA's forward + backward and its backward alone (autograd through
-    ``scaled_dot_product_attention`` on requires-grad copies), each a
-    ``call_ms``, under the determinism setting in force."""
+    ``scaled_dot_product_attention`` on requires-grad copies), as calls
+    to time under the determinism setting in force."""
     import torch.nn.functional as F
     qg, kg, vg = (t.detach().clone().requires_grad_(True)
                   for t in (qh, kh, vh))
@@ -567,10 +573,12 @@ def sdpa_ms(torch, qh, kh, vh, dout_h, causal: bool) -> tuple:
         torch.autograd.grad(o, (qg, kg, vg), dout_h)
 
     o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
-    return (call_ms(fwd_bwd, iters=10, warmup=2),
-            call_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), dout_h,
-                                                retain_graph=True),
-                    iters=10, warmup=2))
+    return fwd_bwd, lambda: torch.autograd.grad(o, (qg, kg, vg), dout_h,
+                                                retain_graph=True)
+
+
+def sdpa_call_ms(fn) -> float:
+    return call_ms(fn, iters=10, warmup=2)
 
 
 def phase_flash_bwd(torch, ops):
@@ -584,6 +592,10 @@ def phase_flash_bwd(torch, ops):
         ("gqa_h32_k8_s200", 2, 32, 8, 200, 200, 128, True),
         ("ragged_s77_hd64", 1, 16, 16, 77, 77, 64, True),
         ("noncausal_sq300_sk700", 2, 16, 16, 300, 700, 128, False),
+        ("gqa_h8_k2_s512", 1, 8, 2, 512, 512, 128, True),
+        ("ragged_s300", 1, 4, 4, 300, 300, 128, True),
+        ("hd64_s512", 1, 8, 8, 512, 512, 64, True),
+        ("causal_sq100_sk300", 1, 4, 2, 100, 300, 128, True),
     ]
     gen = torch.Generator("cuda").manual_seed(4321)
     rows = {}
@@ -622,10 +634,15 @@ def phase_flash_bwd(torch, ops):
             check(rel <= TOL, f"bwd {name}: {g_name} max abs err "
                               f"{rel:.3e} x max|plain| > {TOL}")
             errs[g_name] = rel
+        if causal and Sq < Sk:        # no q row sees kv rows Sq..Sk-1
+            check(all(bool((g[:, Sq:] == 0).all()) for g in grads[1:3]),
+                  f"bwd {name}: dk / dv rows past the last q row not 0")
         bufs = grads[:3]
-        kernel_ms = call_ms(lambda: kernel.flash_attention_bwd(
-            q, k, v, out, lse, dout, *bufs, causal=causal, scale=scale),
-            iters=20, warmup=3)
+
+        def bwd():
+            kernel.flash_attention_bwd(q, k, v, out, lse, dout, *bufs,
+                                       causal=causal, scale=scale)
+        graph_ms = device_ms(bwd)
         fwd_bwd_ms = call_ms(lambda: (
             kernel.flash_attention_fwd(q, k, v, out, causal=causal,
                                        scale=scale, lse=lse),
@@ -640,21 +657,29 @@ def phase_flash_bwd(torch, ops):
         doh = dout.reshape(B, Sq, H, hd).transpose(1, 2).contiguous()
         torch.use_deterministic_algorithms(False)
         try:
-            fast_fb, fast_bwd = sdpa_ms(torch, qh, kh, vh, doh, causal)
+            fast_fb, fast_bwd = map(sdpa_call_ms, sdpa_calls(
+                torch, qh, kh, vh, doh, causal))
         finally:
             torch.use_deterministic_algorithms(True)
         try:      # a yardstick only: SDPA may refuse a deterministic bwd
-            lib_fb, lib_bwd = sdpa_ms(torch, qh, kh, vh, doh, causal)
+            lib_fb_fn, lib_bwd_fn = sdpa_calls(torch, qh, kh, vh, doh,
+                                               causal)
+            lib_fb = sdpa_call_ms(lib_fb_fn)
+            kernel_ms, lib_bwd, k_runs, l_runs = paired_ms(
+                bwd, lib_bwd_fn, timer=sdpa_call_ms)
         except RuntimeError as e:
             print(f"kernel flash_attention_bwd {name}: SDPA backward under "
                   f"deterministic algorithms not available ({e}); library "
                   f"times below are without them", flush=True)
             lib_fb, lib_bwd = fast_fb, fast_bwd
+            kernel_ms, k_runs, l_runs = sdpa_call_ms(bwd), [], []
         bound_ms, bound_by = attention_bwd_bound_ms(B, H, K, Sq, Sk, hd,
                                                     causal)
         rows[name] = dict(shape=[B, H, K, Sq, Sk, hd, hd], causal=causal,
                           max_abs_err=max(errs.values()), errs=errs,
                           lse_err=lse_err, kernel_ms=kernel_ms,
+                          device_ms=graph_ms, kernel_runs=k_runs,
+                          library_runs=l_runs,
                           fwd_bwd_ms=fwd_bwd_ms, plain_ms=plain_ms,
                           library_ms=lib_bwd, library_fwd_bwd_ms=lib_fb,
                           library_nondeterministic_ms=fast_bwd,
@@ -666,8 +691,9 @@ def phase_flash_bwd(torch, ops):
               f"Sq={Sq} Sk={Sk} hd={hd} causal={causal} err/max|plain| dq "
               f"{errs['dq']:.3e} dk {errs['dk']:.3e} dv {errs['dv']:.3e} "
               f"(tol {TOL}) lse_err={lse_err:.3e} (tol 1e-4) two launches "
-              f"bit-identical; kernel_ms={kernel_ms:.5f} (fwd+bwd "
-              f"{fwd_bwd_ms:.5f}) plain_ms={plain_ms:.5f} "
+              f"bit-identical; kernel_ms={kernel_ms:.5f} (eager, in turns "
+              f"with SDPA; device_ms {graph_ms:.5f} from a CUDA graph; "
+              f"fwd+bwd {fwd_bwd_ms:.5f}) plain_ms={plain_ms:.5f} "
               f"library_ms(sdpa bwd)={lib_bwd:.5f} (fwd+bwd {lib_fb:.5f}) "
               f"[deterministic algorithms off: bwd {fast_bwd:.5f}, fwd+bwd "
               f"{fast_fb:.5f}] bound_ms={bound_ms:.5f} ({bound_by}) "
@@ -2227,7 +2253,8 @@ def main(argv=None) -> int:
     kernels = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
         row = mains[name]
-        cases = {c: {k: r[k] for k in ("kernel_ms", "library_ms", "bound_ms",
+        cases = {c: {k: r[k] for k in ("kernel_ms", "device_ms",
+                                       "library_ms", "bound_ms",
                                        "kernel_over_bound")
                      if k in r} for c, r in timed[name].items()
                  if "kernel_ms" in r}

@@ -14,174 +14,127 @@
 //
 // with GQA (q head h reads kv head h / G; dK and dV sum over the G heads of
 // a kv head), on the model's layout: q, o, dO, dQ (B, S, K, G, hd), k, v,
-// dK, dV (B, T, K, hd), hd 64 or 128.
-//
-// Deterministic, because crash-recovered training must retrace a clean run
-// bit for bit: no atomics, every sum in a fixed order, three launches:
-//
-// (a) delta: one warp a row, a fixed shuffle tree;
-// (b) dK / dV: one block per (b, kv head, 64-row kv tile); it walks the kv
-//     head's G q heads and, for each, the q rows from the causal diagonal on
-//     in 32-row steps, recomputing Pᵀ and dPᵀ, so the GQA sum stays in its
-//     registers;
-// (c) dQ: one block per (b, q head, 64-row q tile); it walks the kv tiles up
-//     to the diagonal, recomputing P and dP.
+// dK, dV (B, T, K, hd), hd 64 or 128.  Every element of dQ, dK and dV is
+// written: a kv tile with no q row below its diagonal writes zeros.
 //
 // What bounds it on this card: at the training shape (8, 16, 512, 128)
 // causal, q, k, v, o, dO in and dQ, dK, dV out are 134 MB (0.040 ms at
-// 3.35 TB/s), the five products 21.5 GFLOP (0.022 ms at 989 TFLOP/s): bytes.
-// This first version is simple and right, not fast: mma.sync m16n8k16
-// (bf16 in, fp32 accumulate) from ldmatrix fragments, tiles staged through
-// padded shared memory with plain 16-byte loads and a __syncthreads, and two
-// products (S, dP) computed twice, once in (b) and once in (c).  A TMA ring
-// and wgmma, as the forward has, are later work.
+// 3.35 TB/s); the five products are 21.5 GFLOP (0.022 ms at 989 TFLOP/s),
+// and 30 GFLOP with S and dP computed a second time in the dQ pass: bytes.
 //
-// Four warps a block, each owning 16 rows of the block's tile; P and dS go
-// from the accumulators straight into the A fragments of the next product
-// (bf16, as the forward's P), so they never touch shared memory.  Rows past
-// S or T are zero-filled on load and masked out of P, and every element of
-// dQ, dK and dV is written (a kv tile with no q row below its diagonal
-// writes zeros).
+// What held the first design (mma.sync) back: 0.53451 ms at that shape on an
+// H100 80GB HBM3 at a 700 W power limit (chip_smoke.py), 13.3x its bound and
+// 1.61x the deterministic SDPA backward.  Every product ran on mma.sync from
+// ldmatrix fragments, a fraction of the tensor cores' rate; every tile went
+// global -> registers -> padded shared memory behind a __syncthreads, so no
+// load overlapped the math, and the dK / dV walk did so twice for each
+// 32-row q step; four warps a block with 128 fp32 accumulators a thread
+// left nothing to hide the latency behind; and delta was a third launch
+// that read o and dO once more.
+//
+// This design (timed by chip_smoke.py phase 3 and kernels/attention/probe.py
+// --bwd; PERF.md has the numbers):
+//
+// * every product on wgmma (bf16 in, fp32 accumulate), one warpgroup a
+//   block, 64-row tiles on both sides, with the helpers of the forward
+//   (hopper.cuh).  Operands needed transposed are read MN-major through the
+//   descriptor's transpose bit from the tile TMA wrote: the same shared Q
+//   tile is the K-major B of Sᵀ = K Qᵀ and the MN-major B of dK += dSᵀ Q.
+//   P and dS go from the accumulators, re-packed to bf16, straight into
+//   wgmma's register A operand and never touch shared memory.  The first
+//   product of each accumulation ignores it (scale-d 0), so no ordinary
+//   instruction writes a register an asynchronous product owns;
+// * two launches, no atomics, every sum in a fixed order (deterministic: a
+//   crash-recovered training run retraces a clean one bit for bit):
+//   (1) dQ, one block per (b, q head, q tile): it computes delta for its 64
+//       rows from o and dO while its tiles are in flight, hands delta and
+//       lse·log2 e to pass 2 in a scratch row of 128 floats, then walks the
+//       kv tiles up to the diagonal, recomputing S and dP;
+//   (2) dK / dV in the Sᵀ form, one block per (b, kv head, kv tile): it
+//       walks the kv head's G q heads and, for each, the q tiles from the
+//       diagonal on; Sᵀ = K Qᵀ and dPᵀ = V dOᵀ, then dV += Pᵀ dO and
+//       dK += dSᵀ Q, so the GQA sum stays in its registers;
+// * K and V (pass 2) or Q and dO (pass 1) of the block's own tile by TMA
+//   once; the streamed tiles (Q, dO with their lse and delta rows in pass
+//   2, K, V in pass 1) through a 2-stage mbarrier ring, by 4-D tensor maps
+//   over (d, position, head, batch) that zero-fill past S and T.  A step's
+//   first products start as soon as its tile has landed, behind the
+//   last step's still-running products; the slot they free is refilled by
+//   one thread once S has come back, so the next tile loads during the
+//   rest of the step;
+// * about 100 KB of shared memory and at most 255 registers a thread, so
+//   two blocks share an SM and each hides the other's waits (a third ring
+//   stage leaves room for one block an SM, and was 1.22x slower);
+// * the tiles of one head are neighbours in the grid, longest causal walk
+//   first (the last q tiles in pass 1, the first kv tiles in pass 2), so
+//   the blocks that stream the same tiles run side by side and find them
+//   in L2.  Starting the longest walks of all heads first instead took
+//   0.996-1.07x this order's time at the training shape and 1.04-1.06x at
+//   (1, 16, 512, 128), in turns in two calls;
+// * the tensor maps are encoded on the host by cuTensorMapEncodeTiled,
+//   which needs the tensors' context current: autograd calls from a worker
+//   thread that may have made no CUDA call yet, so the entry makes the
+//   device of q current first (hopper.cuh, use_device_of).
 //
 // C interface (loaded with ctypes): repro_flash_attention_bwd_bf16 returns a
-// cudaError_t (0 on success); strides in elements, multiples of 8.
+// cudaError_t (0 on success); strides in elements, multiples of 8 (TMA takes
+// 16-byte strides).  `rows` is fp32 scratch of B·H·ceil(Sq / 64)·128 floats,
+// 16-byte aligned, that the caller allocates: pass 1 writes all of it and
+// pass 2 reads it.  cudaFuncSetAttribute runs once per instantiation.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int BT = 64;   // rows of a block's own tile: 4 warps x 16
-constexpr int BQS = 32;  // q rows a step of the dK / dV walk
+constexpr int BM = 64;      // rows of every tile, q or kv: a warpgroup's wgmma M
+constexpr int STAGES = 2;   // streamed tiles in flight a block
 
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d (16 x 8, fp32) += a (16 x 16, bf16, row) b (16 x 8, bf16, col).
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Fragment addresses in a shared tile of row stride LD (elements), for lane l:
-//  A (16 x 16 at row r0, col c0), rows of the tile = the product's rows;
-//  B "rows" (the tile's rows are the product's n, its columns k): n-tiles
-//    n0 and n0 + 8 at k0, fragments {r0, r1} and {r2, r3};
-//  B "cols" (the tile's rows are the product's k, its columns n; .trans):
-//    n-tiles n0 and n0 + 8 at k0, the same register pairs.
-template <int LD>
-__device__ __forceinline__ uint32_t frag_a(const __nv_bfloat16* s, int r0, int c0, int l) {
-  return smem_addr(s + (r0 + (l & 15)) * LD + c0 + (l >> 4) * 8);
-}
-template <int LD>
-__device__ __forceinline__ uint32_t frag_b_rows(const __nv_bfloat16* s, int n0, int k0, int l) {
-  return smem_addr(s + (n0 + (l & 7) + (l >> 4) * 8) * LD + k0 + ((l >> 3) & 1) * 8);
-}
-template <int LD>
-__device__ __forceinline__ uint32_t frag_b_cols(const __nv_bfloat16* s, int k0, int n0, int l) {
-  return smem_addr(s + (k0 + (l & 15)) * LD + n0 + (l >> 4) * 8);
-}
-
-// `rows` rows of HD bf16 from g (row stride `rs`, elements) into a shared tile
-// of row stride HD + 8 (the padding keeps ldmatrix free of bank conflicts);
-// rows from `valid` on are zero-filled.
+// Shared memory of either pass, from a 1024-aligned base: the block's own two
+// tiles (Q and dO, or K and V), the ring of STAGES pairs of streamed tiles,
+// STAGES rows of lse·log2 e and delta (pass 2 only), then the barriers.  Every
+// tile is in wgmma's 128-byte swizzle as TMA writes it: 64-column blocks of
+// 64 rows x 128 bytes.
 template <int HD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* s, const __nv_bfloat16* g, long long rs,
-                                          int rows, int valid) {
-  constexpr int CH = HD / 8;
-  for (int c = threadIdx.x; c < rows * CH; c += blockDim.x) {
-    const int r = c / CH, k = c % CH;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) v = *reinterpret_cast<const uint4*>(g + r * rs + k * 8);
-    *reinterpret_cast<uint4*>(s + r * (HD + 8) + k * 8) = v;
+struct Smem {
+  static constexpr int TILE = BM * HD * 2;
+  static constexpr int OWN = 2 * TILE;
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int ROWS = 2 * BM * 4;  // a q tile's lse·log2 e, then its delta
+  static constexpr int BARS = OWN + STAGES * STAGE + STAGES * ROWS;
+  static constexpr size_t BYTES = 1024 + (size_t)BARS + 8 * (1 + STAGES);
+};
+
+// The 16-deep k-step kk of a K-major operand (d contiguous), and the 16-row
+// k-step j of an MN-major one (the tile's rows are the product's k).
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
+  return desc_sw128(tile + (kk / 4) * (BM * 128) + (kk % 4) * 32, 16);
+}
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int j) {
+  return desc_sw128(tile + j * 2048, BM * 128);
+}
+
+// Accumulator (64 x 64) of n-tiles 2j, 2j + 1 -> the register A fragment of
+// k-step j, packed to bf16.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&c)[8][4]) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    a[nt / 2][(nt % 2) * 2 + 0] = pack_f32(c[nt][0], c[nt][1]);
+    a[nt / 2][(nt % 2) * 2 + 1] = pack_f32(c[nt][2], c[nt][3]);
   }
 }
 
-// C (16 x N) = A_tile rows [r0, r0 + 16) (16 x HD) times B_tileᵀ (B's rows are
-// the N columns): both operands from shared tiles with d contiguous.
-template <int HD, int N>
-__device__ __forceinline__ void gemm_abt(float (&c)[N / 8][4], const __nv_bfloat16* a, int r0,
-                                         const __nv_bfloat16* b, int lane) {
-  constexpr int LD = HD + 8;
-#pragma unroll
-  for (int i = 0; i < N / 8; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    uint32_t fa[4];
-    ldsm_x4(fa, frag_a<LD>(a, r0, kk * 16, lane));
-#pragma unroll
-    for (int np = 0; np < N / 16; ++np) {
-      uint32_t fb[4];
-      ldsm_x4(fb, frag_b_rows<LD>(b, np * 16, kk * 16, lane));
-      mma(c[2 * np], fa, fb[0], fb[1]);
-      mma(c[2 * np + 1], fa, fb[2], fb[3]);
-    }
-  }
-}
-
-// acc (16 x HD) += P (16 x K, accumulators packed to bf16 A fragments) times
-// the shared tile b (K rows x HD, d contiguous).
-template <int HD, int K>
-__device__ __forceinline__ void gemm_pb(float (&acc)[HD / 8][4], const uint32_t (&p)[K / 16][4],
-                                        const __nv_bfloat16* b, int lane) {
-  constexpr int LD = HD + 8;
-#pragma unroll
-  for (int j = 0; j < K / 16; ++j) {
-#pragma unroll
-    for (int np = 0; np < HD / 16; ++np) {
-      uint32_t fb[4];
-      ldsm_x4_t(fb, frag_b_cols<LD>(b, j * 16, np * 16, lane));
-      mma(acc[2 * np], p[j], fb[0], fb[1]);
-      mma(acc[2 * np + 1], p[j], fb[2], fb[3]);
-    }
-  }
-}
-
-// Accumulators of n-tiles 2j, 2j + 1 are exactly the A fragment of k-step j.
-template <int N>
-__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4], const float (&c)[N / 8][4]) {
-#pragma unroll
-  for (int j = 0; j < N / 16; ++j) {
-    a[j][0] = pack_f32(c[2 * j][0], c[2 * j][1]);
-    a[j][1] = pack_f32(c[2 * j][2], c[2 * j][3]);
-    a[j][2] = pack_f32(c[2 * j + 1][0], c[2 * j + 1][1]);
-    a[j][3] = pack_f32(c[2 * j + 1][2], c[2 * j + 1][3]);
-  }
-}
-
-// Rows [r0, r0 + 16) of a warp's accumulator (16 x HD) times `scale`, to bf16,
-// rows below `limit` only.
+// A warpgroup's accumulator (64 x HD: this thread's rows 16 warp + gr and
+// + 8, columns 8 nt + 2 t and + 1) times `scale`, to bf16, rows below
+// `limit` only.
 template <int HD>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* g, long long rs, const float (&acc)[HD / 8][4],
-                                           int r0, int limit, float scale, int lane) {
-  const int gr = lane >> 2, t = lane & 3;
+__device__ __forceinline__ void store_rows(bf16* g, long long rs, const float (&acc)[HD / 8][4],
+                                           int limit, float scale) {
+  const int warp = threadIdx.x / 32, gr = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = r0 + gr + 8 * r;
+    const int row = warp * 16 + gr + 8 * r;
     if (row >= limit) continue;
 #pragma unroll
     for (int nt = 0; nt < HD / 8; ++nt)
@@ -190,228 +143,330 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* g, long long rs, const
   }
 }
 
-// (a) delta[b, h, s] = Σ_d dO·o, one warp a row.
-template <int HD>
-__global__ void __launch_bounds__(256)
-bwd_delta_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
-                 float* __restrict__ delta, int H, int Sq, long long sqb, long long sqh,
-                 long long sqs, long long rows) {
-  const long long row = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const int s = (int)(row % Sq);
-  const int h = (int)((row / Sq) % H);
-  const long long b = row / ((long long)Sq * H);
-  const long long off = b * sqb + h * sqh + s * sqs;
-  float acc = 0.f;
+template <int N>
+__device__ __forceinline__ void zero(float (&acc)[N][4]) {
 #pragma unroll
-  for (int d = lane * 2; d < HD; d += 64) {
-    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + off + d));
-    const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dout + off + d));
-    acc += x.x * y.x + x.y * y.y;
-  }
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
-  if (lane == 0) delta[row] = acc;
+  for (int i = 0; i < N; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 }
 
-// (b) dK, dV of one 64-row kv tile of one kv head.
+// (1) dQ of one 64-row q tile of one q head, and its rows of lse·log2 e and
+// delta for pass 2.
 template <int HD>
-__global__ void __launch_bounds__(128)
-bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int G, int Sq,
-                int Sk, long long sqb, long long sqh, long long sqs, long long skb,
-                long long skh, long long sks, float scale, float scale_log2, int causal) {
-  constexpr int LD = HD + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + BT * LD;
-  __nv_bfloat16* Qs = Vs + BT * LD;
-  __nv_bfloat16* dOs = Qs + BQS * LD;
-  float* lse_s = reinterpret_cast<float*>(dOs + BQS * LD);  // log2 domain
-  float* dl_s = lse_s + BQS;
-
-  const int kv0 = blockIdx.x * BT;
-  const int kh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int H = gridDim.y * G;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gr = lane >> 2, t = lane & 3;
-
-  const long long kvoff = b * skb + kh * skh;
-  load_tile<HD>(Ks, k + kvoff + kv0 * sks, sks, BT, min(BT, Sk - kv0));
-  load_tile<HD>(Vs, v + kvoff + kv0 * sks, sks, BT, min(BT, Sk - kv0));
-
-  float dK[HD / 8][4], dV[HD / 8][4];
-#pragma unroll
-  for (int i = 0; i < HD / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dK[i][e] = dV[i][e] = 0.f;
-
-  // top-left causal: q row i sees kv rows <= i, so this tile's first q row is kv0
-  const int q_first = causal ? (kv0 / BQS) * BQS : 0;
-  for (int g = 0; g < G; ++g) {
-    const int h = kh * G + g;
-    const long long qoff = b * sqb + h * sqh;
-    const float* lse_h = lse + ((long long)b * H + h) * Sq;
-    const float* dl_h = delta + ((long long)b * H + h) * Sq;
-    for (int qs = q_first; qs < Sq; qs += BQS) {
-      __syncthreads();  // the last step's Q / dO are no longer read
-      load_tile<HD>(Qs, q + qoff + qs * sqs, sqs, BQS, min(BQS, Sq - qs));
-      load_tile<HD>(dOs, dout + qoff + qs * sqs, sqs, BQS, min(BQS, Sq - qs));
-      if (threadIdx.x < BQS) {
-        const bool ok = qs + (int)threadIdx.x < Sq;
-        lse_s[threadIdx.x] = ok ? lse_h[qs + threadIdx.x] * LOG2E : 0.f;
-        dl_s[threadIdx.x] = ok ? dl_h[qs + threadIdx.x] : 0.f;
-      }
-      __syncthreads();
-
-      // Pᵀ (16 kv x 32 q) from Sᵀ = K_w Qᵀ; element [nt][e] is kv row
-      // kv0 + 16 warp + gr + 8 (e / 2), q column qs + 8 nt + 2 t + e % 2.
-      float p[BQS / 8][4];
-      gemm_abt<HD, BQS>(p, Ks, warp * 16, Qs, lane);
-#pragma unroll
-      for (int nt = 0; nt < BQS / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = nt * 8 + 2 * t + (e & 1);
-          const int qrow = qs + qc;
-          const int kvrow = kv0 + warp * 16 + gr + 8 * (e >> 1);
-          const bool ok = qrow < Sq && kvrow < Sk && (!causal || qrow >= kvrow);
-          p[nt][e] = ok ? exp2f(p[nt][e] * scale_log2 - lse_s[qc]) : 0.f;
-        }
-      uint32_t pa[BQS / 16][4];
-      pack_a<BQS>(pa, p);
-      gemm_pb<HD, BQS>(dV, pa, dOs, lane);  // dV += Pᵀ dO
-
-      // dPᵀ = V_w dOᵀ, then dSᵀ = Pᵀ ∘ (dPᵀ - delta)
-      float ds[BQS / 8][4];
-      gemm_abt<HD, BQS>(ds, Vs, warp * 16, dOs, lane);
-#pragma unroll
-      for (int nt = 0; nt < BQS / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) ds[nt][e] = p[nt][e] * (ds[nt][e] - dl_s[nt * 8 + 2 * t + (e & 1)]);
-      pack_a<BQS>(pa, ds);
-      gemm_pb<HD, BQS>(dK, pa, Qs, lane);  // dK += dSᵀ Q (scaled at the end)
-    }
-  }
-  store_rows<HD>(dk + kvoff + kv0 * sks, sks, dK, warp * 16, Sk - kv0, scale, lane);
-  store_rows<HD>(dv + kvoff + kv0 * sks, sks, dV, warp * 16, Sk - kv0, 1.f, lane);
-}
-
-// (c) dQ of one 64-row q tile of one q head.
-template <int HD>
-__global__ void __launch_bounds__(128)
-bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              __nv_bfloat16* __restrict__ dq, int G, int Sq, int Sk, long long sqb,
-              long long sqh, long long sqs, long long skb, long long skh, long long sks,
+__global__ void __launch_bounds__(128, 2)
+bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
+              const __grid_constant__ CUtensorMap tmv, const __grid_constant__ CUtensorMap tmdo,
+              const bf16* __restrict__ o, const bf16* __restrict__ dout,
+              const float* __restrict__ lse, float* __restrict__ rows, bf16* __restrict__ dq,
+              int H, int G, int Sq, int Sk, long long sqb, long long sqh, long long sqs,
               float scale, float scale_log2, int causal) {
-  constexpr int LD = HD + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dOs = Qs + BT * LD;
-  __nv_bfloat16* Ks = dOs + BT * LD;
-  __nv_bfloat16* Vs = Ks + BT * LD;
+  using L = Smem<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t Qs = (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u) & ~1023u;
+  const uint32_t dOs = Qs + L::TILE;
+  const uint32_t ring = Qs + L::OWN;
+  const uint32_t own_bar = Qs + L::BARS;
+  auto full = [&](int s) { return own_bar + 8u * (1 + s); };
 
-  const int q0 = blockIdx.x * BT;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int H = gridDim.y;
+  // A head's q tiles are neighbours in the grid, its longest causal walk
+  // first: they read the same K / V tiles at about the same time.
+  const int n_qt = gridDim.x;
+  const int qt = n_qt - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int kh = h / G;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gr = lane >> 2, t = lane & 3;
+  const int q0 = qt * BM;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gr = lane / 4, t = lane % 4;
 
-  const long long qoff = b * sqb + h * sqh;
-  const long long kvoff = b * skb + kh * skh;
-  load_tile<HD>(Qs, q + qoff + q0 * sqs, sqs, BT, min(BT, Sq - q0));
-  load_tile<HD>(dOs, dout + qoff + q0 * sqs, sqs, BT, min(BT, Sq - q0));
+  int n_kv = (Sk + BM - 1) / BM;
+  if (causal) n_kv = min(n_kv, (min(q0 + BM, Sq) - 1) / BM + 1);
+
+  // The i-th kv tile into ring slot i % STAGES, by one thread.
+  auto load_kv = [&](int i) {
+    const uint32_t st = ring + (i % STAGES) * L::STAGE;
+    mbar_expect_tx(full(i % STAGES), L::STAGE);
+#pragma unroll
+    for (int c = 0; c < HD / 64; ++c) {
+      tma_load_4d(st + c * BM * 128, &tmk, full(i % STAGES), c * 64, i * BM, kh, b);
+      tma_load_4d(st + L::TILE + c * BM * 128, &tmv, full(i % STAGES), c * 64, i * BM, kh, b);
+    }
+  };
+  if (tid == 0) {
+    for (int s = 0; s <= STAGES; ++s) mbar_init(own_bar + 8u * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(own_bar, L::OWN);
+#pragma unroll
+    for (int c = 0; c < HD / 64; ++c) {
+      tma_load_4d(Qs + c * BM * 128, &tmq, own_bar, c * 64, q0, h, b);
+      tma_load_4d(dOs + c * BM * 128, &tmdo, own_bar, c * 64, q0, h, b);
+    }
+    for (int i = 0; i < STAGES - 1 && i < n_kv; ++i) load_kv(i);
+  }
+
+  // While the tiles fly: delta = rowsum(dO ∘ o) of this thread's rows 16 warp
+  // + gr and + 8, the four lanes of a row each summing a quarter of d in
+  // order, then a fixed butterfly; and lse in the log2 domain.
   float lse2[2], dl[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + warp * 16 + gr + 8 * r;
-    const long long i = ((long long)b * H + h) * Sq + row;
-    lse2[r] = row < Sq ? lse[i] * LOG2E : 0.f;
-    dl[r] = row < Sq ? delta[i] : 0.f;
+    float acc = 0.f;
+    if (row < Sq) {
+      const long long off = b * sqb + h * sqh + row * sqs + t * (HD / 4);
+#pragma unroll
+      for (int c = 0; c < HD / 32; ++c) {
+        const uint4 x = *reinterpret_cast<const uint4*>(o + off + 8 * c);
+        const uint4 y = *reinterpret_cast<const uint4*>(dout + off + 8 * c);
+        const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xs[e]));
+          const float2 d = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ys[e]));
+          acc = fmaf(a.x, d.x, acc);
+          acc = fmaf(a.y, d.y, acc);
+        }
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    dl[r] = acc;
+    lse2[r] = row < Sq ? lse[((long long)b * H + h) * Sq + row] * LOG2E : 0.f;
   }
+  if (t == 0) {  // every row of the tile, the ones past Sq as zeros
+    float* rr = rows + (((long long)b * H + h) * n_qt + qt) * (2 * BM);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rr[warp * 16 + gr + 8 * r] = lse2[r];
+      rr[BM + warp * 16 + gr + 8 * r] = dl[r];
+    }
+  }
+  mbar_wait(own_bar, 0);
 
   float dQ[HD / 8][4];
-#pragma unroll
-  for (int i = 0; i < HD / 8; ++i) dQ[i][0] = dQ[i][1] = dQ[i][2] = dQ[i][3] = 0.f;
+  const int row0 = q0 + warp * 16 + gr;
+  for (int i = 0; i < n_kv; ++i) {
+    const int k0 = i * BM;
+    const uint32_t Ks = ring + (i % STAGES) * L::STAGE, Vs = Ks + L::TILE;
+    mbar_wait(full(i % STAGES), (i / STAGES) & 1);
 
-  int n_kv = (Sk + BT - 1) / BT;
-  if (causal) n_kv = min(n_kv, (min(q0 + BT, Sq) - 1) / BT + 1);
-  for (int j = 0; j < n_kv; ++j) {
-    const int k0 = j * BT;
-    __syncthreads();  // the last tile's K / V are no longer read
-    load_tile<HD>(Ks, k + kvoff + k0 * sks, sks, BT, min(BT, Sk - k0));
-    load_tile<HD>(Vs, v + kvoff + k0 * sks, sks, BT, min(BT, Sk - k0));
-    __syncthreads();
-
-    // P (16 q x 64 kv); element [nt][e] is q row q0 + 16 warp + gr + 8 (e / 2),
-    // kv column k0 + 8 nt + 2 t + e % 2.
-    float p[BT / 8][4];
-    gemm_abt<HD, BT>(p, Qs, warp * 16, Ks, lane);
+    // S = Q Kᵀ and dP = dO Vᵀ (64 q x 64 kv), behind the last tile's dQ product.
+    float s[8][4], dp[8][4];
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < BT / 8; ++nt)
+    for (int kk = 0; kk < HD / 16; ++kk) wgmma_ss<64>(s, kmajor(Qs, kk), kmajor(Ks, kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) wgmma_ss<64>(dp, kmajor(dOs, kk), kmajor(Vs, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // the last dQ product and S are done
+    fence_regs(s);
+    named_sync(1, 128);  // ... in every warp: the last tile's slot is free
+    if (tid == 0 && i + STAGES - 1 < n_kv) load_kv(i + STAGES - 1);
+
+    // P: s[nt][e] is row row0 + 8 (e / 2), column k0 + 8 nt + 2 t + e % 2,
+    // kept below the row's limit (Sk; causal: the diagonal).
+    int lim[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) lim[r] = (causal ? min(row0 + 8 * r + 1, Sk) : Sk) - (k0 + 2 * t);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int kvc = k0 + nt * 8 + 2 * t + (e & 1);
-        const int qrow = q0 + warp * 16 + gr + 8 * (e >> 1);
-        const bool ok = qrow < Sq && kvc < Sk && (!causal || kvc <= qrow);
-        p[nt][e] = ok ? exp2f(p[nt][e] * scale_log2 - lse2[e >> 1]) : 0.f;
+        const float p = ex2(fmaf(s[nt][e], scale_log2, -lse2[e >> 1]));
+        s[nt][e] = nt * 8 + (e & 1) < lim[e >> 1] ? p : 0.f;
       }
-    // dP = dO_w Vᵀ, then dS = P ∘ (dP - delta)
-    float ds[BT / 8][4];
-    gemm_abt<HD, BT>(ds, dOs, warp * 16, Vs, lane);
+    wgmma_wait<0>();
+    fence_regs(dp);
+    // dS = P ∘ (dP - delta), into the A operand of dQ += dS K.
 #pragma unroll
-    for (int nt = 0; nt < BT / 8; ++nt)
+    for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) ds[nt][e] = p[nt][e] * (ds[nt][e] - dl[e >> 1]);
-    uint32_t da[BT / 16][4];
-    pack_a<BT>(da, ds);
-    gemm_pb<HD, BT>(dQ, da, Ks, lane);  // dQ += dS K (scaled at the end)
+      for (int e = 0; e < 4; ++e) dp[nt][e] = s[nt][e] * (dp[nt][e] - dl[e >> 1]);
+    uint32_t da[4][4];
+    pack_a(da, dp);
+    fence_regs(da);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wgmma_rs<HD>(dQ, da[j], mnmajor(Ks, j), i > 0 || j > 0);
+    wgmma_commit();
+    fence_regs(da);
   }
-  store_rows<HD>(dq + qoff + q0 * sqs, sqs, dQ, warp * 16, Sq - q0, scale, lane);
+  wgmma_wait<0>();
+  fence_regs(dQ);
+  store_rows<HD>(dq + b * sqb + h * sqh + q0 * sqs, sqs, dQ, Sq - q0, scale);
+}
+
+// (2) dK, dV of one 64-row kv tile of one kv head.
+template <int HD>
+__global__ void __launch_bounds__(128, 2)
+bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
+                const __grid_constant__ CUtensorMap tmv, const __grid_constant__ CUtensorMap tmdo,
+                const float* __restrict__ rows, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                int KH, int G, int Sq, int Sk, long long skb, long long skh, long long sks,
+                float scale, float scale_log2, int causal) {
+  using L = Smem<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t Ks = (raw + 1023u) & ~1023u;
+  const uint32_t Vs = Ks + L::TILE;
+  const uint32_t ring = Ks + L::OWN;
+  const uint32_t row_ring = ring + STAGES * L::STAGE;
+  const float* row_s = reinterpret_cast<const float*>(smem_raw + (row_ring - raw));
+  const uint32_t own_bar = Ks + L::BARS;
+  auto full = [&](int s) { return own_bar + 8u * (1 + s); };
+
+  // A kv head's kv tiles are neighbours in the grid, the first (the longest
+  // causal walk) first: they read the same Q / dO tiles at about the same time.
+  const int kt = blockIdx.x;
+  const int kh = blockIdx.y, b = blockIdx.z;
+  const int H = KH * G;
+  const int kv0 = kt * BM;
+  const int n_qt = (Sq + BM - 1) / BM;
+  const int qt0 = causal ? kt : 0;  // top-left causal: kv row j is seen by q rows >= j
+  const int per_head = max(n_qt - qt0, 0);
+  const int n = G * per_head;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gr = lane / 4, t = lane % 4;
+
+  // Step i (q head kh G + i / per_head, q tile qt0 + i % per_head) into ring
+  // slot i % STAGES, by one thread: Q, dO and the tile's two rows.
+  auto load_q = [&](int i) {
+    const int h = kh * G + i / per_head, qt = qt0 + i % per_head;
+    const int slot = i % STAGES;
+    const uint32_t st = ring + slot * L::STAGE;
+    mbar_expect_tx(full(slot), L::STAGE + L::ROWS);
+#pragma unroll
+    for (int c = 0; c < HD / 64; ++c) {
+      tma_load_4d(st + c * BM * 128, &tmq, full(slot), c * 64, qt * BM, h, b);
+      tma_load_4d(st + L::TILE + c * BM * 128, &tmdo, full(slot), c * 64, qt * BM, h, b);
+    }
+    bulk_load(row_ring + slot * L::ROWS, rows + (((long long)b * H + h) * n_qt + qt) * (2 * BM),
+              L::ROWS, full(slot));
+  };
+  if (tid == 0) {
+    for (int s = 0; s <= STAGES; ++s) mbar_init(own_bar + 8u * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(own_bar, L::OWN);
+#pragma unroll
+    for (int c = 0; c < HD / 64; ++c) {
+      tma_load_4d(Ks + c * BM * 128, &tmk, own_bar, c * 64, kv0, kh, b);
+      tma_load_4d(Vs + c * BM * 128, &tmv, own_bar, c * 64, kv0, kh, b);
+    }
+    for (int i = 0; i < STAGES - 1 && i < n; ++i) load_q(i);
+  }
+  mbar_wait(own_bar, 0);
+
+  float dK[HD / 8][4], dV[HD / 8][4];
+  const int kvrow0 = kv0 + warp * 16 + gr;
+  for (int i = 0; i < n; ++i) {
+    const int qs = (qt0 + i % per_head) * BM;
+    const int slot = i % STAGES;
+    const uint32_t Qs = ring + slot * L::STAGE, dOs = Qs + L::TILE;
+    const float* lse2 = row_s + slot * (2 * BM);
+    const float* dl = lse2 + BM;
+    mbar_wait(full(slot), (i / STAGES) & 1);
+
+    // Sᵀ = K Qᵀ and dPᵀ = V dOᵀ (64 kv x 64 q), behind the last step's dK / dV products.
+    float s[8][4], dp[8][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) wgmma_ss<64>(s, kmajor(Ks, kk), kmajor(Qs, kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) wgmma_ss<64>(dp, kmajor(Vs, kk), kmajor(dOs, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // the last step's dK / dV products and Sᵀ are done
+    fence_regs(s);
+    named_sync(1, 128);  // ... in every warp: the last step's slot is free
+    if (tid == 0 && i + STAGES - 1 < n) load_q(i + STAGES - 1);
+
+    // Pᵀ: s[nt][e] is kv row kvrow0 + 8 (e / 2), q column qs + 8 nt + 2 t + e % 2,
+    // kept for q columns below Sq and (causal) on or past the kv row.
+    int lo[2];
+    const int hi = Sq - (qs + 2 * t);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) lo[r] = causal ? kvrow0 + 8 * r - (qs + 2 * t) : -BM;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse2 + nt * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = nt * 8 + (e & 1);
+        const float p = ex2(fmaf(s[nt][e], scale_log2, -((e & 1) ? l2.y : l2.x)));
+        s[nt][e] = (c >= lo[e >> 1] && c < hi) ? p : 0.f;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+    // dSᵀ = Pᵀ ∘ (dPᵀ - delta), delta by q column.
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float2 d2 = *reinterpret_cast<const float2*>(dl + nt * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[nt][e] = s[nt][e] * (dp[nt][e] - ((e & 1) ? d2.y : d2.x));
+    }
+    uint32_t pa[4][4], da[4][4];
+    pack_a(pa, s);
+    pack_a(da, dp);
+    fence_regs(pa);
+    fence_regs(da);
+    wgmma_fence();
+    // dV += Pᵀ dO and dK += dSᵀ Q, dO and Q read MN-major.
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wgmma_rs<HD>(dV, pa[j], mnmajor(dOs, j), i > 0 || j > 0);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wgmma_rs<HD>(dK, da[j], mnmajor(Qs, j), i > 0 || j > 0);
+    wgmma_commit();
+    fence_regs(pa);
+    fence_regs(da);
+  }
+  wgmma_wait<0>();
+  fence_regs(dK);
+  fence_regs(dV);
+  if (n == 0) {
+    zero(dK);
+    zero(dV);
+  }
+  const long long off = b * skb + kh * skh + kv0 * sks;
+  store_rows<HD>(dk + off, sks, dK, Sk - kv0, scale);
+  store_rows<HD>(dv + off, sks, dV, Sk - kv0, 1.f);
 }
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const float* lse,
-                   const void* dout, void* dq, void* dk, void* dv, float* delta, int B, int H,
+                   const void* dout, void* dq, void* dk, void* dv, float* rows, int B, int H,
                    int KH, int Sq, int Sk, const long long* st, float scale, int causal,
                    cudaStream_t stream) {
-  using bf = __nv_bfloat16;
-  constexpr int LD = HD + 8;
+  CUtensorMap tmq, tmk, tmv, tmdo;
+  if (!encode_4d(&tmq, q, HD, Sq, H, B, st[2], st[1], st[0], BM) ||
+      !encode_4d(&tmdo, dout, HD, Sq, H, B, st[2], st[1], st[0], BM) ||
+      !encode_4d(&tmk, k, HD, Sk, KH, B, st[5], st[4], st[3], BM) ||
+      !encode_4d(&tmv, v, HD, Sk, KH, B, st[5], st[4], st[3], BM))
+    return cudaErrorInvalidValue;
+  constexpr int smem = (int)Smem<HD>::BYTES;
+  static bool attributes_set = false;
+  if (!attributes_set) {
+    cudaError_t err = cudaFuncSetAttribute(bwd_dq_kernel<HD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(bwd_dkdv_kernel<HD>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    attributes_set = true;
+  }
   const float scale_log2 = scale * LOG2E;
-  const long long rows = (long long)B * H * Sq;
-  bwd_delta_kernel<HD><<<(unsigned)((rows * 32 + 255) / 256), 256, 0, stream>>>(
-      static_cast<const bf*>(o), static_cast<const bf*>(dout), delta, H, Sq, st[0], st[1],
-      st[2], rows);
+  const int n_qt = (Sq + BM - 1) / BM, n_kt = (Sk + BM - 1) / BM;
+  bwd_dq_kernel<HD><<<dim3(n_qt, H, B), 128, smem, stream>>>(
+      tmq, tmk, tmv, tmdo, static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, rows,
+      static_cast<bf16*>(dq), H, H / KH, Sq, Sk, st[0], st[1], st[2], scale, scale_log2, causal);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-
-  const int smem_b = (2 * BT + 2 * BQS) * LD * 2 + 2 * BQS * 4;
-  err = cudaFuncSetAttribute(bwd_dkdv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_b);
-  if (err != cudaSuccess) return err;
-  bwd_dkdv_kernel<HD><<<dim3((Sk + BT - 1) / BT, KH, B), 128, smem_b, stream>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-      static_cast<const bf*>(dout), lse, delta, static_cast<bf*>(dk), static_cast<bf*>(dv),
-      H / KH, Sq, Sk, st[0], st[1], st[2], st[3], st[4], st[5], scale, scale_log2, causal);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const int smem_c = 4 * BT * LD * 2;
-  err = cudaFuncSetAttribute(bwd_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_c);
-  if (err != cudaSuccess) return err;
-  bwd_dq_kernel<HD><<<dim3((Sq + BT - 1) / BT, H, B), 128, smem_c, stream>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-      static_cast<const bf*>(dout), lse, delta, static_cast<bf*>(dq), H / KH, Sq, Sk, st[0],
-      st[1], st[2], st[3], st[4], st[5], scale, scale_log2, causal);
+  bwd_dkdv_kernel<HD><<<dim3(n_kt, KH, B), 128, smem, stream>>>(
+      tmq, tmk, tmv, tmdo, rows, static_cast<bf16*>(dk), static_cast<bf16*>(dv), KH, H / KH, Sq,
+      Sk, st[3], st[4], st[5], scale, scale_log2, causal);
   return cudaGetLastError();
 }
 
@@ -419,11 +474,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
 
 // q, o, dout, dq share the strides (sqb, sqh, sqs) and k, v, dk, dv the
 // strides (skb, skh, sks): batch, head (the flattened (K, G) axes of q, K of
-// k), position.  lse and delta are fp32 (B, H, Sq), contiguous; delta is
-// scratch the caller allocates.
+// k), position.  lse is fp32 (B, H, Sq), contiguous; rows is the scratch
+// described above.
 extern "C" int repro_flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o, const float* lse,
-    const void* dout, void* dq, void* dk, void* dv, float* delta, int B, int H, int KH, int Sq,
+    const void* dout, void* dq, void* dk, void* dv, float* rows, int B, int H, int KH, int Sq,
     int Sk, int hd, long long sqb, long long sqh, long long sqs, long long skb, long long skh,
     long long sks, float scale, int causal, void* stream) {
   if (B < 1 || H < 1 || KH < 1 || H % KH != 0 || Sq < 1 || Sk < 1 || (hd != 64 && hd != 128))
@@ -431,13 +486,16 @@ extern "C" int repro_flash_attention_bwd_bf16(
   const long long st[6] = {sqb, sqh, sqs, skb, skh, sks};
   for (int i = 0; i < 6; ++i)
     if (st[i] % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const void* ptrs[9] = {q, k, v, o, dout, dq, dk, dv, lse};
-  for (int i = 0; i < 9; ++i)
+  const void* ptrs[10] = {q, k, v, o, dout, dq, dk, dv, lse, rows};
+  for (int i = 0; i < 10; ++i)
     if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (encoder() == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cudaError_t bound = use_device_of(q);
+  if (bound != cudaSuccess) return static_cast<int>(bound);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd == 64)
-    return static_cast<int>(launch<64>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, H, KH, Sq, Sk,
+    return static_cast<int>(launch<64>(q, k, v, o, lse, dout, dq, dk, dv, rows, B, H, KH, Sq, Sk,
                                        st, scale, causal, s));
-  return static_cast<int>(launch<128>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, H, KH, Sq, Sk,
+  return static_cast<int>(launch<128>(q, k, v, o, lse, dout, dq, dk, dv, rows, B, H, KH, Sq, Sk,
                                       st, scale, causal, s));
 }

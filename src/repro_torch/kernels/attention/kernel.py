@@ -86,24 +86,31 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(err, "flash_attention")
 
 
+def bwd_scratch_floats(B: int, H: int, S: int) -> int:
+    """fp32 elements of the backward's scratch: 128 a 64-row q tile of each
+    (batch, q head) — the tile's lse in the log2 domain, then its delta."""
+    return B * H * -(-S // 64) * 128
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, dq: torch.Tensor,
                         dk: torch.Tensor, dv: torch.Tensor, *, causal: bool,
                         scale: float) -> None:
-    """Launch the backward's three kernels on the current stream: delta =
-    rowsum(dout * out) into an fp32 scratch, then dk / dv, then dq.  q,
-    out, dout, dq (B,S,K,G,hd) and k, v, dk, dv (B,T,K,hd): bf16,
-    contiguous, hd 64 or 128; lse fp32 (B, K*G, S) from the forward —
-    ``ops.FlashAttention`` checks all of that.  Raises if a launch is
-    refused."""
+    """Launch the backward's two kernels on the current stream: dq (which
+    also writes each q row's delta = rowsum(dout * out) and lse in the log2
+    domain into an fp32 scratch), then dk / dv.  q, out, dout, dq
+    (B,S,K,G,hd) and k, v, dk, dv (B,T,K,hd): bf16, contiguous, hd 64 or
+    128; lse fp32 (B, K*G, S) from the forward — ``ops.FlashAttention``
+    checks all of that.  Raises if a launch is refused."""
     B, S, K, G, hd = q.shape
     T = k.shape[1]
-    delta = torch.empty((B, K * G, S), dtype=torch.float32, device=q.device)
+    rows = torch.empty(bwd_scratch_floats(B, K * G, S), dtype=torch.float32,
+                       device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = bwd_library().repro_flash_attention_bwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), delta.data_ptr(), B, K * G, K, S, T, hd,
+        dv.data_ptr(), rows.data_ptr(), B, K * G, K, S, T, hd,
         *_bhs(q), *_bhs(k), float(scale), int(causal), stream)
     _check(err, "flash_attention_bwd")

@@ -26,7 +26,7 @@ from repro_torch.kernels.attention.ref import (attention_bwd_ref,
 #: forward kernel launches since the last reset (the plain CPU path does
 #: not count)
 LAUNCHES = 0
-#: backward launches (one per backward: its three kernels, one C call)
+#: backward launches (one per backward: its two kernels, one C call)
 BWD_LAUNCHES = 0
 #: head dims the backward kernel takes (hd == hd_v)
 BWD_HEAD_DIMS = (64, 128)

@@ -1,22 +1,37 @@
-"""The flash forward's serving launch against another version of its source,
-timed in turns on one card.
+"""The flash forward's serving launch, or the flash backward at the training
+shape, against another version of its source, timed in turns on one card.
 
     git show <commit>:src/repro_torch/csrc/flash_attention.cu > build/fa_other.cu
     PYTHONPATH=src python -m repro_torch.kernels.attention.probe \\
         --against build/fa_other.cu
+    git show <commit>:src/repro_torch/csrc/flash_attention_bwd.cu > build/fa_bwd_other.cu
+    PYTHONPATH=src python -m repro_torch.kernels.attention.probe --bwd \\
+        --against build/fa_bwd_other.cu
 
 from the root of a checkout, on a machine with the card and ``nvcc``.  It
-builds the other source into ``build/repro_torch/flash-probe/`` (its C
-entry with or without the logsumexp pointer: an earlier version has none)
-and times both at the serving shape (1, 16, 512, 128) causal, the
-logsumexp pointer null, in turns (other, checkout, checkout, other, three
-times): each a CUDA graph of 20 launches replayed 10 times between CUDA
-events, inputs in the 50 MB L2 as a prefill's fresh q / k / v are.
+builds the other source into ``build/repro_torch/flash-probe/`` (with
+``csrc/`` on the include path) and times both in turns (other, checkout,
+checkout, other, three times): each a CUDA graph of 20 launches of the raw
+C entry replayed 10 times between CUDA events, inputs in the 50 MB L2 as a
+prefill's fresh q / k / v are.  It prints the medians of six, their ratio
+and every sample.
+
+* Forward (the default): the serving shape (1, 16, 512, 128) causal, the
+  logsumexp pointer null (an earlier version's entry has none), and
+  whether the two outputs are bit-identical.
+* ``--bwd``: the training shape (8, 16, 512, 128) causal, on the
+  checkout's forward output and logsumexp; each version's dq, dk, dv
+  against the fp32 plain backward (max abs error over max|plain|, limit
+  2e-2) — the two need not agree bit for bit, as the order of the sums
+  differs — and each version's launches by name with their device times
+  (CUDA profiler, the mean of 20 calls).  The scratch handed to both is
+  large enough for either version's.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import statistics
 import subprocess
 from pathlib import Path
@@ -24,18 +39,24 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.attention import kernel
+from repro_torch.kernels.attention import kernel, ops
 
 SHAPE = (1, 16, 512, 128)        # B, H, S, hd: olmo-1b's prefill
+BWD_SHAPE = (8, 16, 512, 128)    # olmo-1b's training step, (8, 512)
+TOL = 2e-2
+
+
+def _build_other(path: Path, lib_name: str) -> ctypes.CDLL:
+    out = build.build_root() / "flash-probe" / lib_name
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build.nvcc()] + build.NVCC_FLAGS
+                   + ["-I", str(build.CSRC), "-o", str(out), str(path)],
+                   check=True, capture_output=True, text=True)
+    return ctypes.CDLL(str(out))
 
 
 def _other_entry(path: Path):
-    out = build.build_root() / "flash-probe" / "libfa_other.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([build.nvcc()] + build.NVCC_FLAGS + ["-o", str(out),
-                                                        str(path)],
-                   check=True, capture_output=True, text=True)
-    fn = ctypes.CDLL(str(out)).repro_flash_attention_fwd_bf16
+    fn = _build_other(path, "libfa_other.so").repro_flash_attention_fwd_bf16
     with_lse = "float* lse" in path.read_text()
     fn.argtypes = ([ctypes.c_void_p] * (5 if with_lse else 4)
                    + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
@@ -63,17 +84,39 @@ def _graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (reps * replays)
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--against", required=True, type=Path,
-                    help="another version of csrc/flash_attention.cu")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("probe: no CUDA device")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
-    other, other_lse = _other_entry(args.against)
+def _in_turns(run_other, run_checkout) -> tuple:
+    """Medians of six graph timings of each, in turns, and the samples."""
+    times = {"other": [], "checkout": []}
+    for _ in range(3):
+        for name in ("other", "checkout", "checkout", "other"):
+            times[name].append(_graph_ms(run_other if name == "other"
+                                         else run_checkout))
+    med = {n: statistics.median(t) for n, t in times.items()}
+    return med, times
+
+
+def launch_ms(fn, reps: int = 20) -> dict:
+    """Device ms of each kernel ``fn`` launches, by name (CUDA profiler,
+    the mean over ``reps`` calls after 3 warm-up calls)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            m = re.search(r"\w+_kernel(<[\d, ]+>)?", e.key)
+            out[m.group() if m else e.key[:60]] = \
+                e.self_device_time_total / e.count / 1e3
+    return out
+
+
+def _forward(against: Path) -> None:
+    other, other_lse = _other_entry(against)
     B, H, S, hd = SHAPE
     g = torch.Generator("cuda").manual_seed(0)
     q = torch.randn((B, S, H, 1, hd), generator=g, device="cuda").bfloat16()
@@ -99,17 +142,89 @@ def main(argv=None) -> int:
     run_checkout()
     torch.cuda.synchronize()
     same = torch.equal(out, ref)
-    times = {"other": [], "checkout": []}
-    for _ in range(3):
-        for name in ("other", "checkout", "checkout", "other"):
-            times[name].append(_graph_ms(run_other if name == "other"
-                                         else run_checkout))
-    med = {n: statistics.median(t) for n, t in times.items()}
+    med, times = _in_turns(run_other, run_checkout)
     print(f"flash forward at {SHAPE} causal, logsumexp off: checkout "
-          f"{med['checkout']:.5f} ms, {args.against} {med['other']:.5f} ms "
+          f"{med['checkout']:.5f} ms, {against} {med['other']:.5f} ms "
           f"(medians of 6 in turns; checkout/other "
           f"{med['checkout'] / med['other']:.3f}); outputs bit-identical: "
           f"{same}; samples {times}", flush=True)
+
+
+def _backward(against: Path) -> None:
+    other = _build_other(against, "libfa_bwd_other.so") \
+        .repro_flash_attention_bwd_bf16
+    other.argtypes = kernel._BWD_ARGTYPES
+    other.restype = ctypes.c_int
+    mine = kernel.bwd_library().repro_flash_attention_bwd_bf16
+    B, H, S, hd = BWD_SHAPE
+    scale = hd ** -0.5
+    g = torch.Generator("cuda").manual_seed(0)
+    q, k, v, dout = (torch.randn(shape, generator=g, device="cuda").bfloat16()
+                     for shape in ((B, S, H, 1, hd), (B, S, H, hd),
+                                   (B, S, H, hd), (B, S, H, 1, hd)))
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
+    kernel.flash_attention_fwd(q, k, v, out, causal=True, scale=scale,
+                               lse=lse)
+    # large enough for either version (the mma.sync one took B*H*S floats)
+    rows = torch.empty(max(kernel.bwd_scratch_floats(B, H, S), B * H * S),
+                       dtype=torch.float32, device="cuda")
+    grads = {n: [torch.empty_like(t) for t in (q, k, v)]
+             for n in ("other", "checkout")}
+
+    def call(fn, bufs):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr(), dout.data_ptr(),
+                 *(t.data_ptr() for t in bufs), rows.data_ptr(), B, H, H, S,
+                 S, hd, *kernel._bhs(q), *kernel._bhs(k), scale, 1,
+                 torch.cuda.current_stream().cuda_stream)
+        assert err == 0, err
+
+    def run_other():
+        call(other, grads["other"])
+
+    def run_checkout():
+        call(mine, grads["checkout"])
+
+    run_other()
+    run_checkout()
+    torch.cuda.synchronize()
+    want = ops.plain_attention_bwd(q, k, v, out, lse, dout, causal=True)
+    errs = {}
+    for name, got in grads.items():
+        errs[name] = {n: float((a.float() - w).abs().max() / w.abs().max())
+                      for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+        assert all(e <= TOL for e in errs[name].values()), (name, errs)
+    same = all(torch.equal(a, b) for a, b in zip(*grads.values()))
+    med, times = _in_turns(run_other, run_checkout)
+    print(f"flash backward at {BWD_SHAPE} causal: checkout "
+          f"{med['checkout']:.5f} ms, {against} {med['other']:.5f} ms "
+          f"(medians of 6 in turns; checkout/other "
+          f"{med['checkout'] / med['other']:.3f}); err/max|plain| checkout "
+          f"{errs['checkout']}, other {errs['other']} (limit {TOL}); "
+          f"bit-identical to each other: {same}; samples {times}",
+          flush=True)
+    for name, fn in (("checkout", run_checkout), ("other", run_other)):
+        per = launch_ms(fn)
+        print(f"flash backward {name} launches (device ms each, profiler): "
+              + ", ".join(f"{k} {ms:.5f}" for k, ms in per.items())
+              + f"; sum {sum(per.values()):.5f}", flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--against", required=True, type=Path,
+                    help="another version of csrc/flash_attention.cu, or "
+                         "with --bwd of csrc/flash_attention_bwd.cu")
+    ap.add_argument("--bwd", action="store_true",
+                    help="time the backward at the training shape")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("probe: no CUDA device")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    (_backward if args.bwd else _forward)(args.against)
     return 0
 
 

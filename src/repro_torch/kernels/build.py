@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into its own shared library (no PyTorch headers: seconds per build, not
 minutes).  The library lands in ``<repo>/build/repro_torch/<name>-<key>/``
 (``build/`` is git-ignored; ``REPRO_TORCH_BUILD_DIR`` overrides the root),
-where ``<key>`` hashes the source and the flags — a changed source builds
-anew, an unchanged one is loaded as it is.
+where ``<key>`` hashes the source, the shared headers (``csrc/*.cuh``) and
+the flags — a changed source or header builds anew, an unchanged one is
+loaded as it is.
 
 Nothing here runs at import time: this machine may have no ``nvcc`` and
 no card, and the CPU tests import every module.
@@ -55,8 +56,14 @@ def source(name: str) -> Path:
 
 
 def library_path(name: str) -> Path:
+    """Where the named library lands: the key hashes the flags, the source
+    and every shared header of ``csrc/`` (a source may include any of
+    them), so a changed header builds anew too."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update(source(name).read_bytes())
+    for header in sorted(source(name).parent.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     return build_root() / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
 
 

@@ -48,9 +48,12 @@ machine with the card, where there is no JAX:
   the flash kernel once per attention layer per prefill and the grouped
   matmul 3 times per MoE layer per forward;
 * the flash backward kernel against the fp32 plain backward at ragged,
-  GQA, non-causal and Sq > Sk shapes (2e-2 x max|plain|), the forward's
-  logsumexp (1e-4), two launches with the same bits, and the dispatcher's
-  refusal of head dims the backward does not take;
+  GQA (G 2 and G 4 at 512), non-causal, Sq > Sk and Sq < Sk causal, S 300
+  and hd 64 at 512 shapes (2e-2 x max|plain|), the forward's
+  logsumexp (1e-4), two launches with the same bits, the dispatcher's
+  refusal of head dims the backward does not take, and both flash kernels
+  launched from a thread that has made no CUDA call yet (the tensor maps
+  need the tensors' context current there) with the main thread's bits;
 * the flash dispatcher, given inputs that require grad under grad mode,
   runs the forward kernel (with its logsumexp) and the backward kernel,
   and the gradients match the plain backward; each of the other three
@@ -174,6 +177,11 @@ BWD_CASES = [
     (2, 4, 2, 130, 130, 128, True),         # GQA, three tiles
     (1, 2, 1, 77, 200, 64, False),          # non-causal, Sq != Sk
     (1, 2, 2, 200, 77, 128, True),          # causal, Sq > Sk
+    (1, 8, 2, 512, 512, 128, True),         # G 4: the GQA sum over every ring stage
+    (1, 4, 4, 300, 300, 128, True),         # S not a multiple of 64 or 128
+    (1, 8, 8, 512, 512, 64, True),          # hd 64 at 512
+    (1, 4, 2, 100, 300, 128, True),         # causal, Sq < Sk: kv tiles past
+                                            # the last q row write zeros
 ]
 
 
@@ -204,6 +212,58 @@ def test_flash_backward_matches_plain_version_bit_for_bit_twice(case, cuda):
         assert bool(torch.isfinite(got).all())
         assert float((got.float() - ref).abs().max()) <= \
             2e-2 * float(ref.abs().max())
+    if causal and Sq < Sk:          # no q row sees kv rows Sq..Sk-1
+        for got in runs[0][1:]:
+            assert bool((got[:, Sq:] == 0).all())
+
+
+def test_flash_kernels_launch_from_a_fresh_thread(cuda):
+    """The forward and the backward encode their tensor maps with
+    cuTensorMapEncodeTiled, which needs the tensors' context current on the
+    calling thread; autograd runs the backward (and, under remat, the
+    forward) on a worker thread that may have made no CUDA call yet.  Both
+    launch from a fresh thread, into buffers made beforehand, with the main
+    thread's bits."""
+    import threading
+
+    from repro_torch.kernels.attention import kernel
+    B, H, K, S, hd = 1, 4, 2, 130, 128
+    q, k, v = _inputs((B, H, K, S, S, hd, hd, True), cuda, 43)
+    dout = torch.randn(q.shape, device=cuda).to(torch.bfloat16)
+    scale = hd ** -0.5
+
+    def run():
+        out = torch.empty_like(q)
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=cuda)
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        torch.cuda.synchronize()
+        return out, lse, grads
+
+    main = run()
+    kernel.flash_attention_fwd(q, k, v, main[0], causal=True, scale=scale,
+                               lse=main[1])
+    kernel.flash_attention_bwd(q, k, v, main[0], main[1], dout, *main[2],
+                               causal=True, scale=scale)
+    fresh = run()
+    errors = []
+
+    def launch():
+        try:
+            kernel.flash_attention_fwd(q, k, v, fresh[0], causal=True,
+                                       scale=scale, lse=fresh[1])
+            kernel.flash_attention_bwd(q, k, v, fresh[0], fresh[1], dout,
+                                       *fresh[2], causal=True, scale=scale)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            errors.append(e)
+
+    worker = threading.Thread(target=launch)
+    worker.start()
+    worker.join()
+    torch.cuda.synchronize()
+    assert errors == []
+    assert torch.equal(fresh[0], main[0]) and torch.equal(fresh[1], main[1])
+    assert all(torch.equal(a, b) for a, b in zip(fresh[2], main[2]))
 
 
 def test_flash_backward_refuses_head_dims_it_does_not_take(cuda):
