@@ -9,8 +9,10 @@ layers), then the CXL0 model's tensor twin at a fuzzing run's batch, then
 olmo-1b's serving features (commit schedules, static baseline, prefix
 reuse), then a fleet of olmo-1b engines over one pool (live migration,
 the placement policy), then durable training of olmo-1b at full width and
-depth through the flash forward and backward kernels, and prints one line
-per phase:
+depth through the flash forward and backward kernels, then serving of the
+other five decoder-only architectures at full width (internlm2-1.8b,
+phi3-medium-14b, yi-34b, chameleon-34b; deepseek-v2-236b's depth cut to 8
+layers), and prints one line per phase:
 
 1. environment — the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions;
@@ -53,8 +55,9 @@ per phase:
      into an mbarrier ring, both products on wgmma) at the path's shape
      (1, 16, 512, 128) causal, at the static baseline's batched prefill
      (4, 16, 512, 128) causal, at jamba-1.5-large's (1, 64 heads over 8
-     kv heads, 512, 128) and at ragged, GQA, hd_v != hd and non-causal
-     shapes: max abs error against the fp32 plain version (limit 2e-2:
+     kv heads, 512, 128), at deepseek-v2's MLA prefill (1, 128 heads over
+     128, 512, hd 192 in the 256-wide instantiation, hd_v 128) and at
+     ragged, GQA, hd_v != hd and non-causal shapes: max abs error against the fp32 plain version (limit 2e-2:
      bf16 output rounding, one ulp near 1 is 7.8e-3); library: SDPA;
    * the grouped matmul (TMA ring, wgmma on out^T = w^T x^T, each weight
      byte read once whatever C is, persistent blocks) at the olmoe path's
@@ -62,7 +65,9 @@ per phase:
      down, decode up/gate (64, 32, 2048) @ (64, 2048, 1024) and down), at
      the jamba-1.5-large path's four ((16, 80 | 32, 8192) @ (16, 8192,
      24576) and down) and at ragged shapes (C 37 and C 1 with D 200, F 72;
-     D 1000, not a multiple of 64; C 300, two passes, with F 200):
+     D 1000, not a multiple of 64; C 300, two passes, with F 200) and at
+     deepseek-v2's four ((160, 24 | 32, 5120) @ (160, 5120, 1536) and
+     down: its prefill and per-sequence decode capacities):
      elementwise
      |kernel - plain_fp32| <= 1e-2 * max|plain_fp32| (one rounding to
      bf16 is half an ulp, 3.9e-3 relative); library: ``torch.bmm``;
@@ -235,9 +240,27 @@ per phase:
         again; params, mu, nu, the step, the key data and the pipeline
         state bit-identical to (b)'s, and the losses of steps 4-7 too.
     The phase's time is printed.
+12. the other five decoder-only architectures — internlm2-1.8b,
+    phi3-medium-14b, yi-34b, chameleon-34b at full width and depth
+    (yi-34b's and chameleon-34b's stacked MLP leaves drawn a layer at a
+    time: ``models.params.SLICED_DRAW_ELEMENTS``) and deepseek-v2-236b at
+    full width, 8 of its 60 layers (1 dense + 7 MoE: 58.4 GB) — each
+    served on the first 8 requests of phase 4's trace as phase 4 serves
+    (random weights, seed 0; 4 slots, t_max 560, a ``sync`` commit every
+    4 ticks), after the training state is freed: flash once a layer a
+    prefill (MLA's prefill at hd 192 / hd_v 128, 128 heads, G = 1), the
+    grouped matmul 21 times a forward on deepseek-v2 and never elsewhere;
+    decode ticks, prefills, commits, lane copies and token blocks flushed
+    equal across the five and to a CPU rehearsal of the same trace (the
+    olmo-1b smoke config), D2H bytes = lane copies x lane bytes, each
+    analytic parameter count and lane size as expected; internlm2 and
+    deepseek-v2 crash after 10 ticks and resume with every session's
+    tokens bit-identical.  Printed for each: tok/s, host s in admit /
+    decode / commit, ms a decode tick, peak GB and its seconds, beside
+    the card's name and power limit; then the phase's time.
 
-Each path and each run of phases 9, 10 and 11 is driven with every launch
-count set to 0 just before it and read just after.  Then a
+Each path and each run of phases 9, 10, 11 and 12 is driven with every
+launch count set to 0 just before it and read just after.  Then a
 ``{"kernels": [...]}`` line, the card line again, and as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises and the script exits non-zero; without a CUDA device, or without
 the repo's ``src/repro_torch`` beside it, it exits non-zero and prints no
@@ -247,6 +270,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import io
 import json
@@ -456,6 +480,11 @@ def phase_kernel(torch, ops):
         ("gqa_h32_k8", 1, 32, 8, 512, 512, 128, 128, True),
         ("hdv64_hd128", 1, 16, 16, 384, 384, 128, 64, True),
         ("noncausal_sq300_sk700", 2, 16, 16, 300, 700, 128, 128, False),
+        ("mla_h128_hd192", 1, 128, 128, 512, 512, 192, 128, True),
+        # phase 12's dense prefills (chameleon-34b's is jamba_h64_k8's)
+        ("internlm2_h16_k8", 1, 16, 8, 512, 512, 128, 128, True),
+        ("phi3_h40_k10", 1, 40, 10, 512, 512, 128, 128, True),
+        ("yi_h56_k8", 1, 56, 8, 512, 512, 128, 128, True),
     ]
     gen = torch.Generator("cuda").manual_seed(1234)
     rows = {}
@@ -765,6 +794,10 @@ def phase_gmm(torch, gmm_ops):
         ("jamba_prefill_down", 16, 80, 24576, 8192, True),
         ("jamba_decode_up", 16, 32, 8192, 24576, True),
         ("jamba_decode_down", 16, 32, 24576, 8192, True),
+        ("deepseek_prefill_up", 160, 24, 5120, 1536, True),
+        ("deepseek_prefill_down", 160, 24, 1536, 5120, True),
+        ("deepseek_decode_up", 160, 32, 5120, 1536, True),
+        ("deepseek_decode_down", 160, 32, 1536, 5120, True),
         ("ragged_c37", 3, 37, 200, 72, False),
         ("ragged_c1", 3, 1, 200, 72, False),
         ("d1000", 8, 48, 1000, 256, False),
@@ -1068,10 +1101,22 @@ def phase_profile(torch, engine, trace, ticks: int = 8) -> dict:
                 top=[[n, ms] for n, ms in top])
 
 
-def phase_path(torch, cfg, trace, t_max, counters) -> dict:
-    """Phases 4 to 7: one architecture's serving path at full width (at
-    the depth ``cfg`` has), then its profile window, then crash and
-    resume.  The model is built from ``cfg`` and its weights drawn from a
+def count_lane_copies(engine) -> list:
+    """A list that gains one entry each time ``engine`` stages a slot's
+    cache lane for a commit (its device-to-host copy)."""
+    copies = []
+    stage = engine._stage_paged
+    engine._stage_paged = lambda *a, **kw: (copies.append(1)
+                                            or stage(*a, **kw))
+    return copies
+
+
+def phase_path(torch, cfg, trace, t_max, counters, *, profile=True,
+               resume=True) -> dict:
+    """Phases 4 to 7 (and each run of phase 12): one architecture's
+    serving path at full width (at the depth ``cfg`` has), then its
+    profile window (``profile``), then crash and resume (``resume``).  The
+    model is built from ``cfg`` and its weights drawn from a
     torch.Generator seeded 0, then handed to ``build_serve_engine``.
     ``counters`` maps a kernel name to its dispatcher module and count
     (``reset_counts`` / ``read_counts``); every count is set to 0 just
@@ -1109,6 +1154,7 @@ def phase_path(torch, cfg, trace, t_max, counters) -> dict:
               f"finite/shaped")
         del logits
         timer = PhaseTimer(engine)
+        lane_copies = count_lane_copies(engine)
         before = pool_objects(pools[0])
         torch.cuda.synchronize()
         reset_counts(counters)
@@ -1159,13 +1205,21 @@ def phase_path(torch, cfg, trace, t_max, counters) -> dict:
                     tokens_per_s=res.emitted_tokens / dt,
                     decode_ticks=res.decode_ticks, prefills=res.prefills,
                     commits=res.commits, d2h_bytes=d2h, launches=launches,
-                    lane_bytes=lane_bytes, flushed=flushed,
-                    phase_s=timer.t, t_max=t_max,
+                    lane_bytes=lane_bytes, lane_copies=len(lane_copies),
+                    flushed=flushed, phase_s=timer.t, t_max=t_max,
+                    decode_ms=1e3 * timer.t["decode"] / max(
+                        timer.n["decode"], 1),
                     peak_mem_bytes=torch.cuda.max_memory_allocated())
         print(f"path: {arch} full width (L={cfg.n_layers} d={cfg.d_model} "
               f"H={cfg.n_heads} hd={cfg.head_dim} V={cfg.vocab_size}"
+              + (f" MLA kv_lora={cfg.mla.kv_lora_rank} qk="
+                 f"{cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim} "
+                 f"v={cfg.mla.v_head_dim}" if cfg.mla is not None else "")
               + (f" E={cfg.moe.n_experts} top-{cfg.moe.top_k} "
                  f"d_ff_e={cfg.moe.d_ff_expert}" if n_moe else "")
+              + (f" shared={cfg.moe.n_shared} {n_moe} MoE / "
+                 f"{cfg.n_layers - n_moe} dense layers"
+                 if n_moe and cfg.moe.n_shared else "")
               + (f" rwkv n={cfg.rwkv.head_dim} d_ff={cfg.d_ff}"
                  if n_rwkv else "")
               + (f" K={cfg.n_kv_heads} mamba inner="
@@ -1173,7 +1227,8 @@ def phase_path(torch, cfg, trace, t_max, counters) -> dict:
                  f"{n_mamba} mamba / {n_attn} attention layers"
                  if n_mamba else "")
               + f", {bundle.n_params()} params, init {init_s:.1f}s) "
-              f"4 slots 16 requests prompt 512: {res.emitted_tokens} tokens "
+              f"4 slots {len(trace)} requests prompt 512: "
+              f"{res.emitted_tokens} tokens "
               f"in {dt:.3f}s = {res.emitted_tokens / dt:.1f} tok/s, "
               f"{res.decode_ticks} decode ticks, {res.prefills} prefills, "
               f"{res.commits} commits flushing {flushed['blocks']} token-block "
@@ -1181,7 +1236,8 @@ def phase_path(torch, cfg, trace, t_max, counters) -> dict:
               f"({lane_bytes} a lane), "
               f"launches "
               f"{launches}; host s in admit {timer.t['admit']:.3f} decode "
-              f"{timer.t['decode']:.3f} commit {timer.t['commit']:.3f}; "
+              f"{timer.t['decode']:.3f} commit {timer.t['commit']:.3f} "
+              f"({path['decode_ms']:.2f} ms a decode tick); "
               f"peak device memory "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
               flush=True)
@@ -1192,10 +1248,13 @@ def phase_path(torch, cfg, trace, t_max, counters) -> dict:
                 bundle=bundle, params=params, device="cuda", **PATH_KW)[0]
 
         # -- profile: where the path's device time goes ---------------------
-        e_prof = engine_on(pools[2])
-        path["profile"] = phase_profile(torch, e_prof, trace)
-        e_prof.close()
-        del e_prof
+        if profile:
+            e_prof = engine_on(pools[2])
+            path["profile"] = phase_profile(torch, e_prof, trace)
+            e_prof.close()
+            del e_prof
+        if not resume:
+            return path
 
         # -- crash and resume --------------------------------------------
         crash_ticks = 10
@@ -1229,6 +1288,131 @@ def phase_path(torch, cfg, trace, t_max, counters) -> dict:
     finally:
         for p in pools:
             shutil.rmtree(p, ignore_errors=True)
+
+
+#: phase 12: the five decoder-only architectures the earlier phases do not
+#: serve, in the order they run
+ARCHS_12 = ("internlm2-1.8b", "phi3-medium-14b", "yi-34b", "chameleon-34b",
+            "deepseek-v2-236b")
+#: deepseek-v2-236b is 472 GB in bf16 at its 60 layers; 8 (1 dense + 7
+#: MoE) hold 58.4 GB.  The others run at full depth.
+DEPTH_12 = {"deepseek-v2-236b": 8}
+#: at the depth phase 12 runs each at: ``ModelConfig.param_count`` (the
+#: reference's analytic count) and the weights the bundle holds, which add
+#: the norm scales the analytic count leaves out
+PARAMS_12 = {"internlm2-1.8b": (1_889_009_664, 1_889_110_016),
+             "phi3-medium-14b": (14_659_092_480, 14_659_507_200),
+             "yi-34b": (34_388_049_920, 34_388_917_248),
+             "chameleon-34b": (34_292_629_504, 34_293_436_416),
+             "deepseek-v2-236b": (29_191_274_496, 29_191_377_920)}
+#: one slot's cache at t_max 560: 560 x layers x bytes a token a layer
+#: (GQA: 2 x kv heads x head_dim x 2; MLA: (512 + 64) x 2)
+LANE_BYTES_12 = {"internlm2-1.8b": 55_050_240,
+                 "phi3-medium-14b": 114_688_000,
+                 "yi-34b": 137_625_600,
+                 "chameleon-34b": 110_100_480,
+                 "deepseek-v2-236b": 5_160_960}
+#: grouped-matmul launches a forward (3 a MoE layer)
+GMM_12 = {"deepseek-v2-236b": 21}
+#: the architectures phase 12 also crashes after 10 ticks and resumes
+CRASH_12 = ("internlm2-1.8b", "deepseek-v2-236b")
+N_REQUESTS_12 = 8                  # the first 8 requests of phase 4's trace
+
+
+def rehearse_schedule(torch, trace, t_max) -> dict:
+    """The serving schedule of ``trace`` as a run on the CPU gives it: the
+    olmo-1b smoke config (the schedule depends on the prompts' lengths,
+    the budgets, the slots and the commit cadence, not on the model) with
+    the same slots, cadence and pool commits.  Returns the decode ticks,
+    prefills, commits, lane copies staged for commits and token blocks
+    flushed."""
+    from repro_torch.serve.engine import build_serve_engine
+    pool = tempfile.mkdtemp(prefix="chip_smoke_rehearsal_")
+    try:
+        engine, cfg = build_serve_engine(
+            "olmo-1b", smoke=True, t_max=t_max, pool_path=pool,
+            device="cpu", **PATH_KW)
+        small = [dataclasses.replace(r, prompt=tuple(
+            t % cfg.vocab_size for t in r.prompt)) for r in trace]
+        copies = count_lane_copies(engine)
+        before = pool_objects(pool)
+        res = engine.run(small)
+        engine.close()
+        return dict(decode_ticks=res.decode_ticks, prefills=res.prefills,
+                    commits=res.commits, lane_copies=len(copies),
+                    blocks=pool_objects(pool)["blocks"] - before["blocks"])
+    finally:
+        shutil.rmtree(pool, ignore_errors=True)
+
+
+def phase_archs(torch, trace, t_max, counters) -> dict:
+    """12. The five decoder-only architectures the earlier phases do not
+    serve, one after another at full width (deepseek-v2-236b at 8 of its
+    60 layers), each through ``phase_path`` on the first 8 requests of
+    phase 4's trace, with a ``sync`` commit every 4 ticks; internlm2-1.8b
+    and deepseek-v2-236b also crash after 10 ticks and resume.  Checks:
+    each one's launches (flash once a layer a prefill; the grouped matmul
+    21 times a forward on deepseek-v2, 0 elsewhere), its analytic
+    parameter count and lane bytes; the schedule (decode ticks, prefills,
+    commits, lane copies, flushed token blocks) equal across the five and
+    to the CPU rehearsal's; D2H bytes = lane copies x lane bytes."""
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    trace = trace[:N_REQUESTS_12]
+    t0 = time.perf_counter()
+    want = rehearse_schedule(torch, trace, t_max)
+    print(f"archs: CPU rehearsal of the {len(trace)}-request trace "
+          f"(olmo-1b smoke, {time.perf_counter() - t0:.1f}s): "
+          f"{want['decode_ticks']} decode ticks, {want['prefills']} "
+          f"prefills, {want['commits']} commits, {want['lane_copies']} lane "
+          f"copies, {want['blocks']} token blocks flushed", flush=True)
+    runs = {}
+    for arch in ARCHS_12:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if arch in DEPTH_12:
+            cfg = cfg.with_(n_layers=DEPTH_12[arch])
+        run = phase_path(torch, cfg, trace, t_max, counters, profile=False,
+                         resume=arch in CRASH_12)
+        run["run_s"] = time.perf_counter() - t0
+        runs[arch] = run
+        got = {k: run[k] for k in ("decode_ticks", "prefills", "commits",
+                                   "lane_copies")}
+        got["blocks"] = run["flushed"]["blocks"]
+        check(got == want, f"{arch}: schedule {got} != the CPU "
+                           f"rehearsal's {want}")
+        check((run["param_count"], run["n_params"]) == PARAMS_12[arch],
+              f"{arch} counts {run['param_count']} params and holds "
+              f"{run['n_params']}, expected {PARAMS_12[arch]}")
+        check(run["lane_bytes"] == LANE_BYTES_12[arch]
+              and run["d2h_bytes"] == want["lane_copies"] * run["lane_bytes"],
+              f"{arch}: D2H {run['d2h_bytes']} bytes, lane "
+              f"{run['lane_bytes']}: expected {want['lane_copies']} lane "
+              f"copies x {LANE_BYTES_12[arch]}")
+        n = run["launches"]
+        check(n["flash_attention"] == cfg.n_layers * want["prefills"]
+              and n["grouped_matmul"] == GMM_12.get(arch, 0) * (
+                  want["prefills"] + want["decode_ticks"])
+              and n["wkv6"] == n["selective_scan"] == 0
+              and n["flash_attention_bwd"] == 0,
+              f"{arch}: launches {n}")
+        print(f"archs: {arch} {cfg.n_layers} layers "
+              f"{run['n_params']} params: {run['tokens_per_s']:.1f} tok/s, "
+              f"host s in admit {run['phase_s']['admit']:.3f} decode "
+              f"{run['phase_s']['decode']:.3f} commit "
+              f"{run['phase_s']['commit']:.3f}, {run['decode_ms']:.2f} ms a "
+              f"decode tick, peak {run['peak_mem_bytes'] / 1e9:.2f} GB, "
+              f"{run['run_s']:.1f} s; {card_line()}", flush=True)
+        del run
+    out = dict(rehearsal=want, runs=runs,
+               launches={f"{a} (phase 12)": r["launches"]
+                         for a, r in runs.items()},
+               phase_s=time.perf_counter() - t_phase)
+    print(f"archs: phase 12 took {out['phase_s']:.1f} s", flush=True)
+    return out
 
 
 CXL0_BATCH_CHECK = 65_536          # (a): card against CPU
@@ -2233,6 +2417,10 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     report["train"] = phase_train(torch, get_config("olmo-1b"), counters)
+    # -- 12. the other five decoder-only architectures ----------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["archs"] = phase_archs(torch, trace, t_max, counters)
     by_run = {a: p["launches"] for a, p in paths.items()}
     by_run.update({f"olmo-1b {r}": n
                    for r, n in report["features"]["launches"].items()})
@@ -2240,6 +2428,7 @@ def main(argv=None) -> int:
                    for r, n in report["fleet"]["launches"].items()})
     by_run.update({f"olmo-1b {r}": n
                    for r, n in report["train"]["launches"].items()})
+    by_run.update(report["archs"]["launches"])
 
     mains = {"flash_attention": report["kernel_cases"]["path_s512"],
              "grouped_matmul": report["gmm_cases"]["decode_up"],

@@ -67,12 +67,12 @@
 // are contiguous and 16-byte aligned; D and F are multiples of 8 (TMA takes
 // 16-byte strides).  The tensor maps are encoded on the host at each call,
 // through cuTensorMapEncodeTiled from cudaGetDriverEntryPoint, so the
-// library needs no -lcuda.
+// library needs no -lcuda, after the device that holds x is made current on
+// the calling thread (use_device_of): the encoder fails on a thread that
+// has made no CUDA call of its own.  The mbarrier, wgmma-fence and
+// tensor-map helpers are hopper.cuh's, shared with flash attention.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -89,39 +89,9 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// ---- mbarriers -------------------------------------------------------------
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
-// Wait for the phase of parity `parity` to complete.  A protocol fault traps
-// (the launch fails) after 10 s instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  uint64_t t0 = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    uint64_t now;
-    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
-    if (t0 == 0) t0 = now;
-    else if (now - t0 > 10000000000ull) __trap();
-  }
-}
-
 // ---- TMA -------------------------------------------------------------------
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1, int c2) {
@@ -143,16 +113,6 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
   d |= static_cast<uint64_t>(1024 >> 4) << 32;     // SBO
   d |= static_cast<uint64_t>(1) << 62;             // 128-byte swizzle
   return d;
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // d (64 F x N C, fp32) += A (64 F x 16 D, MN-major: the transpose bit)
 //                        * B (16 D x N C, K-major), N = 16 NCH.  One
@@ -258,10 +218,6 @@ template <int N>
 __device__ __forceinline__ void fence_acc(float (&acc)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(acc[i])::"memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // A tile's F strip is 2 MT boxes of 64 columns: MT 64-row wgmma M tiles a
@@ -417,24 +373,6 @@ gmm_bf16_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A 3-D bf16 tensor map (dims innermost first), 128-byte swizzle, zero fill.
 bool encode_3d(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1, uint64_t d2,
                uint32_t b0, uint32_t b1) {
@@ -495,6 +433,8 @@ extern "C" int repro_grouped_matmul_bf16(const void* x, const void* w, void* out
        reinterpret_cast<uintptr_t>(out)) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (encoder() == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cudaError_t bound = use_device_of(x);
+  if (bound != cudaSuccess) return static_cast<int>(bound);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // the fewest 16-row chunks that hold C (C > 256 takes passes of 256)
   const int nch = (C + CH - 1) / CH;

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention forward
-// (flash_attention.cu) and backward (flash_attention_bwd.cu): mbarriers, TMA
-// loads, wgmma with its shared-memory descriptors, and the host-side 4-D
-// tensor maps over the model's strided layout.  Everything is inline and in
+// (flash_attention.cu) and backward (flash_attention_bwd.cu) and the grouped
+// matmul (grouped_matmul.cu): mbarriers, TMA loads, wgmma with its
+// shared-memory descriptors, the tensor-map encoder with the device binding
+// it needs, and the host-side 4-D tensor maps over the model's strided
+// layout.  Everything is inline and in
 // an anonymous namespace: each source that includes it is its own library.
 
 #pragma once

@@ -39,12 +39,24 @@ def set_determinism():
     torch.backends.cudnn.allow_tf32 = False
 
 
+def _servable(arch: str) -> str:
+    """``--arch``'s type: an encoder-decoder id of the reference is
+    refused with the reference's reason (anything else unknown by
+    ``choices``)."""
+    from repro_torch.configs import ENCDEC_ARCHS
+    from repro_torch.serve.engine import DECODER_ONLY
+    if arch in ENCDEC_ARCHS:
+        raise argparse.ArgumentTypeError(f"{arch}: {DECODER_ONLY}")
+    return arch
+
+
 def main(argv=None):
-    from repro_torch.configs import ARCH_IDS
     from repro_torch.dsm.emu import PRESETS
     from repro_torch.dsm.flit_runtime import AUTO_MODE, COMMIT_MODES
+    from repro_torch.serve.engine import servable_archs
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="olmo-1b", choices=ARCH_IDS)
+    ap.add_argument("--arch", default="olmo-1b", type=_servable,
+                    choices=servable_archs())
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--mode", default="continuous",
                     choices=["continuous", "static"])

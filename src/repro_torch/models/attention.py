@@ -1,5 +1,5 @@
-"""Grouped-query attention — the port of ``repro.models.attention`` (GQA,
-lines 31-181; the MLA code waits for the deepseek-v2 slice).
+"""Grouped-query attention and multi-head latent attention (MLA,
+deepseek-v2) — the port of ``repro.models.attention``.
 
 Layout as in the reference: q is produced natively grouped as
 (B, S, K, G, hd) with K = kv heads and G = q heads per kv head, so GQA
@@ -12,7 +12,17 @@ needs no repeat of K / V.
   torch, as the reference computes decode attention outside any Pallas
   kernel.  It takes PER-SEQUENCE positions, so a batch of serving slots
   each decodes at its own position (the reference vmaps a scalar-position
-  decode over the slots; see ``train.step.make_slot_decode_step``).
+  decode over the slots; see ``train.step.make_slot_decode_step``);
+* ``mla_forward`` (train / prefill): K / V up-projected from the latent
+  whole (the reference expands them chunk by chunk inside its plain
+  attention), then the same flash kernel with q as (B, S, K=H, G=1,
+  nope+rope) and v of width v_head_dim;
+* ``mla_decode``: the reference's absorbed form (w_uk folded into q, one
+  shared latent head of width kv_lora + rope), plain ``chunked_attention``
+  at per-sequence positions: its widths (576 / 512 at deepseek-v2) are
+  beyond the kernel's 256, and the reference computes it outside Pallas.
+  The cache holds the latent: k = ckv (B, T, kv_lora), v = k_rope (B, T,
+  rope), both on the logical ``seq_kv`` axis the pager blocks.
 """
 from __future__ import annotations
 
@@ -109,8 +119,8 @@ def gqa_descs(cfg: ModelConfig):
 
 class KVCache(NamedTuple):
     """Decode-time cache for one attention layer (possibly layer-stacked)."""
-    k: torch.Tensor       # (B, T_max, K, hd)
-    v: torch.Tensor       # (B, T_max, K, hd)
+    k: torch.Tensor       # (B, T_max, K, hd)  |  MLA: ckv (B, T_max, kv_lora)
+    v: torch.Tensor       # (B, T_max, K, hd)  |  MLA: k_rope (B, T_max, rope)
 
 
 def gqa_cache_desc(cfg: ModelConfig, batch: int, t_max: int):
@@ -140,7 +150,8 @@ def project_qkv(cfg: ModelConfig, p, x, positions):
 
 
 def out_proj(p, out: torch.Tensor) -> torch.Tensor:
-    """(B, S, K, G, hd) @ wo (K, G, hd, D) -> (B, S, D)."""
+    """(B, S, K, G, hd) @ wo (K, G, hd, D) -> (B, S, D); MLA's (B, S, H,
+    [1,] v) @ wo (H, v, D) alike."""
     B, S = out.shape[:2]
     wo = p["wo"]
     return out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
@@ -173,4 +184,117 @@ def gqa_decode(cfg: ModelConfig, p, x: torch.Tensor, cache: KVCache,
     out = chunked_attention(
         q, (cache.k, cache.v), lambda kv: kv, positions, 0,
         causal=True, chunk=cfg.attn_chunk)
+    return out_proj(p, out), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2)
+# ---------------------------------------------------------------------------
+
+def mla_descs(cfg: ModelConfig):
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "w_dq": ParamDesc((d, m.q_lora_rank), ("embed", "lora")),
+        "q_norm": ParamDesc((m.q_lora_rank,), ("lora",), init="ones"),
+        "w_uq": ParamDesc((m.q_lora_rank, H, qk), ("lora", "heads", "head_dim")),
+        "w_dkv": ParamDesc((d, m.kv_lora_rank + m.qk_rope_head_dim), ("embed", "lora")),
+        "kv_norm": ParamDesc((m.kv_lora_rank,), ("lora",), init="ones"),
+        "w_uk": ParamDesc((m.kv_lora_rank, H, m.qk_nope_head_dim),
+                          ("lora", "heads", "head_dim")),
+        "w_uv": ParamDesc((m.kv_lora_rank, H, m.v_head_dim),
+                          ("lora", "heads", "head_dim")),
+        "wo": ParamDesc((H, m.v_head_dim, d), ("heads", "head_dim", "embed")),
+    }
+
+
+def mla_cache_desc(cfg: ModelConfig, batch: int, t_max: int):
+    m = cfg.mla
+    dt = cfg.cache_dtype or cfg.compute_dtype
+    return KVCache(
+        k=ParamDesc((batch, t_max, m.kv_lora_rank),
+                    ("batch", "seq_kv", "mla_lora"),
+                    dtype=dt, init="zeros"),
+        v=ParamDesc((batch, t_max, m.qk_rope_head_dim),
+                    ("batch", "seq_kv", "mla_lora"),
+                    dtype=dt, init="zeros"))
+
+
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, S, r) @ w (r, H, h) -> (B, S, H, h)."""
+    B, S, r = x.shape
+    return (x @ w.reshape(r, -1)).reshape((B, S) + tuple(w.shape[1:]))
+
+
+def _mla_q(cfg: ModelConfig, p, x, positions):
+    """x (B, S, D) -> q_nope (B,S,H,nope), q_rope (B,S,H,rope) (roped)."""
+    m = cfg.mla
+    cq = rms_head_norm(x @ p["w_dq"], p["q_norm"])
+    q = _heads(cq, p["w_uq"])
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = rope(q[..., m.qk_nope_head_dim:], positions, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_ckv(cfg: ModelConfig, p, x, positions):
+    """x (B, S, D) -> the latent the cache holds: ckv (B, S, kv_lora)
+    (normed) and k_rope (B, S, rope) (roped, one head shared by all)."""
+    m = cfg.mla
+    ckv_full = x @ p["w_dkv"]
+    ckv = rms_head_norm(ckv_full[..., :m.kv_lora_rank], p["kv_norm"])
+    k_rope = rope(ckv_full[..., None, m.kv_lora_rank:], positions,
+                  cfg.rope_theta)
+    return ckv, k_rope[..., 0, :]
+
+
+def mla_forward(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor,
+                *, causal: bool = True, ckv=None) -> torch.Tensor:
+    """Expanded MLA (train / prefill): K / V up-projected from the latent
+    whole and the attention through the flash kernel (q (B,S,K=H,G=1,qk),
+    scale qk^-0.5: the kernel's default).  ``ckv`` passes the latent
+    already computed (prefill also writes it into the cache)."""
+    m = cfg.mla
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    q = torch.cat([q_nope, q_rope], -1)[:, :, :, None, :]
+    c, k_rope = ckv if ckv is not None else _mla_ckv(cfg, p, x, positions)
+    k_nope = _heads(c, p["w_uk"])
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        tuple(k_nope.shape[:3]) + (m.qk_rope_head_dim,))], -1)
+    v = _heads(c, p["w_uv"])
+    out = flash_attention(q, k, v, causal=causal)            # (B,S,H,1,v)
+    return out_proj(p, out)
+
+
+def mla_decode(cfg: ModelConfig, p, x: torch.Tensor, cache: KVCache,
+               pos: torch.Tensor):
+    """Absorbed MLA decode: attention in latent space, one shared head
+    (K=1, G=H).  x: (B, 1, D); pos: (B,) int (a scalar broadcasts).  Writes
+    the token's ckv / k_rope into ``cache`` IN PLACE at ``pos[b]`` and
+    returns ``(y, cache)``."""
+    m = cfg.mla
+    B = x.shape[0]
+    pos = torch.as_tensor(pos, device=x.device).reshape(-1).expand(B)
+    positions = pos[:, None].to(torch.int32)
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    # absorb w_uk: q' = q_nope @ w_uk^T -> latent width
+    q_lat = torch.einsum("bshq,rhq->bshr", q_nope, p["w_uk"])
+    q_cat = torch.cat([q_lat, q_rope], -1)[:, :, None]       # (B,1,1,H,r+rope)
+    ckv, k_rope = _mla_ckv(cfg, p, x, positions)
+    idx = pos.clamp(0, cache.k.shape[1] - 1).long()
+    rows = torch.arange(B, device=x.device)
+    cache.k[rows, idx] = ckv[:, 0].to(cache.k.dtype)
+    cache.v[rows, idx] = k_rope[:, 0].to(cache.v.dtype)
+
+    def expand(kv_c):
+        ckv_c, kr_c = kv_c
+        k = torch.cat([ckv_c, kr_c], -1)[:, :, None, :]      # (B,Tc,1,r+rope)
+        return k, ckv_c[:, :, None, :]                       # v (B,Tc,1,r)
+
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    out_lat = chunked_attention(
+        q_cat, (cache.k, cache.v), expand, positions, 0,
+        causal=True, chunk=cfg.attn_chunk,
+        softmax_scale=qk ** -0.5)                            # (B,1,1,H,r)
+    out = torch.einsum("bskhr,rhv->bshv", out_lat, p["w_uv"])
     return out_proj(p, out), cache

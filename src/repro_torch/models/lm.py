@@ -23,7 +23,12 @@ whole.  jamba-1.5-large's mamba blocks (``models.mamba``: the selective
 scan, then a dense or MoE channel mixer, as an attention block has) carry
 ``MambaCache(conv, ssm)``, also with no token axis, beside the attention
 blocks' ``KVCache``: prefill and decode overwrite it whole, in place.
-MLA blocks come with their slice.
+deepseek-v2's attention is MLA (``attention.mla_*``): its ``KVCache``
+holds the latent, k = ckv (B, T_max, kv_lora) and v = k_rope (B, T_max,
+rope).  Its first ``first_dense`` layers have a dense MLP and the rest
+MoE with shared experts, so ``layer_groups`` gives one group of 8
+distinct kinds at depth 8 and, at 60, a dense singleton before 59 stacked
+MoE layers.
 
 Training (``loss_fn``): next-token cross entropy plus the weighted MoE aux
 loss, each repeat of a stacked group under ``torch.utils.checkpoint`` when
@@ -81,10 +86,6 @@ def layer_groups(cfg: ModelConfig) -> List[LayerGroup]:
 # Param / cache descriptors
 # ---------------------------------------------------------------------------
 
-def _not_ported(what: str, ref: str):
-    return NotImplementedError(f"{what} is not ported yet (reference: {ref})")
-
-
 def block_descs(cfg: ModelConfig, kind: Tuple[str, str]):
     mixer, mlp = kind
     if mixer == "rwkv":                 # rwkv has its own channel mix
@@ -95,12 +96,13 @@ def block_descs(cfg: ModelConfig, kind: Tuple[str, str]):
         out = {"norm1": common.norm_descs(cfg),
                "mamba": mamba.mamba_descs(cfg),
                "norm2": common.norm_descs(cfg)}
-    elif mixer != "attn" or cfg.mla is not None:
-        raise _not_ported(f"mixer {mixer!r}", "repro.models.lm._mixer_descs")
-    else:
+    elif mixer == "attn":
         out = {"norm1": common.norm_descs(cfg),
-               "attn": attention.gqa_descs(cfg),
+               "attn": (attention.mla_descs(cfg) if cfg.mla is not None
+                        else attention.gqa_descs(cfg)),
                "norm2": common.norm_descs(cfg)}
+    else:
+        raise ValueError(mixer)
     if mlp == "dense":
         out["mlp"] = common.mlp_descs(cfg)
     elif mlp == "moe":
@@ -135,9 +137,10 @@ def _block_cache_desc(cfg: ModelConfig, mixer: str, batch: int,
         return rwkv.rwkv_cache_desc(cfg, batch)
     if mixer == "mamba":
         return mamba.mamba_cache_desc(cfg, batch)
-    if mixer != "attn" or cfg.mla is not None:
-        raise _not_ported(f"{mixer!r} cache",
-                          "repro.models.lm._block_cache_desc")
+    if mixer != "attn":
+        raise ValueError(mixer)
+    if cfg.mla is not None:
+        return attention.mla_cache_desc(cfg, batch, t_max)
     return attention.gqa_cache_desc(cfg, batch, t_max)
 
 
@@ -177,7 +180,17 @@ def block_forward(cfg: ModelConfig, p, x, positions, *, cache=None,
         else:
             y, _ = mamba.mamba_forward(cfg, p["mamba"], h, initial=cache)
     elif decode:
-        y, cache = attention.gqa_decode(cfg, p["attn"], h, cache, pos)
+        decode_fn = (attention.mla_decode if cfg.mla is not None
+                     else attention.gqa_decode)
+        y, cache = decode_fn(cfg, p["attn"], h, cache, pos)
+    elif cfg.mla is not None:
+        ckv, k_rope = attention._mla_ckv(cfg, p["attn"], h, positions)
+        y = attention.mla_forward(cfg, p["attn"], h, positions,
+                                  ckv=(ckv, k_rope))
+        if cache is not None:           # prefill: the latent at t = 0
+            S = ckv.shape[1]
+            cache.k[:, :S] = ckv.to(cache.k.dtype)
+            cache.v[:, :S] = k_rope.to(cache.v.dtype)
     else:
         q, k, v = attention.project_qkv(cfg, p["attn"], h, positions)
         y = attention.gqa_forward(cfg, p["attn"], h, positions,

@@ -18,8 +18,10 @@ continuous-batching decode computes — a ``vmap`` of single-sequence decode
 the other slots hold.  Without it the B*S tokens share one routing, as the
 reference's batched forward does.
 
-The shard_map expert-parallel modes (``a2a`` / ``psum``) wait for the
-multi-GPU port; shared experts (deepseek-v2) wait for their slice.
+Shared experts (deepseek-v2) are one wider dense MLP of width ``n_shared
+* d_ff_expert`` (plain matmuls, as in the reference), whose output is
+added to the routed experts' under either route.  The shard_map
+expert-parallel modes (``a2a`` / ``psum``) wait for the multi-GPU port.
 """
 from __future__ import annotations
 
@@ -30,18 +32,11 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.moe_gmm.ops import grouped_matmul
+from repro_torch.models.common import apply_mlp, mlp_descs
 from repro_torch.models.params import ParamDesc
 
 
-def _check_ported(cfg: ModelConfig):
-    if cfg.moe.n_shared:
-        raise NotImplementedError(
-            "shared experts (deepseek-v2) are not ported yet (reference: "
-            "repro.models.moe.moe_forward)")
-
-
 def moe_descs(cfg: ModelConfig):
-    _check_ported(cfg)
     m = cfg.moe
     d, E, ff = cfg.d_model, m.n_experts, m.d_ff_expert
     out = {
@@ -52,6 +47,8 @@ def moe_descs(cfg: ModelConfig):
     }
     if cfg.glu:
         out["w_gate"] = ParamDesc((E, d, ff), ("expert", "embed", "mlp_e"))
+    if m.n_shared:
+        out["shared"] = mlp_descs(cfg, d_ff=m.n_shared * ff)
     return out
 
 
@@ -144,8 +141,10 @@ def _moe_dense(cfg: ModelConfig, p, x_flat, groups: int = 1):
 def moe_forward(cfg: ModelConfig, p, x: torch.Tensor, *,
                 per_sequence: bool = False):
     """x: (B, S, D) -> (out (B, S, D), aux_loss scalar)."""
-    _check_ported(cfg)
     B, S, D = x.shape
     y, aux = _moe_dense(cfg, p, x.reshape(-1, D),
                         groups=B if per_sequence else 1)
-    return y.reshape(B, S, D), aux
+    y = y.reshape(B, S, D)
+    if cfg.moe.n_shared:
+        y = y + apply_mlp(cfg, p["shared"], x)
+    return y, aux

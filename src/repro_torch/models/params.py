@@ -60,9 +60,36 @@ def abstract_params(descs, default_dtype: str):
         descs)
 
 
+#: a "normal" leaf of more elements than this is drawn one slice of its
+#: leading axis at a time (see ``init_params``).  2^32 lies above every
+#: leaf of the paths served before yi-34b (so their weights stay the whole
+#: draws, bit for bit) and caps a whole draw's fp32 copy at 17 GB
+SLICED_DRAW_ELEMENTS = 2 ** 32
+
+
+def _normal(shape, scale: float, dt, generator, device) -> torch.Tensor:
+    """N(0, scale^2) draws in fp32, cast to ``dt``.  A leaf of at most
+    ``SLICED_DRAW_ELEMENTS`` elements is one draw, scaled in place (the
+    largest such leaf the card draws, one jamba-1.5-large layer's experts
+    at 3.2e9 elements, needs one fp32 copy, not two).  A larger
+    one (yi-34b's 60 stacked MLP layers, 8.8e9 elements: 35 GB in fp32) is
+    drawn slice by slice of its leading axis into the cast tensor, so the
+    fp32 it holds at once is one slice."""
+    n = int(np.prod(shape))
+    if n <= SLICED_DRAW_ELEMENTS:
+        return torch.randn(shape, generator=generator,
+                           device=device).mul_(scale).to(dt)
+    out = torch.empty(shape, dtype=dt, device=device)
+    for i in range(shape[0]):
+        out[i] = torch.randn(shape[1:], generator=generator,
+                             device=device).mul_(scale)
+    return out
+
+
 def init_params(descs, generator: torch.Generator, default_dtype: str):
     """Materialise params on ``generator.device``, one draw per leaf in
-    tree order (fp32 draws, cast to the leaf's dtype)."""
+    tree order (fp32 draws, cast to the leaf's dtype; a leaf past
+    ``SLICED_DRAW_ELEMENTS`` one draw per slice of its leading axis)."""
     leaves, treedef = tree_flatten(descs, is_leaf=is_desc)
     device = generator.device
     out = []
@@ -82,10 +109,7 @@ def init_params(descs, generator: torch.Generator, default_dtype: str):
         else:
             fan_in = d.shape[0] if len(d.shape) > 1 else max(d.shape[-1], 1)
             scale = d.init_scale if d.init_scale else 1.0 / math.sqrt(fan_in)
-            # scaled in place: the largest leaf (olmoe-1b-7b's stacked
-            # experts, 2.1e9 elements) needs one fp32 copy, not two
-            v = torch.randn(d.shape, generator=generator,
-                            device=device).mul_(scale).to(dt)
+            v = _normal(d.shape, scale, dt, generator, device)
         out.append(v)
     return treedef.unflatten(out)
 

@@ -62,6 +62,11 @@ from repro_torch.serve.sessions import Session, SessionStore
 from repro_torch.train.step import make_serve_steps, make_slot_decode_step
 from repro_torch.utils.tree import tree_leaves
 
+#: the reference's refusal of an encoder-decoder architecture
+DECODER_ONLY = ("the serving subsystem is decoder-only (the slot-masked "
+                "decode has no encoder-state plumbing); encoder-decoder "
+                "archs are not servable — see serve.engine.servable_archs")
+
 
 @dataclasses.dataclass
 class ServeResult:
@@ -455,6 +460,14 @@ class ServeEngine:
             self.store.close()
 
 
+def servable_archs():
+    """Arch ids the serving subsystem supports: every registered one, since
+    only decoder-only architectures are ported (the launcher's argparse
+    choices)."""
+    from repro_torch.configs import ARCH_IDS
+    return list(ARCH_IDS)
+
+
 def build_serve_engine(arch: str = "olmo-1b", *, smoke: bool = True,
                        n_slots: int = 4, t_max: int = 96,
                        pool_path: Optional[str] = None,
@@ -493,9 +506,12 @@ def build_serve_engine(arch: str = "olmo-1b", *, smoke: bool = True,
     reference's weights passes the reference's key
     (``f"{arch}|{'smoke' if smoke else 'full'}|s{seed}"``), and its
     ``kvblk/`` / ``kvhead/`` objects are then the reference's."""
-    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs import (ENCDEC_ARCHS, get_config,
+                                     get_smoke_config)
     from repro_torch.models.registry import build as build_model
 
+    if arch in ENCDEC_ARCHS:
+        raise ValueError(DECODER_ONLY)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if bundle is None:
         bundle = build_model(cfg, dec_pos_len=t_max, device=device)

@@ -7,8 +7,10 @@ machine with the card, where there is no JAX:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 * the flash-attention kernel against its plain version at small ragged,
-  GQA, ``hd_v != hd`` and non-causal shapes (bf16; max abs error 2e-2 =
-  bf16 output rounding, one ulp near 1 is 7.8e-3), one launch counted per
+  GQA, ``hd_v != hd`` and non-causal shapes and at MLA's widths (hd 192
+  in the 256-wide instantiation, hd_v 128; small, and deepseek-v2's
+  prefill (1, 128 over 128, 512)) (bf16; max abs error 2e-2 = bf16
+  output rounding, one ulp near 1 is 7.8e-3), one launch counted per
   call; and at the edges of its tiles and buckets (Sq 1, Sq 65, non-causal
   Sq != Sk, hd 64 and 256, hd_v != hd), each run twice with the same bits;
 * the dispatcher refuses what the kernel does not take (it never falls
@@ -20,11 +22,13 @@ machine with the card, where there is no JAX:
   fp32 sum to bf16 is half an ulp, 3.9e-3 relative) — C 1 to 300 (one
   16-row chunk, several, past 128 rows, two passes of 256), D 1000, F 72
   and F not a multiple of 64 — a row's output bit-identical wherever the
-  row sits (C 70 / 8, and the capacities C 80 / 32), the dispatcher's
-  refusals, and an
-  olmoe-1b-7b smoke serving run that launches it 3 times per MoE block
-  per forward (6 = 3 x 2 blocks, prefills and decode ticks alike) while
-  the flash kernel runs once per layer per prefill;
+  row sits (C 70 / 8, and the capacities C 80 / 32), at deepseek-v2's
+  four shapes (160 experts, D 5120, F 1536, C 24 and 32), launched from
+  a thread that has made no CUDA call yet (with the main thread's
+  bits), the dispatcher's refusals, and olmoe-1b-7b and deepseek-v2
+  smoke serving runs that launch it 3 times per MoE block per forward
+  (prefills and decode ticks alike) while the flash kernel runs once per
+  layer per prefill (deepseek-v2: MLA's expanded prefill);
 * the WKV-6 kernel against the fp32 step-by-step oracle on the same
   bf16-valued inputs, on the reference's sweep shapes, the rwkv6-7b
   path's two shapes (prefill (1, 512, 64, 64), decode (4, 1, 64, 64)),
@@ -98,6 +102,8 @@ CASES = [
     (2, 2, 2, 20, 33, 16, 16, False),       # non-causal, Sq != Sk
     (1, 4, 2, 33, 33, 8, 24, False),        # hd_v > hd, GQA
     (1, 2, 1, 130, 200, 128, 128, True),    # several tiles, Sq < Sk
+    (1, 4, 4, 70, 70, 192, 128, True),      # MLA's widths: hd 192 in the
+                                            # 256 bucket, hd_v 128, G = 1
 ]
 IDS = [f"B{c[0]}H{c[1]}K{c[2]}S{c[3]}x{c[4]}hd{c[5]}v{c[6]}"
        f"{'c' if c[7] else 'f'}" for c in CASES]
@@ -264,6 +270,22 @@ def test_flash_kernels_launch_from_a_fresh_thread(cuda):
     assert errors == []
     assert torch.equal(fresh[0], main[0]) and torch.equal(fresh[1], main[1])
     assert all(torch.equal(a, b) for a, b in zip(fresh[2], main[2]))
+
+
+def test_kernel_at_the_mla_prefill_shape_matches_plain_version(cuda):
+    """deepseek-v2's prefill: 128 heads over 128 (G = 1), 512 tokens, q / k
+    of width 192 (nope 128 + rope 64, run in the 256-wide instantiation:
+    TMA's zero fill covers columns 192-255) and v of width 128."""
+    q, k, v = _inputs((1, 128, 128, 512, 512, 192, 128, True), cuda, 44)
+    before = ops.LAUNCHES
+    out = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == before + 1
+    assert out.shape == (1, 512, 128, 1, 128)
+    ref = ops.plain_attention(q.float(), k.float(), v.float(), causal=True)
+    assert bool(torch.isfinite(out).all())
+    assert float((out.float() - ref).abs().max()) <= 2e-2
+    assert torch.equal(ops.flash_attention(q, k, v, causal=True), out)
 
 
 def test_flash_backward_refuses_head_dims_it_does_not_take(cuda):
@@ -471,6 +493,59 @@ def test_grouped_matmul_kernel_matches_plain_version(case, cuda):
     assert err <= 1e-2 * float(ref.abs().max())
 
 
+#: deepseek-v2's four expert products: up / gate and down at the prefill
+#: capacity (512 tokens x top-6 x 1.25 / 160 experts -> 24) and at the
+#: per-sequence decode's (4 slots x 8)
+DEEPSEEK_GMM_CASES = [(160, 24, 5120, 1536), (160, 24, 1536, 5120),
+                      (160, 32, 5120, 1536), (160, 32, 1536, 5120)]
+
+
+@pytest.mark.parametrize("case", DEEPSEEK_GMM_CASES,
+                         ids=lambda c: "E%dC%dD%dF%d" % c)
+def test_grouped_matmul_at_the_deepseek_shapes_matches_plain_version(
+        case, cuda):
+    gen = torch.Generator(cuda).manual_seed(9)
+    E, C, D, F = case
+    x = torch.randn((E, C, D), generator=gen, device=cuda).to(torch.bfloat16)
+    w = torch.randn((E, D, F), generator=gen, device=cuda).mul_(0.02).to(
+        torch.bfloat16)
+    out = gmm_ops.grouped_matmul(x, w)
+    ref = grouped_matmul_ref(x.float(), w.float())
+    assert bool(torch.isfinite(out).all())
+    assert float((out.float() - ref).abs().max()) <= \
+        1e-2 * float(ref.abs().max())
+
+
+def test_grouped_matmul_launches_from_a_fresh_thread(cuda):
+    """The grouped matmul encodes its tensor maps with
+    cuTensorMapEncodeTiled, which needs the tensors' context current on the
+    calling thread.  It launches from a fresh thread whose buffers all come
+    from PyTorch's cache (made beforehand), with the main thread's bits."""
+    import threading
+
+    from repro_torch.kernels.moe_gmm import kernel
+    x, w = _gmm_inputs((3, 40, 264, 200), cuda, seed=10)
+    main = torch.empty((3, 40, 200), dtype=torch.bfloat16, device=cuda)
+    fresh = torch.empty_like(main)
+    kernel.grouped_matmul_fwd(x, w, main)
+    torch.cuda.synchronize()
+    errors = []
+
+    def launch():
+        try:
+            kernel.grouped_matmul_fwd(x, w, fresh)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            errors.append(e)
+
+    worker = threading.Thread(target=launch)
+    worker.start()
+    worker.join()
+    torch.cuda.synchronize()
+    assert errors == []
+    assert torch.equal(fresh, main)
+
+
 def test_grouped_matmul_row_bits_do_not_depend_on_where_the_row_sits(cuda):
     x, w = _gmm_inputs((2, 70, 136, 264), cuda, seed=7)
     out = gmm_ops.grouped_matmul(x, w)
@@ -510,6 +585,31 @@ def test_grouped_matmul_dispatcher_raises_on_what_the_kernel_does_not_take(
     with pytest.raises(err):
         gmm_ops.grouped_matmul(x, w)
     assert gmm_ops.LAUNCHES == before
+
+
+def test_deepseek_serving_runs_both_kernels(cuda):
+    """deepseek-v2's smoke config on the card: MLA's expanded prefill
+    through the flash kernel once per layer per prefill, its absorbed
+    decode in plain torch, and the grouped matmul 3 times per MoE layer
+    (one: the first layer is dense) per forward, the shared expert beside
+    it as plain matmuls."""
+    from repro_torch.serve.engine import build_serve_engine
+    from repro_torch.serve.trace import synthetic_trace, trace_t_max
+    trace = synthetic_trace(5, prompt_lens=(20,), new_tokens=(2, 5))
+    engine, cfg = build_serve_engine("deepseek-v2-236b", smoke=True,
+                                     n_slots=2, t_max=trace_t_max(trace),
+                                     device=cuda)
+    decodes = []
+    step = engine._slot_decode
+    engine._slot_decode = lambda *a: decodes.append(1) or step(*a)
+    flash0, gmm0 = ops.LAUNCHES, gmm_ops.LAUNCHES
+    res = engine.run(trace)
+    n_moe = sum(cfg.mlp_kind(l) == "moe" for l in range(cfg.n_layers))
+    assert res.prefills == len(trace) and decodes and n_moe == 1
+    assert ops.LAUNCHES - flash0 == cfg.n_layers * res.prefills
+    assert gmm_ops.LAUNCHES - gmm0 == \
+        3 * n_moe * (res.prefills + len(decodes))
+    assert all(len(res.outputs[r.rid]) == r.max_new_tokens for r in trace)
 
 
 def test_olmoe_serving_runs_both_kernels(cuda):

@@ -1,6 +1,10 @@
-"""The port's LM against the JAX package's, on two smoke configs in fp32:
-olmo-1b (dense) and olmoe-1b-7b (MoE in every block, qk-norm, RMSNorm,
-untied unembedding).
+"""The port's LM against the JAX package's, on seven smoke configs in fp32:
+olmo-1b (dense), olmoe-1b-7b (MoE in every block, qk-norm, RMSNorm,
+untied unembedding), the dense GQA four internlm2-1.8b (G = 2, rope theta
+1e6), phi3-medium-14b (head_dim 8 at G = 5), yi-34b (G = 7, vocab 250) and
+chameleon-34b (qk-norm at G = 4), and deepseek-v2-236b (MLA with its
+latent cache, a dense first layer, then MoE with a shared expert: two
+unstacked blocks, so its cache leaves carry the batch on axis 0).
 
 Weights are the reference's own ``jax.random`` params carried across with
 ``models.params.from_reference``, so both packages compute the same
@@ -19,13 +23,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import PUBLISHED_PARAMS as REF_PUBLISHED_PARAMS
 from repro.configs import get_smoke_config as ref_smoke_config
 from repro.models.lm import ServeState as RefServeState
 from repro.models.registry import build as ref_build
 from repro.train.step import make_slot_decode_step as ref_slot_decode_step
 from repro_torch.configs import get_smoke_config
 from repro_torch.models.lm import ServeState
-from repro_torch.models.params import from_reference
+from repro_torch.models.params import from_reference, is_desc
 from repro_torch.models.registry import build
 from repro_torch.train.step import make_slot_decode_step
 from repro_torch.utils.tree import tree_flatten
@@ -33,7 +38,9 @@ from repro_torch.utils.tree import tree_flatten
 ATOL = 1e-4
 FP32 = dict(param_dtype="float32", compute_dtype="float32")
 T_MAX = 24
-ARCHS = ["olmo-1b", "olmoe-1b-7b"]
+ARCHS = ["olmo-1b", "olmoe-1b-7b", "internlm2-1.8b", "phi3-medium-14b",
+         "yi-34b", "chameleon-34b", "deepseek-v2-236b"]
+ALL_ARCHS = ARCHS + ["rwkv6-7b", "jamba-1.5-large-398b"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -57,6 +64,13 @@ def _tokens(shape, seed=0, vocab=256):
     return np.random.default_rng(seed).integers(0, vocab, shape, np.int32)
 
 
+def _batch_axes(b):
+    """Each cache leaf's batch axis, in leaf order: 1 under a stacked
+    (layers,) dim, else 0."""
+    descs = tree_flatten(b.cache_descs(1, 2), is_leaf=is_desc)[0]
+    return [d.logical.index("batch") for d in descs]
+
+
 def _port_caches(b, ref_caches, batch):
     """The reference's cache pytree as the port's (same leaf order)."""
     leaves, td = tree_flatten(b.init_caches(batch, T_MAX))
@@ -68,7 +82,7 @@ def _port_caches(b, ref_caches, batch):
 def _assert_caches_close(ours, theirs):
     ol = tree_flatten(ours)[0]
     tl = jax.tree_util.tree_leaves(theirs)
-    assert len(ol) == len(tl) == 2
+    assert len(ol) == len(tl) and len(ol) % 2 == 0 and ol   # (k, v) pairs
     for a, bb in zip(ol, tl):
         np.testing.assert_allclose(a.numpy(), np.asarray(bb), atol=ATOL)
 
@@ -86,7 +100,7 @@ def test_params_and_caches_have_the_reference_structure(models):
 
 def test_forward_logits_match_reference(models):
     rb, rp, b, p = models
-    toks = _tokens((2, 20))
+    toks = _tokens((2, 20), vocab=b.cfg.vocab_size)
     theirs, _ = rb.forward(rp, jnp.asarray(toks))
     ours = b.forward(p, torch.from_numpy(toks).long())
     np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), atol=ATOL)
@@ -94,7 +108,7 @@ def test_forward_logits_match_reference(models):
 
 def test_prefill_and_three_decode_steps_match_reference(models):
     rb, rp, b, p = models
-    toks = _tokens((1, 13), seed=1)
+    toks = _tokens((1, 13), seed=1, vocab=b.cfg.vocab_size)
     r_logits, r_st = rb.prefill(rp, {"tokens": jnp.asarray(toks)},
                                 rb.init_caches(jax.random.PRNGKey(0), 1,
                                                T_MAX))
@@ -116,16 +130,19 @@ def test_prefill_and_three_decode_steps_match_reference(models):
 
 def _slot_state(models, prompt_lens, seed=2):
     """Per-slot caches after prefilling prompts of different lengths."""
-    rb, rp, _, _ = models
+    rb, rp, b, _ = models
     lanes, last = [], []
     for i, L in enumerate(prompt_lens):
         lg, st = rb.prefill(rp, {"tokens": jnp.asarray(
-            _tokens((1, L), seed + i))},
+            _tokens((1, L), seed + i, b.cfg.vocab_size))},
             rb.init_caches(jax.random.PRNGKey(0), 1, T_MAX))
         lanes.append(st.caches)
         last.append(int(jnp.argmax(lg, -1)[0]))
-    caches = jax.tree_util.tree_map(lambda *a: jnp.concatenate(a, 1),
-                                    *lanes)        # batch axis 1 (stacked)
+    per_lane = [jax.tree_util.tree_leaves(c) for c in lanes]
+    caches = jax.tree_util.tree_unflatten(
+        jax.tree_util.tree_structure(lanes[0]),
+        [jnp.concatenate(ls, ax)
+         for ls, ax in zip(zip(*per_lane), _batch_axes(b))])
     return caches, np.asarray(last, np.int32), np.asarray(prompt_lens,
                                                           np.int32)
 
@@ -163,10 +180,13 @@ def test_slot_independence_under_permutation(models):
     step = make_slot_decode_step(b)
     active = torch.ones(4, dtype=torch.bool)
 
+    axes = _batch_axes(b)
+    idx = torch.from_numpy
+
     def run(order):
-        pc = _port_caches(b, caches, 4)
-        pc = [{"blocks": [type(pc[0]["blocks"][0])(
-            *(l[:, order].contiguous() for l in pc[0]["blocks"][0]))]}]
+        leaves, td = tree_flatten(_port_caches(b, caches, 4))
+        pc = td.unflatten([l.index_select(ax, idx(order)).contiguous()
+                           for l, ax in zip(leaves, axes)])
         tok = torch.from_numpy(last[order][:, None]).long()
         tp = torch.from_numpy(pos[order])
         outs = []
@@ -183,8 +203,9 @@ def test_slot_independence_under_permutation(models):
         for lane, sess in enumerate(perm):
             assert torch.equal(gl[lane], bl[sess])
             assert int(gn[lane]) == int(bn[sess])
-    for bl, gl in zip(tree_flatten(base_c)[0], tree_flatten(got_c)[0]):
-        assert torch.equal(gl, bl[:, perm])
+    for bl, gl, ax in zip(tree_flatten(base_c)[0], tree_flatten(got_c)[0],
+                          axes):
+        assert torch.equal(gl, bl.index_select(ax, idx(perm)))
 
 
 def test_init_params_is_a_function_of_the_generator_seed(models):
@@ -209,13 +230,17 @@ def test_a_slot_is_unchanged_when_the_other_lanes_hold_other_sessions(
     _, _, b, p = models
     step = make_slot_decode_step(b)
     active = torch.ones(4, dtype=torch.bool)
+    axes = _batch_axes(b)
 
     def run(seed_of_others):
         caches, last, pos = _slot_state(models, [6, 9, 13, 7],
                                         seed=seed_of_others)
         lane0, last0, pos0 = _slot_state(models, [6], seed=11)
-        caches = jax.tree_util.tree_map(
-            lambda a, a0: a.at[:, :1].set(a0), caches, lane0)
+        caches = jax.tree_util.tree_unflatten(
+            jax.tree_util.tree_structure(caches),
+            [jax.lax.dynamic_update_slice_in_dim(a, a0, 0, ax)
+             for a, a0, ax in zip(jax.tree_util.tree_leaves(caches),
+                                  jax.tree_util.tree_leaves(lane0), axes)])
         last[0], pos[0] = last0[0], pos0[0]
         pc = _port_caches(b, caches, 4)
         tok = torch.from_numpy(last[:, None]).long()
@@ -232,5 +257,89 @@ def test_a_slot_is_unchanged_when_the_other_lanes_hold_other_sessions(
     assert not torch.equal(base[0][1][1:], other[0][1][1:])
     for (bn, bl), (on, ol) in zip(base, other):
         assert torch.equal(bl[0], ol[0]) and int(bn[0]) == int(on[0])
-    for bc, oc in zip(tree_flatten(base_c)[0], tree_flatten(other_c)[0]):
-        assert torch.equal(bc[:, 0], oc[:, 0])
+    for bc, oc, ax in zip(tree_flatten(base_c)[0], tree_flatten(other_c)[0],
+                          axes):
+        assert torch.equal(bc.select(ax, 0), oc.select(ax, 0))
+
+
+# -- configs and the drawing of large leaves ---------------------------------
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_configs_are_the_references_and_count_the_published_params(arch):
+    """Each registered config (full and smoke) is the reference's field for
+    field, and its analytic parameter count is within 4% of the published
+    total (the reference's ``tests/test_arch_smoke.py`` check)."""
+    import dataclasses
+    from repro.configs import get_config as ref_config
+    from repro_torch.configs import PUBLISHED_PARAMS, get_config
+    assert dataclasses.asdict(get_config(arch)) == \
+        dataclasses.asdict(ref_config(arch))
+    assert dataclasses.asdict(get_smoke_config(arch)) == \
+        dataclasses.asdict(ref_smoke_config(arch))
+    assert PUBLISHED_PARAMS[arch] == REF_PUBLISHED_PARAMS[arch]
+    n = get_config(arch).param_count()
+    assert abs(n - PUBLISHED_PARAMS[arch]) / PUBLISHED_PARAMS[arch] < 0.04
+
+
+def test_the_port_registers_every_decoder_only_arch_of_the_reference():
+    from repro.configs import ARCH_IDS as REF_ARCH_IDS
+    from repro_torch.configs import ARCH_IDS, ENCDEC_ARCHS, get_config
+    assert ARCH_IDS == [a for a in REF_ARCH_IDS
+                        if not ref_smoke_config(a).is_encdec]
+    assert list(ENCDEC_ARCHS) == [a for a in REF_ARCH_IDS
+                                  if a not in ARCH_IDS]
+    with pytest.raises(KeyError, match="unknown arch 'whisper-small'"):
+        get_config("whisper-small")
+
+
+@pytest.mark.parametrize("arch", ["yi-34b", "deepseek-v2-236b"])
+def test_leaves_past_the_threshold_are_drawn_in_slices(arch, monkeypatch):
+    """With the threshold lowered to 4,000 elements, the smoke config's
+    larger leaves are drawn one slice of their leading axis at a time:
+    still a function of the generator's seed, each slice a draw of the
+    generator's stream in turn; the leaves drawn before the first sliced
+    one are bit-identical to the whole draws.  At the real threshold
+    (2^32) no leaf of the four paths that ran before yi-34b (at the depths
+    the card runs them) is sliced, so their weights are the whole draws,
+    bit for bit, and neither is deepseek-v2's at 8 layers; yi-34b's and
+    chameleon-34b's stacked MLP leaves are."""
+    from repro_torch.models import params as params_mod
+    b = build(get_smoke_config(arch), device="cpu")
+    whole = tree_flatten(b.init_params(torch.Generator().manual_seed(3)))[0]
+    default = params_mod.SLICED_DRAW_ELEMENTS
+    monkeypatch.setattr(params_mod, "SLICED_DRAW_ELEMENTS", 4000)
+    a = tree_flatten(b.init_params(torch.Generator().manual_seed(3)))[0]
+    c = tree_flatten(b.init_params(torch.Generator().manual_seed(3)))[0]
+    d = tree_flatten(b.init_params(torch.Generator().manual_seed(4)))[0]
+    descs = tree_flatten(b.descs, is_leaf=is_desc)[0]
+    sliced = [i for i, x in enumerate(descs) if x.init == "normal"
+              and int(np.prod(x.shape)) > 4000]
+    assert sliced and len(sliced) < len(descs)
+    assert all(torch.equal(x, y) for x, y in zip(a, c))
+    for i in sliced:
+        assert not torch.equal(a[i], d[i])
+        assert a[i].shape == whole[i].shape and a[i].dtype == whole[i].dtype
+    assert all(torch.equal(x, y) for x, y in zip(a[:sliced[0]],
+                                                 whole[:sliced[0]]))
+    # a sliced leaf is its slices drawn in turn from the generator's stream
+    leaf = {"w": params_mod.ParamDesc((5, 40, 30), ("layers", "a", "b"))}
+    got = params_mod.init_params(leaf, torch.Generator().manual_seed(3),
+                                 "bfloat16")["w"]
+    g = torch.Generator().manual_seed(3)
+    want = torch.stack([torch.randn((40, 30), generator=g).mul_(0.02)
+                        for _ in range(5)]).to(torch.bfloat16)
+    assert torch.equal(got, want)
+    from repro_torch.configs import get_config
+    assert default == 2 ** 32
+
+    def largest(a, **kw):
+        return max(int(np.prod(x.shape)) for x in tree_flatten(
+            build(get_config(a).with_(**kw), device="cpu").descs,
+            is_leaf=is_desc)[0])
+    assert max(largest(a) for a in ("olmo-1b", "olmoe-1b-7b", "rwkv6-7b")
+               ) <= default
+    # jamba-1.5-large as the card runs it, at 5 layers: one layer's 16
+    # experts, (16, 24576, 8192)
+    assert largest("jamba-1.5-large-398b", n_layers=5) == 16 * 24576 * 8192
+    assert largest("yi-34b") > default and largest("chameleon-34b") > default
+    assert largest("deepseek-v2-236b", n_layers=8) <= default

@@ -13,7 +13,8 @@
   on the olmoe smoke config in fp32: y and aux at atol 1e-5; with a
   skewed router that forces capacity drops, the drop destinations equal
   exactly; per-sequence routing against the reference's per-sequence
-  ``vmap``; top-k ties to the lower expert index as ``jax.lax.top_k``.
+  ``vmap``; top-k ties to the lower expert index as ``jax.lax.top_k``;
+  shared experts (deepseek-v2's ``n_shared``) under both routes.
 
 Weights are the reference's ``jax.random`` params carried across; inputs
 are numpy from a seed.  The CUDA kernel has no CPU mode:
@@ -225,9 +226,29 @@ def test_top_k_ties_go_to_the_lower_index():
     np.testing.assert_array_equal(v.numpy(), np.asarray(rv))
 
 
-def test_shared_experts_are_refused_naming_the_reference():
-    cfg, _ = _cfg()
-    ds = cfg.with_(moe=cfg.moe.__class__(n_experts=8, top_k=2, n_shared=2,
-                                         d_ff_expert=64))
-    with pytest.raises(NotImplementedError, match="deepseek-v2"):
-        moe.moe_descs(ds)
+@pytest.mark.parametrize("per_sequence", [False, True],
+                         ids=["pooled", "per_sequence"])
+def test_shared_experts_match_the_reference(per_sequence):
+    """The olmoe smoke config with 2 shared experts (deepseek-v2's count):
+    the shared MLP's params are the reference's, and its output is added
+    under both routes."""
+    import dataclasses
+    cfg, ref_cfg = _cfg()
+    cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, n_shared=2))
+    ref_cfg = ref_cfg.with_(moe=dataclasses.replace(ref_cfg.moe, n_shared=2))
+    rp, p = _params(ref_moe.moe_descs, cfg, ref_cfg, seed=2)
+    assert tuple(p["shared"]["w_up"].shape) == (cfg.d_model,
+                                                2 * cfg.moe.d_ff_expert)
+    x = np.random.default_rng(4).standard_normal((3, 5, cfg.d_model),
+                                                 np.float32)
+    y, aux = moe.moe_forward(cfg, p, torch.from_numpy(x),
+                             per_sequence=per_sequence)
+    rows = [x[b:b + 1] for b in range(3)] if per_sequence else [x]
+    outs = [ref_moe.moe_forward(ref_cfg, rp, jnp.asarray(r), parallel=None)
+            for r in rows]
+    np.testing.assert_allclose(
+        y.numpy(), np.concatenate([np.asarray(o[0]) for o in outs]),
+        atol=ATOL)
+    np.testing.assert_allclose(float(aux),
+                               np.mean([float(o[1]) for o in outs]),
+                               atol=ATOL)

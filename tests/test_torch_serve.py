@@ -1,6 +1,8 @@
 """The port's durable continuous-batching server against the JAX package's,
-on the olmo-1b, olmoe-1b-7b, rwkv6-7b and jamba-1.5-large-398b smoke
-configs (fp32).
+on the smoke configs (fp32) of all nine decoder-only architectures:
+olmo-1b, olmoe-1b-7b, rwkv6-7b, jamba-1.5-large-398b, the dense GQA four
+(internlm2-1.8b, phi3-medium-14b, yi-34b, chameleon-34b) and
+deepseek-v2-236b (MLA: its pool holds the latent cache).
 
 * same weights (the reference's, carried across), same ``synthetic_trace``
   (the port's copy gives the same requests): the port's ``ServeEngine``
@@ -50,7 +52,9 @@ TRACE_KW = dict(prompt_lens=(12,), new_tokens=(3, 6, 9))
 N_REQ = 7
 COMMIT_EVERY = 3
 CRASH_AFTER = 7                    # ticks; 7 % 3 != 0: not a commit tick
-ARCHS = ["olmo-1b", "olmoe-1b-7b", "rwkv6-7b", "jamba-1.5-large-398b"]
+ARCHS = ["olmo-1b", "olmoe-1b-7b", "rwkv6-7b", "jamba-1.5-large-398b",
+         "internlm2-1.8b", "phi3-medium-14b", "yi-34b", "chameleon-34b",
+         "deepseek-v2-236b"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -98,7 +102,8 @@ def test_trace_is_the_reference_trace(setup):
     import dataclasses
     assert [dataclasses.astuple(r) for r in setup["trace"]] == \
         [dataclasses.astuple(r)
-         for r in ref_trace(N_REQ, vocab_size=256, **TRACE_KW)]
+         for r in ref_trace(N_REQ, vocab_size=setup["b"].cfg.vocab_size,
+                            **TRACE_KW)]
 
 
 def test_engine_emits_the_reference_tokens(setup, reference_outputs):
@@ -291,3 +296,23 @@ def test_launcher_refuses_flags_of_unported_features(flag, capsys):
             "requires --topology", "--topology": "needs --pool"}
     assert ("continuous-batching only" if "static" in flag
             else want[flag[0]]) in err
+
+
+def test_whisper_small_is_refused_as_the_reference_refuses_it(capsys):
+    """The reference's one encoder-decoder architecture:
+    ``build_serve_engine`` raises the reference's decoder-only ValueError,
+    the launcher exits 2 with the same reason, and ``servable_archs`` is
+    the reference's minus it."""
+    from repro.serve.engine import servable_archs as ref_servable
+    from repro_torch.launch.serve import main
+    from repro_torch.serve.engine import servable_archs
+    with pytest.raises(ValueError) as ours:
+        build_serve_engine("whisper-small", device="cpu")
+    with pytest.raises(ValueError) as theirs:
+        ref_build_engine("whisper-small")
+    assert str(ours.value) == str(theirs.value)
+    with pytest.raises(SystemExit) as ei:
+        main(["--device", "cpu", "--smoke", "--arch", "whisper-small"])
+    assert ei.value.code == 2
+    assert str(theirs.value) in capsys.readouterr().err
+    assert servable_archs() == ref_servable()

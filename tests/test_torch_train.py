@@ -1,5 +1,5 @@
 """The training slice against the reference, on the CPU: the data pipeline,
-the schedule, AdamW, the loss of all four ported architectures and the
+the schedule, AdamW, the loss of all nine ported architectures and the
 train step.
 
 Every case feeds the JAX function and its port the same numpy inputs and
@@ -12,8 +12,10 @@ the same weights (the reference's params through ``from_reference``):
   its increment);
 * ``adamw_update`` on a random fp32 tree with a 1-D leaf (no decay),
   clipped and unclipped, within 1e-6 x max|ref| per leaf;
-* ``loss_fn`` on the smoke configs of olmo-1b, olmoe-1b-7b, rwkv6-7b and
-  jamba-1.5-large-398b: fp32 within 1e-5 relative, bf16 within 2e-2 (bf16
+* ``loss_fn`` on the smoke configs of all nine decoder-only
+  architectures (olmo-1b, olmoe-1b-7b, rwkv6-7b, jamba-1.5-large-398b,
+  internlm2-1.8b, phi3-medium-14b, yi-34b, chameleon-34b and
+  deepseek-v2-236b): fp32 within 1e-5 relative, bf16 within 2e-2 (bf16
   rounds at other places in the two frameworks);
 * ``make_train_step`` on olmo-1b smoke for 3 steps (a single step would
   run at lr 0), microbatch 1 and 2: in fp32 the loss, grad norm and lr of
@@ -45,7 +47,9 @@ from repro_torch.train.state import init_train_state
 from repro_torch.train.step import make_train_step
 from repro_torch.utils.tree import tree_leaves
 
-ARCHS = ["olmo-1b", "olmoe-1b-7b", "rwkv6-7b", "jamba-1.5-large-398b"]
+ARCHS = ["olmo-1b", "olmoe-1b-7b", "rwkv6-7b", "jamba-1.5-large-398b",
+         "internlm2-1.8b", "phi3-medium-14b", "yi-34b", "chameleon-34b",
+         "deepseek-v2-236b"]
 DTYPES = {"fp32": "float32", "bf16": "bfloat16"}
 TOL = {"fp32": 1e-5, "bf16": 2e-2}
 
@@ -184,7 +188,8 @@ def _models(arch, dt):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_loss_matches_the_reference(arch, dt):
     rb, rp, b, p = _models(arch, dt)
-    tok = np.random.default_rng(5).integers(0, 256, (2, 17), np.int32)
+    tok = np.random.default_rng(5).integers(0, b.cfg.vocab_size, (2, 17),
+                                            np.int32)
     for batch in ({"tokens": tok[:, :-1], "targets": tok[:, 1:]},
                   {"tokens": tok}):      # shifted tokens, the last masked
         r_loss, r_met = rb.loss(rp, {k: jnp.asarray(v)
@@ -195,7 +200,7 @@ def test_loss_matches_the_reference(arch, dt):
                              (met["aux"], r_met["aux"])):
             assert abs(float(ours) - float(theirs)) <= \
                 TOL[dt] * max(abs(float(theirs)), 1e-6), (arch, dt, batch)
-    if arch in ("olmoe-1b-7b", "jamba-1.5-large-398b"):
+    if arch in ("olmoe-1b-7b", "jamba-1.5-large-398b", "deepseek-v2-236b"):
         assert float(met["aux"]) > 0          # the MoE aux loss is summed
 
 
