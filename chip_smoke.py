@@ -12,7 +12,8 @@ the placement policy), then durable training of olmo-1b at full width and
 depth through the flash forward and backward kernels, then serving of the
 other five decoder-only architectures at full width (internlm2-1.8b,
 phi3-medium-14b, yi-34b, chameleon-34b; deepseek-v2-236b's depth cut to 8
-layers), and prints one line per phase:
+layers), then durable training, prefill and decode of the encoder-decoder
+whisper-small at full width and depth, and prints one line per phase:
 
 1. environment — the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions;
@@ -37,7 +38,9 @@ layers), and prints one line per phase:
      over 8, 200, 128) and (1, 8 over 2, 512, 128), ragged S = T = 77 at
      hd 64 and S = T = 300, hd 64 at 512, causal Sq 100 < Sk 300 (its dk,
      dv rows past the last q row exactly 0) and non-causal (2, 16, 300,
-     700, 128): the forward's logsumexp within 1e-4 abs of the plain
+     700, 128) and whisper-small's three training shapes (see the
+     forward's cases below): the forward's logsumexp within 1e-4 abs of
+     the plain
      ``logsumexp``; dq, dk, dv against the fp32 plain backward on the same
      bf16 inputs (the kernel's own output and logsumexp), elementwise
      within 2e-2 x max|plain| (bf16 P and dS operands and outputs, fp32
@@ -56,7 +59,10 @@ layers), and prints one line per phase:
      (1, 16, 512, 128) causal, at the static baseline's batched prefill
      (4, 16, 512, 128) causal, at jamba-1.5-large's (1, 64 heads over 8
      kv heads, 512, 128), at deepseek-v2's MLA prefill (1, 128 heads over
-     128, 512, hd 192 in the 256-wide instantiation, hd_v 128) and at
+     128, 512, hd 192 in the 256-wide instantiation, hd_v 128), at
+     whisper-small's training shapes (hd 64, 12 heads, B 8: the encoder's
+     1500 x 1500 and the cross-attention's 448 over 1500, non-causal, Sk
+     a ragged 23 x 64 + 28; the decoder's 448 x 448 causal) and at
      ragged, GQA, hd_v != hd and non-causal shapes: max abs error against the fp32 plain version (limit 2e-2:
      bf16 output rounding, one ulp near 1 is 7.8e-3); library: SDPA;
    * the grouped matmul (TMA ring, wgmma on out^T = w^T x^T, each weight
@@ -258,8 +264,39 @@ layers), and prints one line per phase:
     tokens bit-identical.  Printed for each: tok/s, host s in admit /
     decode / commit, ms a decode tick, peak GB and its seconds, beside
     the card's name and power limit; then the phase's time.
+13. whisper-small (``repro_torch.models.encdec``) at full width and
+    depth — 12 encoder and 12 decoder layers, d 768, 12 heads of 64,
+    vocab 51865, 1500 frames, bf16; random weights from a torch.Generator
+    seeded 0 — after phase 12's engines are freed: the held parameters
+    equal ``param_count()`` plus the layernorms' scales and biases it
+    leaves out, and ``param_count()`` lies within 4% of the published
+    0.244e9;
+    (a) ``run_durable_loop`` over a pipeline that adds the frames
+        (``enc_embeds`` (8, 1500, 768) drawn with numpy from the
+        committed (seed, step): the reference's audio frontend is a stub;
+        the host time of one such batch and a ``torch.profiler`` window
+        over one step are printed after the runs):
+        6 steps of batch 8 x 448 decoder tokens (the model's trained
+        context), a ``sync`` commit every 2, retention 2: losses, ms a
+        step, host s a commit and peak memory printed; each commit the
+        bf16 params, fp32 mu and nu and 28 bytes of counters and
+        pipeline; 72 forward flash launches a step (the encoder's
+        self-attention 1500 x 1500, the decoder's causal 448 x 448 and the
+        cross-attention 448 over 1500, each twice under remat) and 36
+        backward; then the same run with a crash before the last commit:
+        recovered from the pool at step 3, steps 4-5 run again, the state,
+        the pipeline and those losses bit-identical to the clean run's;
+    (b) 4 sequences: a prefill of 64 tokens with their frames (the flash
+        kernel once per attention: 36 launches) and 32 greedy decode steps
+        (plain attention over the self and cross caches): each step's
+        logits within 0.05 abs of a full forward over the same tokens on
+        the card (the reference's own tolerance), with the same argmax
+        wherever the full forward's top-2 margin exceeds twice the step's
+        error (bf16 logits over 51,865 tokens tie exactly; there the two
+        orders are both within the bound, and each such step is printed);
+        ms a prefill and a decode step printed; then the phase's time.
 
-Each path and each run of phases 9, 10, 11 and 12 is driven with every
+Each path and each run of phases 9, 10, 11, 12 and 13 is driven with every
 launch count set to 0 just before it and read just after.  Then a
 ``{"kernels": [...]}`` line, the card line again, and as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises and the script exits non-zero; without a CUDA device, or without
@@ -485,6 +522,12 @@ def phase_kernel(torch, ops):
         ("internlm2_h16_k8", 1, 16, 8, 512, 512, 128, 128, True),
         ("phi3_h40_k10", 1, 40, 10, 512, 512, 128, 128, True),
         ("yi_h56_k8", 1, 56, 8, 512, 512, 128, 128, True),
+        # phase 13's whisper-small training shapes (hd 64, Sk 1500 = 23 x
+        # 64 + 28): the encoder, the cross-attention, the decoder
+        ("whisper_enc_b8_s1500", 8, 12, 12, 1500, 1500, 64, 64, False),
+        ("whisper_cross_b8_sq448_sk1500", 8, 12, 12, 448, 1500, 64, 64,
+         False),
+        ("whisper_dec_b8_s448", 8, 12, 12, 448, 448, 64, 64, True),
     ]
     gen = torch.Generator("cuda").manual_seed(1234)
     rows = {}
@@ -625,6 +668,10 @@ def phase_flash_bwd(torch, ops):
         ("ragged_s300", 1, 4, 4, 300, 300, 128, True),
         ("hd64_s512", 1, 8, 8, 512, 512, 64, True),
         ("causal_sq100_sk300", 1, 4, 2, 100, 300, 128, True),
+        # phase 13's whisper-small training shapes (see phase_kernel)
+        ("whisper_enc_b8_s1500", 8, 12, 12, 1500, 1500, 64, False),
+        ("whisper_cross_b8_sq448_sk1500", 8, 12, 12, 448, 1500, 64, False),
+        ("whisper_dec_b8_s448", 8, 12, 12, 448, 448, 64, True),
     ]
     gen = torch.Generator("cuda").manual_seed(4321)
     rows = {}
@@ -2270,6 +2317,318 @@ def phase_train(torch, cfg, counters) -> dict:
     return out
 
 
+#: phase 13: whisper-small trained at the model's decoder context (448
+#: tokens) over its 1500 frames, batch 8, 6 steps, a sync commit every 2,
+#: two manifests kept; then prefill of 64 tokens and 32 greedy decode steps
+#: for 4 sequences
+WHISPER_BATCH, WHISPER_SEQ = 8, 448
+WHISPER_KW = dict(n_steps=6, commit_every=2, commit_mode="sync",
+                  retention=2)
+WHISPER_SEQS, WHISPER_PROMPT, WHISPER_DECODE = 4, 64, 32
+#: retention 2 keeps at most three ~2.4 GB commits on disk at once
+WHISPER_DISK_BYTES = 10e9
+#: the reference's own prefill / decode tolerance (``tests/test_arch_smoke.py``)
+DECODE_ATOL = 0.05
+
+
+class FramesPipeline:
+    """A data pipeline plus frame embeddings: ``enc_embeds`` (B, enc_seq,
+    D) float32 drawn with numpy from the pipeline's (seed, step), so a
+    batch is a function of the pipeline state the loop commits (the
+    reference's audio frontend is a stub and has no source of frames)."""
+
+    def __init__(self, base, enc_seq: int, d_model: int):
+        self.base, self.enc_seq, self.d_model = base, enc_seq, d_model
+
+    @property
+    def state(self):
+        return self.base.state
+
+    @state.setter
+    def state(self, s):
+        self.base.state = s
+
+    def next_global(self):
+        import numpy as np
+        st = self.base.state
+        batch = self.base.next_global()
+        rng = np.random.default_rng([st.seed, st.step])
+        batch["enc_embeds"] = rng.standard_normal(
+            (self.base.global_batch, self.enc_seq, self.d_model),
+            dtype=np.float32)
+        return batch
+
+
+def attention_layers(cfg) -> int:
+    """Flash launches of one encoder-decoder forward: the encoder's
+    self-attention, the decoder's and the cross-attention, a layer each."""
+    return cfg.encdec.n_enc_layers + 2 * cfg.n_layers
+
+
+def _norm_params(descs) -> int:
+    """Elements of the layernorms' scales and biases (``ModelConfig.
+    param_count`` leaves them out)."""
+    from repro_torch.models.params import is_desc
+    from repro_torch.utils.tree import tree_leaves
+    return sum(math.prod(d.shape) for d in tree_leaves(descs, is_leaf=is_desc)
+               if d.logical[-1] == "embed_nofsdp")
+
+
+def profile_train_step(torch, step, state, pipe) -> dict:
+    """Where one train step's time goes: the batch drawn on the host, then
+    the step under ``torch.profiler`` (device time summed by kernel name;
+    the flash forward and backward and the matmuls beside the rest)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    batch_np = pipe.next_global()
+    host_batch_ms = (time.perf_counter() - t0) * 1e3
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            by_name[ev.name] = (by_name.get(ev.name, 0.0)
+                                + ev.device_time_total / 1e3)
+    busy_ms = sum(by_name.values())
+    groups = {"flash forward": ("flash_fwd_kernel",),
+              "flash backward": ("bwd_dq_kernel", "bwd_dkdv_kernel"),
+              "matmuls": ("nvjet", "gemm", "cutlass", "sm90_xmma")}
+    shares = {g: sum(ms for n, ms in by_name.items()
+                     if any(k in n for k in keys))
+              for g, keys in groups.items()}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"profile: a batch drawn on the host {host_batch_ms:.1f} ms; a "
+          f"step in {wall_ms:.1f} ms wall (profiled), device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%): "
+          + ", ".join(f"{g} {ms:.1f} ms" for g, ms in shares.items())
+          + f", the rest {busy_ms - sum(shares.values()):.1f} ms",
+          flush=True)
+    for name, ms in top:
+        print(f"profile: {ms:9.3f} ms  {name[:90]}", flush=True)
+    return dict(host_batch_ms=host_batch_ms, wall_ms=wall_ms,
+                device_busy_ms=busy_ms, groups_ms=shares,
+                top=[[n, ms] for n, ms in top])
+
+
+def phase_whisper(torch, cfg, counters) -> dict:
+    """Phase 13: whisper-small (encoder-decoder) trained durably at full
+    width and depth through the flash forward and backward kernels, then
+    prefill and greedy decode held to a full forward (see the module
+    docstring)."""
+    import numpy as np
+    from repro_torch.configs import PUBLISHED_PARAMS
+    from repro_torch.data.pipeline import DataPipeline, SyntheticLMSource
+    from repro_torch.dsm.pool import DSMPool
+    from repro_torch.models import common, encdec
+    from repro_torch.models.registry import build
+    from repro_torch.train.loop import run_durable_loop
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.utils.tree import tree_leaves
+    t_phase = time.perf_counter()
+    A = attention_layers(cfg)
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    print(f"whisper: free disk in {tmp}: {free / 1e9:.1f} GB", flush=True)
+    check(free >= WHISPER_DISK_BYTES,
+          f"whisper: the temp filesystem {tmp} holds {free / 1e9:.1f} GB "
+          f"free; phase 13 keeps up to three ~2.4 GB commits")
+    out = {}
+    bundle = build(cfg, device="cuda")
+    params = bundle.init_params(torch.Generator("cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    analytic = cfg.param_count()
+    norms = _norm_params(bundle.descs)
+    published = PUBLISHED_PARAMS[cfg.arch_id]
+    out["params"] = dict(held=n_params, param_count=analytic,
+                         norm_params=norms, published=published)
+    print(f"whisper: {cfg.arch_id} holds {n_params} params: param_count() "
+          f"{analytic} + {norms} layernorm scales and biases it leaves out; "
+          f"{analytic / published:.4f}x the published {published:.4g}",
+          flush=True)
+    check(n_params == analytic + norms,
+          f"whisper: holds {n_params} params, expected {analytic} + {norms}")
+    check(abs(analytic - published) / published < 0.04,
+          f"whisper: param_count {analytic} not within 4% of {published}")
+
+    # (a) durable training: a clean run, then a crash before the last commit
+    state0 = init_train_state(params, 0, cfg.moment_dtype)
+    ckpt_bytes = 28 + sum(t.numel() * t.element_size() for t in
+                          tree_leaves((state0.params, state0.opt.mu,
+                                       state0.opt.nu)))
+    step = make_train_step(bundle)
+
+    def frames_pipe():
+        return FramesPipeline(
+            DataPipeline(SyntheticLMSource(cfg.vocab_size), WHISPER_BATCH,
+                         WHISPER_SEQ), cfg.encdec.enc_seq, cfg.d_model)
+
+    def loop(pool, **kw):
+        pipe = frames_pipe()
+        reset_counts(counters)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = run_durable_loop(step, state0, pipe, pool, **WHISPER_KW, **kw)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0, read_counts(counters)
+
+    n_steps = WHISPER_KW["n_steps"]
+    pool_b = tempfile.mkdtemp(prefix="chip_smoke_whisper_")
+    try:
+        rb, wall_b, b_launches = loop(pool_b)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        man = DSMPool(pool_b).latest_manifest()
+    finally:
+        shutil.rmtree(pool_b, ignore_errors=True)
+    nbytes = sum(o["nbytes"] for o in man["objects"].values())
+    step_ms, commit_s, n_commits = _timing_means(rb)
+    out["clean"] = dict(losses=rb.losses, wall_s=wall_b, step_ms=step_ms,
+                        commit_s=commit_s, commits_timed=n_commits,
+                        ckpt_bytes_per_commit=nbytes, launches=b_launches,
+                        peak_gb=peak_gb)
+    print(f"whisper (a): {n_steps} steps of ({WHISPER_BATCH}, "
+          f"{WHISPER_SEQ}) over {cfg.encdec.enc_seq} frames, losses "
+          f"{[round(x, 6) for x in rb.losses]}; {step_ms:.1f} ms a step "
+          f"(compute), {commit_s:.3f} host s a commit ({n_commits} timed, "
+          f"schedule sync), wall {wall_b:.1f} s; ckpt_bytes_per_commit "
+          f"{nbytes}; launches {b_launches} (expected {n_steps * 2 * A} "
+          f"forward, {n_steps * A} backward); peak {peak_gb:.2f} GB",
+          flush=True)
+    check(nbytes == ckpt_bytes,
+          f"whisper (a): {nbytes} bytes a commit, expected {ckpt_bytes}")
+    check(man["step"] == n_steps - 1 and int(rb.state.opt.step) == n_steps,
+          f"whisper (a): newest manifest step {man['step']}, opt step "
+          f"{int(rb.state.opt.step)}")
+    check(all(math.isfinite(x) for x in rb.losses)
+          and len(rb.losses) == n_steps, f"whisper (a): losses {rb.losses}")
+    check(b_launches["flash_attention"] == n_steps * 2 * A
+          and b_launches["flash_attention_bwd"] == n_steps * A,
+          f"whisper (a): launches {b_launches}, expected {n_steps * 2 * A} "
+          f"forward (remat runs each twice) and {n_steps * A} backward")
+
+    last = n_steps - 1
+    every = WHISPER_KW["commit_every"]
+    pool_c = tempfile.mkdtemp(prefix="chip_smoke_whisper_")
+    try:
+        rc, wall_c, c_launches = loop(pool_c,
+                                      crash_at={last: "before_commit"})
+    finally:
+        shutil.rmtree(pool_c, ignore_errors=True)
+    redo = n_steps - (last - every + 1)          # steps after the commit
+    same = {
+        "params": all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(rc.state.params), tree_leaves(rb.state.params))),
+        "opt_mu": all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(rc.state.opt.mu), tree_leaves(rb.state.opt.mu))),
+        "opt_nu": all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(rc.state.opt.nu), tree_leaves(rb.state.opt.nu))),
+        "opt_step": int(rc.state.opt.step) == int(rb.state.opt.step),
+        "rng": torch.equal(rc.state.rng, rb.state.rng),
+        "pipeline": rc.pipeline_state == rb.pipeline_state,
+        "losses": rc.losses[-redo:] == rb.losses[-redo:],
+    }
+    step_ms_c, commit_s_c, _ = _timing_means(rc)
+    out["crash"] = dict(losses=rc.losses, wall_s=wall_c, step_ms=step_ms_c,
+                        commit_s=commit_s_c, launches=c_launches,
+                        recoveries=rc.recoveries, bit_identical=same)
+    print(f"whisper (a): crash before the commit of step {last}: "
+          f"{rc.crashes} crash, recoveries {rc.recoveries}, steps "
+          f"{last - redo + 1}-{last} run again; bit-identical to the clean "
+          f"run: {same}; wall {wall_c:.1f} s, {step_ms_c:.1f} ms a step, "
+          f"{commit_s_c:.3f} host s a commit; launches {c_launches}",
+          flush=True)
+    check(rc.crashes == 1 and rc.recoveries == ["pool"],
+          f"whisper (a): {rc.crashes} crashes, recoveries {rc.recoveries}")
+    check(len(rc.losses) == n_steps + redo,
+          f"whisper (a): {len(rc.losses)} losses, expected {n_steps + redo}")
+    check(all(same.values()), f"whisper (a): not bit-identical: {same}")
+    check(c_launches["flash_attention"] == (n_steps + redo) * 2 * A
+          and c_launches["flash_attention_bwd"] == (n_steps + redo) * A,
+          f"whisper (a): crash run launches {c_launches}")
+    out["profile"] = profile_train_step(torch, step, state0, frames_pipe())
+    del rb, rc, state0, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) prefill and greedy decode, each step against a full forward
+    g = np.random.default_rng(13)
+    B, P, T = WHISPER_SEQS, WHISPER_PROMPT, WHISPER_DECODE
+    prompt = torch.from_numpy(g.integers(0, cfg.vocab_size, (B, P),
+                                         np.int64)).cuda()
+    frames = torch.from_numpy(g.standard_normal(
+        (B, cfg.encdec.enc_seq, cfg.d_model), dtype=np.float32)).cuda()
+    caches = bundle.init_caches(B, P + T)
+    reset_counts(counters)
+    steps, toks = [], [prompt]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, st = bundle.prefill(params, {"tokens": prompt,
+                                             "enc_embeds": frames}, caches)
+        steps.append(logits)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(T):
+            nxt = torch.argmax(logits, -1)[:, None]
+            toks.append(nxt)
+            logits, st = bundle.decode(params, nxt, st)
+            steps.append(logits)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        inf_launches = read_counts(counters)
+        seq = torch.cat(toks, 1)
+        enc = encdec.encode(cfg, params, frames)
+        x, _ = encdec.decode_tokens(cfg, params, seq, enc)
+        full = common.unembed(cfg, params["embed"], x).float()
+    # each step's logits against the full forward's at its position; an
+    # argmax may differ only where the full forward's top-2 margin is
+    # within twice the step's error (bf16 logits over 51,865 tokens tie
+    # exactly), where the error bound cannot order the two
+    errs, flips = [], []
+    for j, lg in enumerate(steps):
+        ref = full[:, P - 1 + j]
+        errs.append(float((lg.float() - ref).abs().max()))
+        top2 = torch.topk(ref, 2, dim=-1).values
+        for b in torch.nonzero(torch.argmax(lg, -1)
+                               != torch.argmax(ref, -1)).flatten().tolist():
+            flips.append((j, b, float(top2[b, 0] - top2[b, 1])))
+    out["decode"] = dict(prefill_ms=(t1 - t0) * 1e3,
+                         decode_ms=(t2 - t1) * 1e3 / T, launches=inf_launches,
+                         max_abs_err=max(errs), errs=errs,
+                         argmax_flips=flips, pos=int(st.pos))
+    print(f"whisper (b): prefill of ({B}, {P}) with its frames "
+          f"{(t1 - t0) * 1e3:.1f} ms, {T} greedy decode steps "
+          f"{(t2 - t1) * 1e3 / T:.2f} ms each; launches {inf_launches} "
+          f"(expected {A} forward, one prefill); logits against the full "
+          f"forward over the {P + T} tokens: max abs {max(errs):.3e} (tol "
+          f"{DECODE_ATOL}); argmax equal at {len(steps) * B - len(flips)} "
+          f"of {len(steps) * B} (step, sequence) pairs, the others (step, "
+          f"sequence, the full forward's top-2 margin) {flips}",
+          flush=True)
+    check(int(st.pos) == P + T, f"whisper (b): pos {int(st.pos)}")
+    check(inf_launches["flash_attention"] == A
+          and inf_launches["flash_attention_bwd"] == 0,
+          f"whisper (b): launches {inf_launches}, expected {A} forward")
+    check(max(errs) < DECODE_ATOL
+          and all(m <= 2 * errs[j] for j, _, m in flips),
+          f"whisper (b): logits against the full forward: errs {errs}, "
+          f"argmax flips {flips}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"whisper: phase 13 took {out['phase_s']:.1f} s", flush=True)
+    out["launches"] = {"whisper train (a)": b_launches,
+                       "whisper train (a) crash": c_launches,
+                       "whisper decode (b)": inf_launches}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", default=None,
@@ -2421,6 +2780,11 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     report["archs"] = phase_archs(torch, trace, t_max, counters)
+    # -- 13. whisper-small: durable training, prefill and decode -----------
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["whisper"] = phase_whisper(torch, get_config("whisper-small"),
+                                      counters)
     by_run = {a: p["launches"] for a, p in paths.items()}
     by_run.update({f"olmo-1b {r}": n
                    for r, n in report["features"]["launches"].items()})
@@ -2429,6 +2793,7 @@ def main(argv=None) -> int:
     by_run.update({f"olmo-1b {r}": n
                    for r, n in report["train"]["launches"].items()})
     by_run.update(report["archs"]["launches"])
+    by_run.update(report["whisper"]["launches"])
 
     mains = {"flash_attention": report["kernel_cases"]["path_s512"],
              "grouped_matmul": report["gmm_cases"]["decode_up"],

@@ -1,9 +1,10 @@
 """Architecture registry: ``get_config("<arch-id>")`` / ``--arch <id>``.
 
-The reference's nine decoder-only architectures, in its order.  Its tenth,
-whisper-small (``ENCDEC_ARCHS``), is not ported: ``get_config`` raises
-``KeyError`` for it, and the serving entry points reject it with the
-reference's message (``serve.engine.build_serve_engine``).
+The reference's ten architectures, in its order.  One of them,
+whisper-small, is an encoder-decoder (``ENCDEC_ARCHS``): it trains and
+runs the model-level prefill / decode (``models.encdec``), and the
+serving entry points refuse it with the reference's decoder-only message
+(``serve.engine.build_serve_engine``), as the reference's do.
 """
 from __future__ import annotations
 
@@ -24,17 +25,18 @@ _ARCH_MODULES: Dict[str, str] = {
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large_398b",
+    "whisper-small": "repro_torch.configs.whisper_small",
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
 }
 
-#: the reference's encoder-decoder architectures, which are not ported
+#: the reference's encoder-decoder architectures (not servable)
 ENCDEC_ARCHS = ("whisper-small",)
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)
 
 
 # Published parameter totals (for sanity tests; +-4% tolerance): the
-# reference's ``PUBLISHED_PARAMS`` for the architectures registered here.
+# reference's ``PUBLISHED_PARAMS``.
 PUBLISHED_PARAMS = {
     "chameleon-34b": 34.4e9,
     "olmo-1b": 1.18e9,
@@ -45,6 +47,7 @@ PUBLISHED_PARAMS = {
     "olmoe-1b-7b": 6.9e9,
     "deepseek-v2-236b": 236e9,
     "jamba-1.5-large-398b": 398e9,
+    "whisper-small": 0.244e9,
     "rwkv6-7b": 7.6e9,
 }
 

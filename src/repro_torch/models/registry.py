@@ -1,11 +1,17 @@
 """Model registry: config -> params / loss / serve steps — the port of
-``repro.models.registry`` for decoder-only models.
+``repro.models.registry``.
 
     bundle = build(cfg, device="cuda")
     params = bundle.init_params(torch.Generator("cuda").manual_seed(0))
     loss, metrics = bundle.loss(params, {"tokens": t, "targets": y})
     logits, state = bundle.prefill(params, {"tokens": t}, caches)
     logits, state = bundle.decode(params, tokens, state)
+
+An encoder-decoder config (whisper-small) builds ``models.encdec``'s
+bundle, as the reference's does: its batches carry ``enc_embeds`` (B,
+enc_seq, D) beside the tokens, its caches are ``EncDecCaches`` (self and
+cross ``KVCache`` leaves of (L, B, T, K, hd)), ``forward`` is None, and
+``dec_pos_len`` sizes its decoder positional table.
 
 A bundle lives on one device (``"cuda"`` by default; asking for it without
 a card raises).  Its caches are allocated there, and ``init_params`` wants
@@ -19,7 +25,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.models.params import (abstract_params, count_params,
                                        init_params, zeros_like_specs)
 from repro_torch.utils.device import resolve_device
@@ -30,7 +36,7 @@ class ModelBundle:
     cfg: ModelConfig
     device: torch.device
     descs: Any
-    forward: Callable
+    forward: Optional[Callable]
     loss: Callable             # (params, batch, **kw) -> (loss, metrics)
     prefill: Callable
     decode: Callable
@@ -65,12 +71,19 @@ class ModelBundle:
 
 def build(cfg: ModelConfig, dec_pos_len: int = 448,
           device="cuda") -> ModelBundle:
-    """``dec_pos_len`` is the reference's encoder-decoder knob, kept for
-    signature parity; decoder-only models ignore it."""
-    if cfg.is_encdec:
-        raise NotImplementedError("encoder-decoder models are not ported yet "
-                                  "(reference: repro.models.encdec)")
+    """``dec_pos_len``: the encoder-decoder's decoder positional table
+    length (at least 448); decoder-only models ignore it."""
     dev = resolve_device(device)
+    if cfg.is_encdec:
+        return ModelBundle(
+            cfg=cfg, device=dev,
+            descs=encdec.model_descs(cfg, dec_pos_len=dec_pos_len),
+            forward=None,
+            loss=lambda p, b, **kw: encdec.loss_fn(cfg, p, b, **kw),
+            prefill=lambda p, b, caches: encdec.prefill(cfg, p, b, caches),
+            decode=lambda p, t, s: encdec.decode_step(cfg, p, t, s),
+            cache_descs=lambda batch, t_max: encdec.cache_descs(
+                cfg, batch, t_max))
     return ModelBundle(
         cfg=cfg, device=dev, descs=lm.model_descs(cfg),
         forward=lambda p, t: lm.forward(cfg, p, t),

@@ -99,7 +99,7 @@ class ServeEngine:
         if restore_mode not in ("cache", "replay"):
             raise ValueError(restore_mode)
         if bundle.cfg.is_encdec:
-            raise ValueError("the serving subsystem is decoder-only")
+            raise ValueError(DECODER_ONLY)
         self.bundle = bundle
         self.params = params
         self.device = bundle.device
@@ -461,11 +461,10 @@ class ServeEngine:
 
 
 def servable_archs():
-    """Arch ids the serving subsystem supports: every registered one, since
-    only decoder-only architectures are ported (the launcher's argparse
-    choices)."""
-    from repro_torch.configs import ARCH_IDS
-    return list(ARCH_IDS)
+    """Arch ids the serving subsystem supports: the decoder-only ones (the
+    launcher's argparse choices), as the reference filters them."""
+    from repro_torch.configs import ARCH_IDS, ENCDEC_ARCHS
+    return [a for a in ARCH_IDS if a not in ENCDEC_ARCHS]
 
 
 def build_serve_engine(arch: str = "olmo-1b", *, smoke: bool = True,

@@ -1,12 +1,14 @@
 """The port's twins of the model benchmarks and examples.
 
 * ``python -m repro_torch.bench.{flit,table1,latency,model_fuzz,
-  placement}`` write ``BENCH_<name>.json`` in the reference harness's
+  placement,autoscale}`` write ``BENCH_<name>.json`` in the reference harness's
   schema, and the committed baselines (``benchmarks/baselines/*.json``)
   hold them by each metric's ``direction`` / ``rel_tol`` / ``abs_tol`` —
   through the repo's own gate (``scripts/bench_gate.py``) and through the
   port's ``check_against``; ``model_fuzz`` and ``placement`` run here
-  with ``--device cpu``;
+  with ``--device cpu``; ``autoscale`` (host code) meets every metric of
+  ``autoscale.json``: the 363 trace requests and each preset's counts
+  exactly, its cost ratios within rel_tol 0.02;
 * ``python -m repro_torch.bench.serve --device cpu`` meets all nine
   metrics of ``benchmarks/baselines/serve.json`` exactly, the fleet's
   three (``serve_fleet_speedup_ge_1.6``, the migration's token loss and
@@ -33,16 +35,18 @@ sys.path.insert(0, str(ROOT))              # scripts/ as a package
 
 from scripts.bench_gate import gate_bench  # noqa: E402
 
-from repro_torch.bench import (checkpoint, flit, latency,  # noqa: E402
-                               model_fuzz, placement, serve, table1)
+from repro_torch.bench import (autoscale, checkpoint, flit,  # noqa: E402
+                               latency, model_fuzz, placement, serve,
+                               table1)
 from repro_torch.bench.report import check_against  # noqa: E402
 
 BENCHES = {"flit": (flit, []), "table1": (table1, []),
            "latency": (latency, []),
            "model_fuzz": (model_fuzz, ["--device", "cpu"]),
-           "placement": (placement, ["--device", "cpu"])}
+           "placement": (placement, ["--device", "cpu"]),
+           "autoscale": (autoscale, [])}
 N_METRICS = {"flit": 21, "table1": 19, "latency": 22, "model_fuzz": 1,
-             "placement": 11}
+             "placement": 11, "autoscale": 25}
 
 
 @pytest.mark.parametrize("name", list(BENCHES))

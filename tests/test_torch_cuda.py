@@ -76,6 +76,13 @@ machine with the card, where there is no JAX:
   prefill, the migrated blocks staged as frames in engine 2's buffer and
   their bytes counted as D2H; an RStore of a CUDA tree into a spill-file
   buffer counts its bytes once, and the emulator prices it from metadata;
+* whisper-small's smoke config (bf16, hd 64) on the card against the
+  same weights on the CPU: the full forward's logits within 0.05 abs, the
+  loss and the gradients' norm within 2e-2 relative, the flash forward
+  once per attention (twice under remat) and its backward once; prefill
+  and 8 greedy decode steps held to a full forward on the card (0.05 abs,
+  the same argmax), the kernel launched by the prefill only; and both
+  flash kernels at its cross-attention's non-causal hd 64, Sq < Sk;
 * the CXL0 model's tensor twin (``core.semantics_torch``, plain PyTorch:
   no kernel of its own) gives on the card the bits it gives on the CPU
   for 4,096 schedules on two systems, and ``random_schedules`` with a
@@ -104,6 +111,8 @@ CASES = [
     (1, 2, 1, 130, 200, 128, 128, True),    # several tiles, Sq < Sk
     (1, 4, 4, 70, 70, 192, 128, True),      # MLA's widths: hd 192 in the
                                             # 256 bucket, hd_v 128, G = 1
+    (2, 12, 12, 100, 300, 64, 64, False),   # whisper's cross-attention:
+                                            # hd 64, ragged Sq < Sk
 ]
 IDS = [f"B{c[0]}H{c[1]}K{c[2]}S{c[3]}x{c[4]}hd{c[5]}v{c[6]}"
        f"{'c' if c[7] else 'f'}" for c in CASES]
@@ -188,6 +197,8 @@ BWD_CASES = [
     (1, 8, 8, 512, 512, 64, True),          # hd 64 at 512
     (1, 4, 2, 100, 300, 128, True),         # causal, Sq < Sk: kv tiles past
                                             # the last q row write zeros
+    (2, 12, 12, 100, 300, 64, False),       # whisper's cross-attention:
+                                            # every q tile for each kv tile
 ]
 
 
@@ -933,6 +944,103 @@ def test_jamba_serving_runs_the_scan_flash_and_gmm_kernels(cuda):
     assert gmm_ops.LAUNCHES - gmm0 == \
         3 * n_moe * (res.prefills + len(decodes))
     assert all(len(res.outputs[r.rid]) == r.max_new_tokens for r in trace)
+
+
+# ---------------------------------------------------------------------------
+# whisper-small (encoder-decoder) through the flash kernels
+# ---------------------------------------------------------------------------
+
+def _whisper_models(cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.registry import build
+    from repro_torch.utils.tree import tree_map
+    cfg = get_smoke_config("whisper-small")
+    b_cpu = build(cfg, device="cpu")
+    p_cpu = b_cpu.init_params(seed=0)
+    return cfg, b_cpu, p_cpu, build(cfg, device=cuda), tree_map(
+        lambda t: t.to(cuda), p_cpu)
+
+
+def _whisper_inputs(cfg, B, S, seed):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S),
+                                          np.int64)),
+            torch.from_numpy(rng.standard_normal(
+                (B, cfg.encdec.enc_seq, cfg.d_model), np.float32)))
+
+
+def _whisper_logits(cfg, p, toks, frames):
+    from repro_torch.models import common, encdec
+    x, _ = encdec.decode_tokens(cfg, p, toks,
+                                encdec.encode(cfg, p, frames))
+    return common.unembed(cfg, p["embed"], x).float()
+
+
+def test_whisper_smoke_on_the_card_matches_the_cpu(cuda):
+    """whisper-small's smoke config (bf16, hd 64) on the card against the
+    same weights on the CPU: the full forward's logits within 0.05 abs
+    (the reference's bf16 prefill / decode tolerance) with the flash
+    kernel once per attention (encoder self, decoder self, cross); the
+    loss and the gradients' global norm within 2e-2 relative, with each
+    attention's forward launched twice under remat and its backward once."""
+    from repro_torch.utils.tree import tree_flatten
+    cfg, b_cpu, p_cpu, b, p = _whisper_models(cuda)
+    n_attn = cfg.encdec.n_enc_layers + 2 * cfg.n_layers
+    toks, frames = _whisper_inputs(cfg, 2, 40, seed=5)
+    with torch.no_grad():
+        want = _whisper_logits(cfg, p_cpu, toks, frames)
+        before = ops.LAUNCHES
+        got = _whisper_logits(cfg, p, toks.to(cuda), frames.to(cuda))
+        torch.cuda.synchronize()
+    assert ops.LAUNCHES - before == n_attn
+    assert float((got.cpu() - want).abs().max()) < 0.05
+
+    def loss_and_norm(bundle, params, device):
+        leaves, td = tree_flatten(params)
+        live = [t.detach().requires_grad_(True) for t in leaves]
+        loss, _ = bundle.loss(td.unflatten(live),
+                              {"tokens": toks.to(device),
+                               "enc_embeds": frames.to(device)})
+        grads = torch.autograd.grad(loss, live)
+        return float(loss.detach()), float(torch.sqrt(sum(
+            torch.sum(g.float() ** 2) for g in grads)))
+
+    want = loss_and_norm(b_cpu, p_cpu, "cpu")
+    fwd, bwd = ops.LAUNCHES, ops.BWD_LAUNCHES
+    got = loss_and_norm(b, p, cuda)
+    assert (ops.LAUNCHES - fwd, ops.BWD_LAUNCHES - bwd) == \
+        (2 * n_attn, n_attn)
+    for g, w in zip(got, want):
+        assert abs(g - w) <= 2e-2 * abs(w), (got, want)
+
+
+def test_whisper_smoke_decode_on_the_card_holds_to_its_full_forward(cuda):
+    """Prefill (the flash kernel once per attention) and 8 greedy decode
+    steps (plain attention over the self and cross caches, no launch) on
+    the card: each step's logits within 0.05 of a full forward over the
+    same tokens on the card, with the same argmax."""
+    cfg, _, _, b, p = _whisper_models(cuda)
+    n_attn = cfg.encdec.n_enc_layers + 2 * cfg.n_layers
+    toks, frames = _whisper_inputs(cfg, 2, 16, seed=6)
+    toks, frames = toks.to(cuda), frames.to(cuda)
+    steps, seq = [], [toks]
+    with torch.no_grad():
+        before = ops.LAUNCHES
+        logits, st = b.prefill(p, {"tokens": toks, "enc_embeds": frames},
+                               b.init_caches(2, 24))
+        steps.append(logits)
+        for _ in range(8):
+            nxt = torch.argmax(logits, -1)[:, None]
+            seq.append(nxt)
+            logits, st = b.decode(p, nxt, st)
+            steps.append(logits)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES - before == n_attn and int(st.pos) == 24
+        full = _whisper_logits(cfg, p, torch.cat(seq, 1), frames)
+    for j, lg in enumerate(steps):
+        ref = full[:, 15 + j]
+        assert float((lg.float() - ref).abs().max()) < 0.05
+        assert torch.equal(torch.argmax(lg, -1), torch.argmax(ref, -1))
 
 
 # ---------------------------------------------------------------------------

@@ -63,6 +63,10 @@ SLICE_MODULES = [
     "repro_torch.train.state", "repro_torch.train.step",
     "repro_torch.train.loop", "repro_torch.launch.train",
     "repro_torch.bench.checkpoint",
+    "repro_torch.configs.whisper_small", "repro_torch.models.encdec",
+    "repro_torch.scale", "repro_torch.scale.traffic",
+    "repro_torch.scale.autoscaler", "repro_torch.scale.grow",
+    "repro_torch.train.elastic", "repro_torch.bench.autoscale",
 ]
 
 _FORBIDDEN = re.compile(

@@ -17,6 +17,8 @@ slot independence: which lane holds which session changes nothing (for
 olmoe that includes per-slot MoE routing: a slot's token is routed alone,
 as in the reference's per-slot ``vmap``).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,7 +42,7 @@ FP32 = dict(param_dtype="float32", compute_dtype="float32")
 T_MAX = 24
 ARCHS = ["olmo-1b", "olmoe-1b-7b", "internlm2-1.8b", "phi3-medium-14b",
          "yi-34b", "chameleon-34b", "deepseek-v2-236b"]
-ALL_ARCHS = ARCHS + ["rwkv6-7b", "jamba-1.5-large-398b"]
+ALL_ARCHS = ARCHS + ["rwkv6-7b", "jamba-1.5-large-398b", "whisper-small"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -282,14 +284,20 @@ def test_configs_are_the_references_and_count_the_published_params(arch):
 
 
 def test_the_port_registers_every_decoder_only_arch_of_the_reference():
+    """Every arch of the reference, in its order — the decoder-only ones
+    and, since the encoder-decoder slice, whisper-small, whose config is
+    the reference's; ``ENCDEC_ARCHS`` lists the encoder-decoder ids."""
     from repro.configs import ARCH_IDS as REF_ARCH_IDS
+    from repro.configs import get_config as ref_config
     from repro_torch.configs import ARCH_IDS, ENCDEC_ARCHS, get_config
-    assert ARCH_IDS == [a for a in REF_ARCH_IDS
-                        if not ref_smoke_config(a).is_encdec]
+    assert ARCH_IDS == REF_ARCH_IDS
     assert list(ENCDEC_ARCHS) == [a for a in REF_ARCH_IDS
-                                  if a not in ARCH_IDS]
-    with pytest.raises(KeyError, match="unknown arch 'whisper-small'"):
-        get_config("whisper-small")
+                                  if ref_smoke_config(a).is_encdec]
+    assert dataclasses.asdict(get_config("whisper-small")) == \
+        dataclasses.asdict(ref_config("whisper-small"))
+    assert get_config("whisper-small").param_count() == 239_509_248
+    with pytest.raises(KeyError, match="unknown arch 'whisper-tiny'"):
+        get_config("whisper-tiny")
 
 
 @pytest.mark.parametrize("arch", ["yi-34b", "deepseek-v2-236b"])
