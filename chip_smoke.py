@@ -8,12 +8,15 @@ olmoe-1b-7b, of rwkv6-7b and of jamba-1.5-large-398b (depth cut to 5
 layers), then the CXL0 model's tensor twin at a fuzzing run's batch, then
 olmo-1b's serving features (commit schedules, static baseline, prefix
 reuse), then a fleet of olmo-1b engines over one pool (live migration,
-the placement policy), then durable training of olmo-1b at full width and
-depth through the flash forward and backward kernels, then serving of the
+the placement policy), then durable training of olmo-1b at full width
+(depth cut to 4 layers) through the flash forward and backward kernels,
+then serving of the
 other five decoder-only architectures at full width (internlm2-1.8b,
 phi3-medium-14b, yi-34b, chameleon-34b; deepseek-v2-236b's depth cut to 8
 layers), then durable training, prefill and decode of the encoder-decoder
-whisper-small at full width and depth, and prints one line per phase:
+whisper-small at full width and depth, then real process kills of the
+serving and training workers inside the commit window, and prints one line
+per phase:
 
 1. environment — the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions;
@@ -227,19 +230,20 @@ whisper-small at full width and depth, and prints one line per phase:
         printed; tokens and every count equal (a)'s under sync.
 
 11. durable training (``repro_torch.train``) of olmo-1b at full width
-    and depth (1,176,764,416 parameters, random weights from a
-    torch.Generator seeded 0, deterministic algorithms on):
+    with its depth cut from 16 layers to 4 (since PR 25, for the time
+    limit; 371,458,048 parameters, random weights from a torch.Generator
+    seeded 0, deterministic algorithms on):
     (a) the loss and the global grad norm of one (1, 64) batch on the card
-        through the kernels (16 layers: 32 forward launches under remat,
-        16 backward) against the port on the CPU with the same weights in
+        through the kernels (4 layers: 8 forward launches under remat,
+        4 backward) against the port on the CPU with the same weights in
         fp32 and plain attention: within 2e-2 relative;
     (b) ``run_durable_loop``: 8 steps at the reference launcher's global
         batch 8 x seq 512, a ``sync`` commit every 4 steps, retention 2,
         on a pool in a temp dir (the free disk printed first: the phase
-        fails below ~36 GB): losses, ms a step, host s a commit, peak
+        fails below ~12 GB): losses, ms a step, host s a commit, peak
         memory and the bf16 param elements that moved printed; each
-        commit exactly 11,767,644,188 bytes (params bf16, mu and nu fp32,
-        28 bytes of counters and pipeline); 256 forward and 128 backward
+        commit exactly 3,714,580,508 bytes (params bf16, mu and nu fp32,
+        28 bytes of counters and pipeline); 64 forward and 32 backward
         flash launches;
     (c) the same run on a fresh pool with a crash before the commit of
         step 6: 1 crash, recovered from the pool at step 3, steps 4-7 run
@@ -296,8 +300,36 @@ whisper-small at full width and depth, and prints one line per phase:
         orders are both within the bound, and each such step is printed);
         ms a prefill and a decode step printed; then the phase's time.
 
+14. crash scenarios (``repro_torch.scenarios``): the port's runner spawns
+    the killable workers as child processes on the card, one after
+    another (they load the libraries phase 2 built), after the parent has
+    freed every earlier model; a child that exits with anything but 0 or
+    17 fails the phase:
+    (a) serving olmo-1b at full width and depth (random weights, seed 0):
+        10 requests of 128 prompt tokens, budgets 4,8,16,24, 4 slots, a
+        ``sync`` session commit every 3 ticks; an uninterrupted run, then
+        a kill (``os._exit(17)`` in the commit window's fault hook) at
+        each of ``pre_flush``, ``mid_flush`` and ``post_completeOp`` at
+        tick >= 6 and its restart: each restart resumes at the newest
+        completed commit (ticks 3, 3, 6) and every session's tokens equal
+        the uninterrupted run's bit for bit;
+    (b) training olmo-1b at full width cut to 4 layers: (8, 512) batches,
+        ``sharded-async`` over 4 shards, 4 steps, a commit every 2, two
+        manifests kept; an uninterrupted run, then a kill at
+        ``mid_flush`` of step 3 and its restart, which resumes at step 1
+        and ends with the uninterrupted run's params digest.
+    Each child's flash launches (its own counters, from 0 at its start;
+    the killed ones print theirs in their kill line) must equal 16 a
+    prefill (serving) or 8 forward and 4 backward a step (training), at
+    the prefills and steps the CPU rehearsal of the phase predicts
+    (``CRASH_SERVE_PREFILLS``, ``CRASH_TRAIN_STEPS``).  Printed for each
+    child beside the card's name and power limit: wall s, ``recover_s``
+    (from the process's start to the end of its first step or scheduler
+    round) and the bytes it recovered into the card.
+
 Each path and each run of phases 9, 10, 11, 12 and 13 is driven with every
-launch count set to 0 just before it and read just after.  Then a
+launch count set to 0 just before it and read just after; the children of
+phase 14 start with theirs at 0.  Then a
 ``{"kernels": [...]}`` line, the card line again, and as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises and the script exits non-zero; without a CUDA device, or without
 the repo's ``src/repro_torch`` beside it, it exits non-zero and prints no
@@ -2132,18 +2164,23 @@ def phase_fleet(torch, cfg, counters) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-#: olmo-1b's parameters (``PUBLISHED_PARAMS``) and its committed bytes:
-#: params bf16 + mu and nu fp32 + 28 bytes of counters (int32 step, (2,)
-#: uint32 key data) and pipeline (two int64)
-OLMO_PARAMS = 1_176_764_416
-OLMO_CKPT_BYTES = 11_767_644_188
+#: phase 11 trains olmo-1b at full width with its depth cut from 16 layers
+#: to 4, to keep the script within its time limit beside phase 14 (each
+#: full-depth commit of 11.8 GB took ~23 host s)
+TRAIN_LAYERS = 4
+#: the cut model's parameters (``ModelConfig.param_count``; 1,176,764,416
+#: at 16 layers) and its committed bytes: params bf16 + mu and nu fp32 +
+#: 28 bytes of counters (int32 step, (2,) uint32 key data) and pipeline
+#: (two int64)
+TRAIN_PARAMS = 371_458_048
+TRAIN_CKPT_BYTES = 3_714_580_508
 #: phase 11's run: the reference launcher's batch and sequence
 #: (``repro/launch/train.py`` defaults), 8 steps, a sync commit every 4,
 #: two manifests kept
 TRAIN_BATCH, TRAIN_SEQ = 8, 512
 TRAIN_KW = dict(n_steps=8, commit_every=4, commit_mode="sync", retention=2)
-#: retention 2 keeps at most three ~11.8 GB commits on disk at once
-TRAIN_DISK_BYTES = 36e9
+#: retention 2 keeps at most three ~3.7 GB commits on disk at once
+TRAIN_DISK_BYTES = 12e9
 
 
 def _loss_and_grad_norm(torch, bundle, params, batch) -> tuple:
@@ -2182,14 +2219,15 @@ def phase_train(torch, cfg, counters) -> dict:
     print(f"train: free disk in {tmp}: {free / 1e9:.1f} GB", flush=True)
     check(free >= TRAIN_DISK_BYTES,
           f"train: the temp filesystem {tmp} holds {free / 1e9:.1f} GB free; "
-          f"phase 11 keeps up to three ~11.8 GB commits (retention 2) and "
+          f"phase 11 keeps up to three ~3.7 GB commits (retention 2) and "
           f"needs ~{TRAIN_DISK_BYTES / 1e9:.0f} GB")
     out = {}
     bundle = build(cfg, device="cuda")
     params = bundle.init_params(torch.Generator("cuda").manual_seed(0))
     n_params = sum(p.numel() for p in tree_leaves(params))
-    check(n_params == OLMO_PARAMS,
-          f"train: olmo-1b holds {n_params} params, expected {OLMO_PARAMS}")
+    check(n_params == TRAIN_PARAMS == cfg.param_count(),
+          f"train: olmo-1b at {L} layers holds {n_params} params, expected "
+          f"{TRAIN_PARAMS}")
 
     # (a) the kernel path against the plain path: one (1, 64) batch
     tok = torch.randint(0, cfg.vocab_size, (1, 65),
@@ -2260,8 +2298,8 @@ def phase_train(torch, cfg, counters) -> dict:
           f"ckpt_bytes_per_commit {nbytes}; launches {b_launches}; peak "
           f"{peak_gb:.2f} GB; bf16 param elements moved {moved} of "
           f"{n_params}; manifests kept {n_manifests}", flush=True)
-    check(nbytes == OLMO_CKPT_BYTES,
-          f"train (b): {nbytes} bytes a commit, expected {OLMO_CKPT_BYTES}")
+    check(nbytes == TRAIN_CKPT_BYTES,
+          f"train (b): {nbytes} bytes a commit, expected {TRAIN_CKPT_BYTES}")
     check(man["step"] == n_steps - 1 and int(rb.state.opt.step) == n_steps,
           f"train (b): newest manifest step {man['step']}, opt step "
           f"{int(rb.state.opt.step)}")
@@ -2629,6 +2667,172 @@ def phase_whisper(torch, cfg, counters) -> dict:
     return out
 
 
+#: phase 14: real process kills of the port's serving and training workers
+#: (``repro_torch.scenarios``), spawned one after another on the card.
+#: Serving: olmo-1b at full width and depth, 10 requests of 128 prompt
+#: tokens, budgets 4,8,16,24, 4 slots, a sync session commit every 3
+#: ticks; each kill at the first hook of its point at tick >= 6.
+#: Training: olmo-1b at full width cut to 4 layers, (8, 512) batches,
+#: sharded-async over 4 shards, 4 steps, a commit every 2, two manifests
+#: kept; killed at mid_flush of step 3 (the second commit; a 4-step run
+#: commits no step >= 4)
+CRASH_SERVE_KW = dict(requests=10, slots=4, commit_every=3, prompt_len=128,
+                      new_tokens="4,8,16,24", commit_mode="sync", full=True)
+CRASH_SERVE_KILL_STEP = 6
+CRASH_TRAIN_KW = dict(steps=4, commit_every=2, mode="sharded-async",
+                      shards=4, retention=2, model="full", layers=4)
+CRASH_TRAIN_KILL = ("mid_flush", 3)
+#: the CPU rehearsal of this phase (the same trace, kill points and
+#: schedules on olmo-1b's smoke config, ``--device cpu``): prefills of each
+#: serving child, steps computed by each training child, and the step each
+#: restart must resume at (the newest completed commit)
+CRASH_SERVE_PREFILLS = {
+    "reference": 10,
+    "pre_flush": (5, 6), "mid_flush": (5, 6), "post_completeOp": (5, 5)}
+CRASH_TRAIN_STEPS = {"reference": 4, "kill": 4, "restart": 2}
+CRASH_RESUME = {"pre_flush": 3, "mid_flush": 3, "post_completeOp": 6,
+                "train": 1}
+#: the training scenario keeps at most three ~4.7 GB commits of one pool
+CRASH_DISK_BYTES = 20e9
+CUBLAS_WORKSPACE = ":4096:8"
+
+
+def _crash_child(name: str, child: dict, card: str) -> dict:
+    """Print one child of phase 14 and return its launches."""
+    r = child["result"] or {}
+    rec = r.get("recover_s")
+    print(f"crash: {name}: rc {child['rc']}, wall {child['wall_s']:.2f} s, "
+          f"recover_s {'-' if rec is None else format(rec, '.2f')}, "
+          f"recovered bytes into HBM {r.get('recovered_bytes', '-')}, "
+          f"launches {r.get('launches')} [{card}]", flush=True)
+    return r.get("launches") or {}
+
+
+def phase_crash(torch, card: str) -> dict:
+    """Phase 14: the crash scenarios on the card (see the module
+    docstring): every child runs ``--device cuda``; a child that exits
+    with anything but 0 (restarts, references) or 17 (kills) fails."""
+    from repro_torch.configs import get_config
+    from repro_torch.dsm.flit_runtime import KILL_POINTS
+    from repro_torch.scenarios.runner import (reference_run, run_scenario,
+                                              run_serve_scenario,
+                                              serve_reference_run)
+    from repro_torch.scenarios.worker import KILL_EXIT
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    print(f"crash: the parent holds {held / 1e9:.3f} GB of the card before "
+          f"spawning its children", flush=True)
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    check(free >= CRASH_DISK_BYTES,
+          f"crash: {tmp} holds {free / 1e9:.1f} GB free, the training "
+          f"scenario needs ~{CRASH_DISK_BYTES / 1e9:.0f} GB")
+    L = get_config("olmo-1b").n_layers
+    LT = CRASH_TRAIN_KW["layers"]
+    out = {"children": {}, "launches": {}}
+    work = tempfile.mkdtemp(prefix="chip_smoke_crash_")
+    try:
+        # (a) serving: an uninterrupted run, then one kill per point
+        ref = serve_reference_run(work, device="cuda", **CRASH_SERVE_KW)
+        res = ref["result"]
+        n = _crash_child("serve reference", ref, card)
+        out["children"]["serve reference"] = ref
+        out["launches"]["crash serve reference"] = n
+        check(res["prefills"] == CRASH_SERVE_PREFILLS["reference"]
+              and n.get("flash_attention") == L * res["prefills"]
+              and res["resumed_from"] is None
+              and res["cublas_workspace"] == CUBLAS_WORKSPACE,
+              f"crash: serve reference: {res['prefills']} prefills, "
+              f"launches {n}, resumed {res['resumed_from']}, workspace "
+              f"{res['cublas_workspace']}")
+        for p in KILL_POINTS:
+            r = run_serve_scenario(p, work, kill_step=CRASH_SERVE_KILL_STEP,
+                                   ref_outputs=res["outputs"],
+                                   device="cuda", **CRASH_SERVE_KW)
+            for c in r.children:
+                out["children"][f"serve {p} {c['role']}"] = c
+            check(r.killed and len(r.children) == 2
+                  and r.children[0]["rc"] == KILL_EXIT
+                  and r.children[1]["rc"] == 0,
+                  f"crash: serve {p}: exit codes "
+                  f"{[c['rc'] for c in r.children]} (17 then 0): {r.detail}")
+            kill, restart = r.children
+            kn = _crash_child(f"serve {p} kill", kill, card)
+            rn = _crash_child(f"serve {p} restart", restart, card)
+            out["launches"][f"crash serve {p} kill"] = kn
+            out["launches"][f"crash serve {p} restart"] = rn
+            want_k, want_r = CRASH_SERVE_PREFILLS[p]
+            got = (kill["result"]["prefills"], restart["result"]["prefills"])
+            check(got == (want_k, want_r)
+                  and kn.get("flash_attention") == L * want_k
+                  and rn.get("flash_attention") == L * want_r,
+                  f"crash: serve {p}: prefills {got} (rehearsal "
+                  f"{(want_k, want_r)}), launches {kn} / {rn}, expected "
+                  f"{L} a prefill")
+            check(r.ok and r.resumed_from == CRASH_RESUME[p]
+                  and restart["result"]["cublas_workspace"]
+                  == CUBLAS_WORKSPACE,
+                  f"crash: serve {p}: completed {r.completed_ticks_at_kill},"
+                  f" resumed {r.resumed_from} (expected "
+                  f"{CRASH_RESUME[p]}), outputs bit-identical "
+                  f"{r.outputs_match}")
+            print(f"crash: serve {p}: killed at tick "
+                  f"{kill['result']['tick']}, commits durable "
+                  f"{r.completed_ticks_at_kill}, resumed at tick "
+                  f"{r.resumed_from} with {r.resumed_sessions} sessions "
+                  f"running and {r.recovered_done} done; every session's "
+                  f"tokens bit-identical to the uninterrupted run",
+                  flush=True)
+        shutil.rmtree(work, ignore_errors=True)
+
+        # (b) training: an uninterrupted run, then a mid_flush kill
+        os.makedirs(work, exist_ok=True)
+        tref = reference_run(work, device="cuda", **CRASH_TRAIN_KW)
+        shutil.rmtree(os.path.join(work, "pool_reference"),
+                      ignore_errors=True)
+        point, kill_step = CRASH_TRAIN_KILL
+        r = run_scenario(point, work, kill_step=kill_step,
+                         ref_digest=tref["result"]["digest"], device="cuda",
+                         **CRASH_TRAIN_KW)
+        out["children"]["train reference"] = tref
+        for c in r.children:
+            out["children"][f"train {point} {c['role']}"] = c
+        check(r.killed and len(r.children) == 2
+              and r.children[0]["rc"] == KILL_EXIT
+              and r.children[1]["rc"] == 0,
+              f"crash: train {point}: exit codes "
+              f"{[c['rc'] for c in r.children]} (17 then 0): {r.detail}")
+        for role, child in (("reference", tref), ("kill", r.children[0]),
+                            ("restart", r.children[1])):
+            n = _crash_child(f"train {role}", child, card)
+            out["launches"][f"crash train {role}"] = n
+            steps = child["result"]["steps_run"]
+            check(steps == CRASH_TRAIN_STEPS[role]
+                  and n.get("flash_attention") == 2 * LT * steps
+                  and n.get("flash_attention_bwd") == LT * steps,
+                  f"crash: train {role}: {steps} steps (rehearsal "
+                  f"{CRASH_TRAIN_STEPS[role]}), launches {n}, expected "
+                  f"{2 * LT} forward (remat) and {LT} backward a step")
+        restart = r.children[1]["result"]
+        check(r.ok and r.resumed_from == CRASH_RESUME["train"]
+              and restart["device"] == torch.cuda.get_device_name(0)
+              and restart["cublas_workspace"] == CUBLAS_WORKSPACE,
+              f"crash: train {point}: completed {r.completed_steps_at_kill}, "
+              f"resumed {r.resumed_from} (expected {CRASH_RESUME['train']}),"
+              f" digest {r.final_digest} vs {r.reference_digest}")
+        print(f"crash: train {point}: killed at step {kill_step}, commits "
+              f"durable {r.completed_steps_at_kill}, resumed at step "
+              f"{r.resumed_from} from the {r.recovery_source} "
+              f"({restart['recovered_bytes']} bytes into HBM), final params "
+              f"digest {r.final_digest} equal to the uninterrupted run's",
+              flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"crash: phase 14 took {out['phase_s']:.1f} s [{card}]", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", default=None,
@@ -2775,7 +2979,8 @@ def main(argv=None) -> int:
     # -- 11. durable training of olmo-1b ------------------------------------
     gc.collect()
     torch.cuda.empty_cache()
-    report["train"] = phase_train(torch, get_config("olmo-1b"), counters)
+    report["train"] = phase_train(
+        torch, get_config("olmo-1b").with_(n_layers=TRAIN_LAYERS), counters)
     # -- 12. the other five decoder-only architectures ----------------------
     gc.collect()
     torch.cuda.empty_cache()
@@ -2785,6 +2990,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     report["whisper"] = phase_whisper(torch, get_config("whisper-small"),
                                       counters)
+    # -- 14. crash scenarios: real process kills of the workers ------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["crash"] = phase_crash(torch, card)
     by_run = {a: p["launches"] for a, p in paths.items()}
     by_run.update({f"olmo-1b {r}": n
                    for r, n in report["features"]["launches"].items()})
@@ -2794,6 +3003,9 @@ def main(argv=None) -> int:
                    for r, n in report["train"]["launches"].items()})
     by_run.update(report["archs"]["launches"])
     by_run.update(report["whisper"]["launches"])
+    # the children of phase 14 count in their own processes and report
+    # the flash pair
+    by_run.update(report["crash"]["launches"])
 
     mains = {"flash_attention": report["kernel_cases"]["path_s512"],
              "grouped_matmul": report["gmm_cases"]["decode_up"],
@@ -2819,8 +3031,9 @@ def main(argv=None) -> int:
         kernels["kernels"].append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": sum(n[name] for n in by_run.values()),
-            "launches_by_path": {a: n[name] for a, n in by_run.items()},
+            "launches": sum(n.get(name, 0) for n in by_run.values()),
+            "launches_by_path": {a: n[name] for a, n in by_run.items()
+                                 if name in n},
             "shape": row["shape"],
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

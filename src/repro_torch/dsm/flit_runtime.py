@@ -63,6 +63,9 @@ from repro_torch.utils.tree import tree_leaves
 COMMIT_MODES = ("sync", "async", "sharded", "sharded-async")
 AUTO_MODE = "auto"
 
+#: fault-injection points inside the commit window
+KILL_POINTS = ("pre_flush", "mid_flush", "post_completeOp")
+
 
 def check_mode(mode: str, placement: Optional[Any] = None):
     """A commit schedule, or ``"auto"`` with the policy that resolves it."""

@@ -190,6 +190,19 @@ def read_header(path: str) -> Tuple[Dict[str, Any], int, int]:
     return header, _HDR_FIXED + hdr_len, size
 
 
+def payload_span(path: str) -> Tuple[int, int]:
+    """(offset, length) of the LARGEST leaf's data bytes inside the frame
+    — the region the folded CRC provably covers.  The fault layer
+    corrupts here so the read path must reject the file."""
+    header, payload_off, _ = read_header(path)
+    best_off, best_len, off = payload_off, 0, payload_off
+    for nb in header["nbytes"]:
+        if nb > best_len:
+            best_off, best_len = off, nb
+        off += nb
+    return best_off, best_len
+
+
 def read_frame(path: str, expected_crc: Optional[int] = None
                ) -> Tuple[List[torch.Tensor], int, Dict[str, Any]]:
     """mmap-backed zero-copy read of one frame: validate structure + the

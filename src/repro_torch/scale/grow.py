@@ -1,6 +1,6 @@
 """Grow-by-repartition helpers: what moves to a joiner, and where — the
-port of ``repro.scale.grow`` (its ``JOIN_POINTS`` re-export of
-``dsm.faults`` comes with the fault layer, ROADMAP A5).
+port of ``repro.scale.grow``, with its re-export of the join kill points
+(``dsm.faults.JOIN_POINTS``).
 
 The join protocol is three phases —
 
@@ -24,6 +24,7 @@ from typing import Any, Dict
 
 import numpy as np
 
+from repro_torch.dsm.faults import JOIN_POINTS     # noqa: F401  (re-export)
 from repro_torch.train.elastic import plan_delta
 
 #: staging namespace of entries in flight to a joiner — disjoint from the

@@ -53,6 +53,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.dsm.api import CXL0Config
 from repro_torch.serve.kvcache import TieredKVCache
 from repro_torch.serve.paging import (BLOCK_TOKENS, BlockAllocator,
                                       BlockPager, BlockRef, BlockTable,
@@ -480,6 +481,8 @@ def build_serve_engine(arch: str = "olmo-1b", *, smoke: bool = True,
                        prefix_reuse: bool = False,
                        prefix_key: Optional[str] = None,
                        topology: Optional[str] = None,
+                       dsm: Optional[CXL0Config] = None,
+                       fault_hook=None, retention: int = 2,
                        bundle=None, params=None, device="cuda"):
     """Config -> bundle -> params -> optional durable session store ->
     engine.  Returns (engine, cfg).
@@ -497,6 +500,15 @@ def build_serve_engine(arch: str = "olmo-1b", *, smoke: bool = True,
     the shard count through its placement policy, and with
     ``commit_mode="auto"`` the schedule too; ``allocator`` shares one
     frame allocator across engines (the fleet's).
+
+    The durable tier stack is wired from ONE ``CXL0Config``: pass it as
+    ``dsm`` (the scenario worker does), or let ``pool_path`` /
+    ``commit_mode`` / ``n_shards`` / ``retention`` / ``topology`` /
+    ``fault_hook`` be folded into one here, as the reference does.
+    ``fault_hook(point, step)`` fires inside each session commit's window
+    (``dsm.flit_runtime.KILL_POINTS``); ``retention`` reaches the
+    committer, whose delegated paged completeOp runs no GC, so it changes
+    nothing on this layout (as in the reference).
 
     ``prefix_key`` names the weights for prefix reuse.  Its default is
     the reference's key with ``|torch`` appended: the port's generated
@@ -518,9 +530,12 @@ def build_serve_engine(arch: str = "olmo-1b", *, smoke: bool = True,
         params = bundle.init_params(
             torch.Generator(bundle.device).manual_seed(seed))
     store = None
-    if pool_path is not None:
-        store = SessionStore(pool_path, mode=commit_mode, n_shards=n_shards,
-                             engine_id=engine_id, topology=topology)
+    if dsm is None and pool_path is not None:
+        dsm = CXL0Config(path=pool_path, schedule=commit_mode,
+                         n_shards=n_shards, retention=retention,
+                         topology=topology, fault_hook=fault_hook)
+    if dsm is not None:
+        store = SessionStore(ctx=dsm.open(), engine_id=engine_id)
     if prefix_key is None:
         prefix_key = f"{arch}|{'smoke' if smoke else 'full'}|s{seed}|torch"
     engine = ServeEngine(

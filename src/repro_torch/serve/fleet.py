@@ -54,9 +54,10 @@ manifests alone.
 Every engine runs on ``device`` (``"cuda"`` by default; a bundle on
 another device is refused, so no engine carries on on the CPU behind the
 caller's back).  The placement policy's costs are MODELLED ns of the
-emulated CXL topology (``dsm.emu``), not times measured here.  Not ported:
-the committer's ``fault_hook`` kill points (ROADMAP A5); the migration's
-four kill points (``mig_hook``) are.
+emulated CXL topology (``dsm.emu``), not times measured here.  Two kinds
+of kill point: ``fault_hook(point, step)`` fires inside every engine's
+session-commit window (``dsm.flit_runtime.KILL_POINTS``), ``mig_hook``
+after each of the migration's four phases.
 """
 from __future__ import annotations
 
@@ -108,6 +109,7 @@ class FleetController:
                  prefix_reuse: bool = True,
                  block_tokens: int = BLOCK_TOKENS, seed: int = 0,
                  restore_mode: str = "cache", retire_done: bool = False,
+                 fault_hook=None,
                  mig_hook: Optional[Callable] = None,
                  prefix_key: Optional[str] = None,
                  bundle=None, params=None, device="cuda"):
@@ -142,8 +144,9 @@ class FleetController:
             pool_path=pool_path, commit_every=commit_every,
             commit_mode=commit_mode, topology=topology, seed=seed,
             restore_mode=restore_mode, retire_done=retire_done,
-            block_tokens=block_tokens, prefix_reuse=prefix_reuse,
-            prefix_key=prefix_key, device=device)
+            fault_hook=fault_hook, block_tokens=block_tokens,
+            prefix_reuse=prefix_reuse, prefix_key=prefix_key,
+            device=device)
         self._bundle, self._params = bundle, params
         self.engines: Dict[int, ServeEngine] = {}
         self.allocator = allocator

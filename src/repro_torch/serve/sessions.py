@@ -43,7 +43,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
-from repro_torch.dsm.api import open_cxl0
+from repro_torch.dsm.api import CXL0Context, open_cxl0
 from repro_torch.dsm.pool import CorruptObjectError, DSMPool, manifest_entry
 from repro_torch.serve.paging import (BlockPager, BlockRef, BlockTable,
                                       STATE_BLOCK, block_object_name,
@@ -106,19 +106,28 @@ class RecoveredState:
 
 
 class SessionStore:
-    def __init__(self, pool, *, mode: str = "sync",
+    def __init__(self, pool=None, *, mode: str = "sync",
                  n_shards: Optional[int] = None, engine_id: int = 0,
-                 topology: Optional[str] = None):
-        """``pool``: a pool directory or an open ``DSMPool``, committed
-        through ``open_cxl0`` under ``mode`` (``n_shards`` pipelines for
-        the sharded schedules; ``"auto"`` and the shard count priced by
-        the placement policy of ``topology``).  The paged
-        commit's delegated completeOp owns the manifests, so no retention
-        GC runs and the store takes no ``retention`` (the reference's knob
-        does nothing on this layout).  ``engine_id`` namespaces this
-        store's objects and manifests in a shared pool."""
-        self.ctx = open_cxl0(pool, schedule=mode, n_shards=n_shards,
-                             topology=topology)
+                 topology: Optional[str] = None, fault_hook=None,
+                 ctx: Optional[CXL0Context] = None):
+        """Either an open ``CXL0Context`` (``ctx``, which wins: the
+        ``CXL0Config`` path of ``build_serve_engine``) or ``pool``, a pool
+        directory or an open ``DSMPool``, committed through ``open_cxl0``
+        under ``mode`` (``n_shards`` pipelines for the sharded schedules;
+        ``"auto"`` and the shard count priced by the placement policy of
+        ``topology``) with ``fault_hook(point, step)`` firing inside each
+        session commit's window.  The paged commit's delegated completeOp
+        owns the manifests, so no retention GC runs and the store takes no
+        ``retention`` (the reference's knob does nothing on this layout).
+        ``engine_id`` namespaces this store's objects and manifests in a
+        shared pool."""
+        if ctx is None:
+            if pool is None:
+                raise ValueError("SessionStore needs a pool or an open "
+                                 "CXL0Context (ctx=)")
+            ctx = open_cxl0(pool, schedule=mode, n_shards=n_shards,
+                            topology=topology, fault_hook=fault_hook)
+        self.ctx = ctx
         self.pool: DSMPool = self.ctx.pool
         self.placement = self.ctx.placement
         self.engine_id = engine_id

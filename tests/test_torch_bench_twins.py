@@ -19,6 +19,15 @@
   ``['peer-staging']``), through ``scripts/bench_gate.py`` on a baseline
   cut to those two; the rest (the legacy writer's speedup, the mesh rows)
   are ROADMAP A5 / A7 and reported missing;
+* ``python -m repro_torch.bench.fuzz`` (host code: the crash fuzzer at 3
+  episodes x train / serve / cluster x 3 topologies, seed 0) meets all six
+  of ``fuzz.json``'s exact counts, 27 / 0 / 19 / 55 / 40 / 6, and with
+  ``REPRO_FUZZ_BREAK_RECOVERY=1`` its violation count is above 0;
+* ``python -m repro_torch.bench.cluster`` meets ``cluster.json`` on the
+  two metrics it produces (``cluster_commits_total`` 200 with zero lost
+  commits, ``cluster_staged_bytes`` 8,388,608); the other three (the
+  legacy staging format's speedups, the rank processes) are ROADMAP A5b /
+  A6b and reported missing;
 * ``python -m repro_torch.examples.{quickstart,durable_kv}`` print what
   the reference examples print, line for line.
 """
@@ -38,15 +47,17 @@ from scripts.bench_gate import gate_bench  # noqa: E402
 from repro_torch.bench import (autoscale, checkpoint, flit,  # noqa: E402
                                latency, model_fuzz, placement, serve,
                                table1)
+from repro_torch.bench import cluster as cluster_bench  # noqa: E402
+from repro_torch.bench import fuzz as fuzz_bench  # noqa: E402
 from repro_torch.bench.report import check_against  # noqa: E402
 
 BENCHES = {"flit": (flit, []), "table1": (table1, []),
            "latency": (latency, []),
            "model_fuzz": (model_fuzz, ["--device", "cpu"]),
            "placement": (placement, ["--device", "cpu"]),
-           "autoscale": (autoscale, [])}
+           "autoscale": (autoscale, []), "fuzz": (fuzz_bench, [])}
 N_METRICS = {"flit": 21, "table1": 19, "latency": 22, "model_fuzz": 1,
-             "placement": 11, "autoscale": 25}
+             "placement": 11, "autoscale": 25, "fuzz": 6}
 
 
 @pytest.mark.parametrize("name", list(BENCHES))
@@ -123,6 +134,44 @@ def test_checkpoint_twin_meets_the_baseline_on_the_metrics_it_produces(
     assert all("missing" in f for f in failures)
     assert [r.split(",", 1)[0] for r in rows] == list(doc["metrics"])
     assert sum(l.startswith("# ckpt_") for l in lines) == 2
+
+
+def test_fuzz_twin_goes_red_when_recovery_is_broken(tmp_path, capsys,
+                                                   monkeypatch):
+    from repro_torch.scenarios.fuzz import BREAK_ENV
+    monkeypatch.setenv(BREAK_ENV, "1")
+    assert fuzz_bench.main(["--out", str(tmp_path)]) == 0
+    doc = json.loads((tmp_path / "BENCH_fuzz.json").read_text())
+    assert doc["metrics"]["fuzz_invariant_violations"]["value"] > 0
+    baseline_path = ROOT / "benchmarks" / "baselines" / "fuzz.json"
+    _, failures = gate_bench(str(baseline_path), str(tmp_path))
+    assert any(f.startswith("fuzz_invariant_violations") for f in failures)
+
+
+def test_cluster_twin_meets_the_baseline_on_the_metrics_it_produces(
+        tmp_path, capsys):
+    assert cluster_bench.main(["--out", str(tmp_path)]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    rows = [l for l in lines if not l.startswith(("bench_json,", "#"))]
+    baseline_path = ROOT / "benchmarks" / "baselines" / "cluster.json"
+    baseline = json.loads(baseline_path.read_text())
+    doc = json.loads((tmp_path / "BENCH_cluster.json").read_text())
+    assert doc["bench"] == "cluster"
+    values = {k: m["value"] for k, m in doc["metrics"].items()}
+    produced = ["cluster_commits_total", "cluster_staged_bytes"]
+    assert [values[k] for k in produced] == [200, 8388608]
+    cut = {"bench": "cluster",
+           "metrics": {k: baseline["metrics"][k] for k in produced}}
+    cut_path = tmp_path / "cluster_cut.json"
+    cut_path.write_text(json.dumps(cut))
+    assert gate_bench(str(cut_path), str(tmp_path)) == ("cluster", [])
+    # what is not produced yet is reported missing, and nothing else fails
+    _, failures = gate_bench(str(baseline_path), str(tmp_path))
+    assert sorted(f.split(":")[0] for f in failures) == sorted(
+        k for k in baseline["metrics"] if k not in produced)
+    assert all("missing" in f for f in failures)
+    assert [r.split(",", 1)[0] for r in rows] == list(doc["metrics"])
+    assert sum(l.startswith("# cluster_") for l in lines) == 2
 
 
 def test_check_against_catches_a_regression():

@@ -67,6 +67,10 @@ SLICE_MODULES = [
     "repro_torch.scale", "repro_torch.scale.traffic",
     "repro_torch.scale.autoscaler", "repro_torch.scale.grow",
     "repro_torch.train.elastic", "repro_torch.bench.autoscale",
+    "repro_torch.dsm.faults", "repro_torch.scenarios",
+    "repro_torch.scenarios.fuzz", "repro_torch.scenarios.runner",
+    "repro_torch.scenarios.worker", "repro_torch.scenarios.serve_worker",
+    "repro_torch.bench.fuzz", "repro_torch.bench.cluster",
 ]
 
 _FORBIDDEN = re.compile(
