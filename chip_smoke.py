@@ -15,8 +15,9 @@ other five decoder-only architectures at full width (internlm2-1.8b,
 phi3-medium-14b, yi-34b, chameleon-34b; deepseek-v2-236b's depth cut to 8
 layers), then durable training, prefill and decode of the encoder-decoder
 whisper-small at full width and depth, then real process kills of the
-serving and training workers inside the commit window, and prints one line
-per phase:
+serving and training workers inside the commit window, then the rank
+cluster (three rank processes on the card, one killed), whole-lane KV
+tiers and legacy serving of olmo-1b, and prints one line per phase:
 
 1. environment — the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions;
@@ -326,10 +327,42 @@ per phase:
     child beside the card's name and power limit: wall s, ``recover_s``
     (from the process's start to the end of its first step or scheduler
     round) and the bytes it recovered into the card.
+15. the rank cluster, the KV cache's tiers and legacy serving, after the
+    parent has freed every earlier model:
+    (a) three rank processes of ``scenarios.cluster_worker`` with
+        ``--device cuda`` share the card (``reduced``: dim 2048 x 12
+        tensors, 603,979,776 bytes of p / mu / nu, 201,326,592 a rank, cut
+        from a data-parallel rank of olmo-1b, ~4.7 GB at world 3), 8
+        steps, a commit every 2; rank 1 dies (``os._exit(17)``) at
+        ``pre_flush`` of step 3 with ring staging on, and in a second
+        cell at ``post_completeOp`` of step 3 with it off; the survivors
+        must recover its partition from ``peer-staging`` (resp. the
+        ``pool``) at step 3, land on or past the newest completed commit,
+        and end with merged digests equal to a planned shrink at step 4
+        on the card AND to the same planned run on ``--device cpu``.  The
+        two cells and the two planned runs run at once (twelve rank
+        processes) for the time limit; each rank's wall s, ``start_s``,
+        ``recover_s``, bytes read back and commits are printed beside the
+        card's name and power limit;
+    (b) one olmo-1b lane at full width (t_max 560, 73,400,320 bytes,
+        random bf16) through ``TieredKVCache``: ``stage``, a peer
+        ``spill``, ``spill_durable`` and ``spill_auto`` under
+        ``cxl11-direct`` (staging) and under ``cxl30-fabric`` with staging
+        priced out (the pool), as ``tests/test_placement.py:224-250``;
+        each restored into a lane on the card bit-identically, each copy
+        to the host counted once; bytes and ms of each printed;
+    (c) olmo-1b at full width and depth served with ``paged=False`` (the
+        legacy whole-lane commits) on the first 8 requests of phase 4's
+        trace, 4 slots, a ``sync`` commit every 4: the schedule (50 ticks,
+        8 prefills, 13 commits) as the CPU rehearsal gives it, 16 flash
+        launches a prefill, D2H = 30 lane copies; tokens equal to the
+        paged run of the same requests; a crash after 10 ticks resumes at
+        tick 8 from the whole lanes with every token equal.  Commits, D2H
+        bytes and host s in commit printed against the paged run's.
 
-Each path and each run of phases 9, 10, 11, 12 and 13 is driven with every
-launch count set to 0 just before it and read just after; the children of
-phase 14 start with theirs at 0.  Then a
+Each path and each run of phases 9, 10, 11, 12, 13 and 15 (c) is driven
+with every launch count set to 0 just before it and read just after; the
+children of phase 14 start with theirs at 0.  Then a
 ``{"kernels": [...]}`` line, the card line again, and as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises and the script exits non-zero; without a CUDA device, or without
 the repo's ``src/repro_torch`` beside it, it exits non-zero and prints no
@@ -2833,6 +2866,378 @@ def phase_crash(torch, card: str) -> dict:
     return out
 
 
+#: phase 15 (a): the rank cluster on the card.  dim 2048, 12 tensors:
+#: 16,777,216 bytes an array, 603,979,776 bytes of p / mu / nu in all,
+#: 201,326,592 a rank at world 3.  ``reduced``: cut from a data-parallel
+#: rank of olmo-1b (~4.7 GB of params and both moments a rank at world 3)
+#: to fit the script's time limit.
+CLUSTER_KW = dict(world=3, victim=1, steps=8, commit_every=2, dim=2048,
+                  tensors=12)
+CLUSTER_KILL_STEP = 3
+CLUSTER_STATE_BYTES = 603_979_776
+CLUSTER_REDUCED = ("dim 2048 x 12 tensors (603,979,776 bytes of p, mu, nu; "
+                   "201,326,592 a rank) cut from a data-parallel rank of "
+                   "olmo-1b (~4.7 GB a rank at world 3)")
+#: (kill point, replicated) -> (recovery source, resume step)
+CLUSTER_CELLS = {("pre_flush", True): ("peer-staging", 3),
+                 ("post_completeOp", False): ("pool", 3)}
+CLUSTER_SHRINK_AT = 4              # both cells resume at 3
+#: phase 15 (b): the tier presets of ``tests/test_placement.py:224-250``
+TIER_STAGING_PRESET = "cxl11-direct"
+TIER_POOL_PRESET = "cxl30-fabric"
+TIER_POOL_KW = dict(p_peer_loss=1.0, replay_ns_per_byte=1e3)
+#: phase 15 (c): legacy serving, the first 8 requests of phase 4's trace
+LEGACY_REQUESTS = 8
+LEGACY_CRASH_TICKS = 10
+
+
+def _cluster_child(name: str, child: dict, card: str) -> dict:
+    """Print one rank of phase 15 (a) and return its numbers."""
+    r = child["result"] or {}
+    row = dict(rc=child["rc"], wall_s=child["wall_s"],
+               start_s=r.get("start_s"), recover_s=r.get("recover_s"),
+               recovered_bytes=r.get("recovered_bytes"),
+               commits=r.get("commits"), steps_run=r.get("steps_run"))
+    fmt = lambda v: "-" if v is None else format(v, ".2f")
+    print(f"cluster: {name}: rc {row['rc']}, wall {row['wall_s']:.2f} s, "
+          f"start_s {fmt(row['start_s'])}, recover_s "
+          f"{fmt(row['recover_s'])}, bytes read back "
+          f"{row['recovered_bytes'] if row['recovered_bytes'] is not None else '-'}"
+          f", commits {row['commits'] if row['commits'] is not None else '-'}"
+          f", steps {row['steps_run']} [{card}]", flush=True)
+    return row
+
+
+def phase_cluster_ranks(torch, card: str) -> dict:
+    """15 (a): three rank processes (``--device cuda``) share the card;
+    one dies in the commit window, the survivors shrink bit-identically
+    (see the module docstring).  For the time limit the two planned runs
+    (card, CPU) and the two kill cells run at once: twelve rank processes
+    share the host and, but for the CPU run's three, the card."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.scenarios.cluster import (run_cluster_planned,
+                                               run_cluster_scenario)
+    from repro_torch.scenarios.worker import KILL_EXIT
+    out = {"cells": {}, "planned": {}, "reduced": CLUSTER_REDUCED}
+    kw = dict(CLUSTER_KW)
+    work = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+
+    def planned_on(device, pool):
+        t0 = time.perf_counter()
+        children = []
+        digests = run_cluster_planned(
+            os.path.join(work, pool), shrink_at=CLUSTER_SHRINK_AT,
+            device=device, children=children, timeout=600, **kw)
+        shutil.rmtree(os.path.join(work, pool), ignore_errors=True)
+        return digests, children, time.perf_counter() - t0
+
+    def cell(point, replicate):
+        t0 = time.perf_counter()
+        # the cell's reference is the planned run on the card, running
+        # beside it: the placeholder keeps the cell from starting its own
+        r = run_cluster_scenario(
+            point, work, replicate=replicate, kill_step=CLUSTER_KILL_STEP,
+            device="cuda", timeout=600,
+            ref_cache={CLUSTER_SHRINK_AT - 1: None}, **kw)
+        shutil.rmtree(os.path.join(
+            work, f"cluster_{point}_{'peer' if replicate else 'pool'}"),
+            ignore_errors=True)
+        return r, time.perf_counter() - t0
+
+    try:
+        planned = {}
+        with ThreadPoolExecutor(2 + len(CLUSTER_CELLS)) as ex:
+            futs = {d: ex.submit(planned_on, d, f"planned_{label}")
+                    for d, label in (("cuda", "card"), ("cpu", "host"))}
+            cells = {k: ex.submit(cell, *k) for k in CLUSTER_CELLS}
+            runs = {d: f.result() for d, f in futs.items()}
+            results = {k: f.result() for k, f in cells.items()}
+        for device, (digests, children, wall) in runs.items():
+            planned[device] = digests
+            out["planned"][device] = dict(
+                wall_s=wall, ranks=[_cluster_child(
+                    f"planned shrink at {CLUSTER_SHRINK_AT} ({device}) "
+                    f"{c['role']}", c, card) for c in children])
+            check(len(digests) == kw["tensors"]
+                  and all(c["rc"] == 0 for c in children),
+                  f"cluster: planned shrink on {device}: {len(digests)} "
+                  f"digests, exit codes {[c['rc'] for c in children]}")
+            print(f"cluster: planned shrink at step {CLUSTER_SHRINK_AT} on "
+                  f"{device}: {wall:.2f} s, {len(digests)} tensor digests "
+                  f"[{card}]", flush=True)
+        check(planned["cuda"] == planned["cpu"],
+              "cluster: the planned shrink's digests on the card differ "
+              "from the CPU's")
+        for (point, replicate), (source, resume) in CLUSTER_CELLS.items():
+            name = f"{point} {'replicated' if replicate else 'unreplicated'}"
+            r, wall = results[(point, replicate)]
+            ranks = [_cluster_child(f"{name} {c['role']}", c, card)
+                     for c in r.children]
+            check(r.killed and r.children
+                  and r.children[0]["rc"] == KILL_EXIT
+                  and all(c["rc"] == 0 for c in r.children[1:]),
+                  f"cluster: {name}: exit codes "
+                  f"{[c['rc'] for c in r.children]} (17, 0, 0): {r.detail}")
+            check((r.recovery_source, r.resumed_from) == (source, resume)
+                  and r.recovered_completed_commit,
+                  f"cluster: {name}: recovered from {r.recovery_source} at "
+                  f"{r.resumed_from}, expected {source} at {resume}; "
+                  f"completed {r.completed_steps_at_kill}: {r.detail}")
+            check(r.killed and len(r.digests) == kw["tensors"]
+                  and r.digests == planned["cuda"] == planned["cpu"],
+                  f"cluster: {name}: merged digests differ from the planned "
+                  f"shrink's on the card and on the CPU")
+            commits = {c["role"]: c["result"]["commits"]
+                       for c in r.children[1:]}
+            out["cells"][name] = dict(
+                wall_s=wall, source=r.recovery_source,
+                resumed_from=r.resumed_from,
+                completed=r.completed_steps_at_kill, ranks=ranks)
+            print(f"cluster: {name}: rank 1 killed at {point} of step "
+                  f"{CLUSTER_KILL_STEP}, commits durable "
+                  f"{r.completed_steps_at_kill}, survivors recovered from "
+                  f"{r.recovery_source} at step {r.resumed_from}, commits "
+                  f"a survivor {commits}, merged digests equal the planned "
+                  f"shrink's on the card and on the CPU; {wall:.2f} s "
+                  f"[{card}]", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def phase_tiers(torch, cfg, t_max: int, card: str) -> dict:
+    """15 (b): one full-width olmo-1b lane (``t_max`` tokens) through the
+    KV cache's tiers, each restored into a lane on the card."""
+    from repro_torch.dsm.placement import PlacementPolicy
+    from repro_torch.dsm.pool import DSMPool
+    from repro_torch.dsm.tiers import TierManager
+    from repro_torch.models.registry import build
+    from repro_torch.serve.kvcache import TieredKVCache
+    from repro_torch.utils.tree import tree_flatten, tree_leaves
+    bundle = build(cfg, device="cuda")
+    work = tempfile.mkdtemp(prefix="chip_smoke_tiers_")
+    out = {}
+    try:
+        g = torch.Generator("cuda").manual_seed(0)
+        specs, treedef = tree_flatten(bundle.abstract_caches(1, t_max))
+        lane1 = treedef.unflatten(
+            [torch.randn(s.shape, generator=g, device="cuda").to(s.dtype)
+             for s in specs])
+        want = [l.clone() for l in tree_leaves(lane1)]
+        nbytes = sum(l.nbytes for l in want)
+
+        def kv_on(tag, placement=None):
+            tiers = TierManager(DSMPool(os.path.join(work, tag)), 0)
+            kv = TieredKVCache(bundle, 2, t_max, tiers=tiers,
+                               placement=placement)
+            kv.write_slot(1, lane1)
+            return kv, tiers
+
+        def restored(kv, tree, what):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kv.write_slot(0, tree)
+            got = kv.read_slot(0)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            check(all(torch.equal(a, b) for a, b in
+                      zip(tree_leaves(got), want)),
+                  f"tiers: {what}: the restored lane differs")
+            return ms
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            return res, 1e3 * (time.perf_counter() - t0)
+
+        peer = TierManager(DSMPool(os.path.join(work, "peer")), 1)
+        rows = {}
+        kv, tiers = kv_on("stage")
+        lane = kv.read_slot(1)
+        v, ms = timed(lambda: kv.stage("kv/s", lane))
+        rows["stage"] = dict(ms=ms, d2h=tiers.d2h_gather_bytes,
+                             restore_ms=restored(kv, kv.restore("kv/s"),
+                                                 "stage"))
+        v, ms = timed(lambda: kv.spill("kv/p", lane, peer=peer))
+        rows["peer spill"] = dict(ms=ms, d2h=tiers.d2h_gather_bytes,
+                                  restore_ms=restored(
+                                      kv, peer.rload("kv/p"), "peer spill"))
+        d0 = tiers.d2h_gather_bytes
+        entry, ms = timed(lambda: kv.spill_durable("kv/d", lane))
+        kv.discard("kv/d")
+        rows["spill_durable"] = dict(
+            ms=ms, d2h=tiers.d2h_gather_bytes - d0,
+            shards=len(entry["shards"]),
+            restore_ms=restored(kv, kv.restore("kv/d", entry=entry),
+                                "spill_durable"))
+        tiers.close()
+        for label, pol in (
+                (f"spill_auto {TIER_STAGING_PRESET}",
+                 PlacementPolicy(TIER_STAGING_PRESET)),
+                (f"spill_auto {TIER_POOL_PRESET} (staging priced out)",
+                 PlacementPolicy(TIER_POOL_PRESET, **TIER_POOL_KW))):
+            kv, tiers = kv_on(label.split()[1], pol)
+            lane = kv.read_slot(1)
+            info, ms = timed(lambda: kv.spill_auto("kv/a", lane, peer=peer))
+            want_tier = "staging" if "direct" in label else "pool"
+            check(info["tier"] == want_tier and info["nbytes"] == nbytes,
+                  f"tiers: {label} chose {info['tier']} for "
+                  f"{info['nbytes']} bytes, expected {want_tier}")
+            if want_tier == "staging":
+                back = peer.rload("kv/a")
+            else:
+                kv.discard("kv/a")
+                back = kv.restore("kv/a", entry=info["entry"])
+            rows[label] = dict(ms=ms, d2h=tiers.d2h_gather_bytes,
+                               tier=info["tier"],
+                               restore_ms=restored(kv, back, label))
+            tiers.close()
+        peer.close()
+        # each tier but the object tier copies the lane to the host once
+        for label, row in rows.items():
+            got = row["d2h"]
+            check(got == (0 if label == "stage" else nbytes),
+                  f"tiers: {label}: D2H {got} bytes, expected "
+                  f"{0 if label == 'stage' else nbytes}")
+        for label, row in rows.items():
+            print(f"tiers: olmo-1b lane ({nbytes} bytes, t_max {t_max}) "
+                  f"{label}: {row['ms']:.2f} ms, D2H {row['d2h']} bytes, "
+                  f"restored into a lane on the card bit-identically in "
+                  f"{row['restore_ms']:.2f} ms [{card}]", flush=True)
+        out = dict(lane_bytes=nbytes, rows=rows)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def phase_legacy_serving(torch, cfg, trace, t_max, counters,
+                         card: str) -> dict:
+    """15 (c): olmo-1b served at full width and depth with the legacy
+    whole-lane commits: an uninterrupted run, the paged run of the same
+    requests, and a crash after 10 ticks with its resume."""
+    from repro_torch.models.registry import build
+    from repro_torch.serve.engine import build_serve_engine
+    from repro_torch.utils.tree import tree_leaves
+    trace = trace[:LEGACY_REQUESTS]
+    want = rehearse_schedule(torch, trace, t_max)
+    bundle = build(cfg, device="cuda")
+    params = bundle.init_params(torch.Generator("cuda").manual_seed(0))
+    lane_bytes = sum(s.nbytes for s in tree_leaves(
+        bundle.abstract_caches(1, t_max)))
+    pools = [tempfile.mkdtemp(prefix="chip_smoke_legacy_")
+             for _ in range(3)]
+    out = {"runs": {}, "launches": {}}
+    try:
+        def engine_on(pool, paged):
+            return build_serve_engine(
+                cfg.arch_id, smoke=False, t_max=t_max, pool_path=pool,
+                bundle=bundle, params=params, device="cuda", paged=paged,
+                **PATH_KW)[0]
+
+        res = {}
+        for label, paged, pool in (("legacy", False, pools[0]),
+                                   ("paged", True, pools[1])):
+            e = engine_on(pool, paged)
+            timer = PhaseTimer(e)
+            torch.cuda.synchronize()
+            reset_counts(counters)
+            t0 = time.perf_counter()
+            r = e.run(trace)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            n = read_counts(counters)
+            d2h = e.store.tiers.d2h_gather_bytes
+            e.close()
+            res[label] = r
+            out["launches"][f"olmo-1b {label} serving (phase 15)"] = n
+            out["runs"][label] = dict(
+                wall_s=dt, tokens_per_s=r.emitted_tokens / dt,
+                commits=r.commits, prefills=r.prefills,
+                decode_ticks=r.decode_ticks, d2h_bytes=d2h,
+                commit_s=timer.t["commit"], launches=n)
+            check((r.decode_ticks, r.prefills, r.commits)
+                  == (want["decode_ticks"], want["prefills"],
+                      want["commits"]),
+                  f"legacy: {label}: {r.decode_ticks} ticks, {r.prefills} "
+                  f"prefills, {r.commits} commits; the CPU rehearsal "
+                  f"{want}")
+            check(n["flash_attention"] == cfg.n_layers * r.prefills
+                  and n["grouped_matmul"] == n["wkv6"]
+                  == n["selective_scan"] == n["flash_attention_bwd"] == 0,
+                  f"legacy: {label}: launches {n}, expected "
+                  f"{cfg.n_layers} flash a prefill and nothing else")
+            check(d2h == want["lane_copies"] * lane_bytes,
+                  f"legacy: {label}: D2H {d2h} bytes, expected "
+                  f"{want['lane_copies']} lane copies x {lane_bytes}")
+            print(f"legacy: olmo-1b {label} commits, {len(trace)} requests "
+                  f"prompt 512, 4 slots, sync every 4: {r.emitted_tokens} "
+                  f"tokens in {dt:.3f} s, {r.commits} commits, D2H {d2h} "
+                  f"bytes, host s in commit {timer.t['commit']:.3f}, "
+                  f"launches {n} [{card}]", flush=True)
+        check(res["legacy"].outputs == res["paged"].outputs,
+              "legacy: the legacy and paged runs' tokens differ")
+        # crash after 10 ticks, then resume on the same pool
+        e = engine_on(pools[2], False)
+        e.submit(trace)
+        for _ in range(LEGACY_CRASH_TICKS):
+            e.tick()
+        e.store.ctx.crash()
+        del e
+        e = engine_on(pools[2], False)
+        reset_counts(counters)
+        step = e.resume()
+        r3 = e.run(trace)
+        n = read_counts(counters)
+        e.close()
+        out["launches"]["olmo-1b legacy resume (phase 15)"] = n
+        check(step == LEGACY_CRASH_TICKS - LEGACY_CRASH_TICKS % 4
+              and r3.outputs == res["legacy"].outputs
+              and n["flash_attention"] == cfg.n_layers * r3.prefills,
+              f"legacy: resumed at tick {step}, tokens equal "
+              f"{r3.outputs == res['legacy'].outputs}, launches {n}")
+        out["resume"] = dict(resumed_tick=step,
+                             sessions_resumed=r3.resumed_sessions,
+                             prefills_after_resume=r3.prefills)
+        print(f"legacy: crashed after {LEGACY_CRASH_TICKS} ticks, resumed "
+              f"from committed tick {step} with {r3.resumed_sessions} "
+              f"whole lanes restored, {r3.prefills} prefills after the "
+              f"resume; every session's tokens equal the uninterrupted "
+              f"legacy run's and the paged run's [{card}]", flush=True)
+    finally:
+        for p in pools:
+            shutil.rmtree(p, ignore_errors=True)
+    return out
+
+
+def phase_cluster(torch, cfg, trace, t_max, counters, card: str) -> dict:
+    """Phase 15: (a) the rank cluster, (b) whole-lane tiers, (c) legacy
+    serving (see the module docstring)."""
+    t_phase = time.perf_counter()
+    out = {}
+    t0 = time.perf_counter()
+    out["ranks"] = phase_cluster_ranks(torch, card)
+    out["ranks_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["tiers"] = phase_tiers(torch, cfg, t_max, card)
+    out["tiers_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["legacy"] = phase_legacy_serving(torch, cfg, trace, t_max, counters,
+                                         card)
+    out["legacy_s"] = time.perf_counter() - t0
+    out["launches"] = out["legacy"]["launches"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"cluster: phase 15 took {out['phase_s']:.1f} s ((a) "
+          f"{out['ranks_s']:.1f}, (b) {out['tiers_s']:.1f}, (c) "
+          f"{out['legacy_s']:.1f}) [{card}]", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", default=None,
@@ -2994,6 +3399,11 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     report["crash"] = phase_crash(torch, card)
+    # -- 15. the rank cluster, whole-lane tiers, legacy serving -----------
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["cluster"] = phase_cluster(torch, get_config("olmo-1b"), trace,
+                                      t_max, counters, card)
     by_run = {a: p["launches"] for a, p in paths.items()}
     by_run.update({f"olmo-1b {r}": n
                    for r, n in report["features"]["launches"].items()})
@@ -3006,6 +3416,7 @@ def main(argv=None) -> int:
     # the children of phase 14 count in their own processes and report
     # the flash pair
     by_run.update(report["crash"]["launches"])
+    by_run.update(report["cluster"]["launches"])
 
     mains = {"flash_attention": report["kernel_cases"]["path_s512"],
              "grouped_matmul": report["gmm_cases"]["decode_up"],

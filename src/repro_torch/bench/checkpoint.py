@@ -18,12 +18,17 @@ commit every 2 — through ``run_durable_loop``:
 * ``ckpt_recoveries`` — a run replicating into a peer context (worker 1)
   crashes before the commit of step 5; the peer's staged copy (step 5) is
   newer than the pool's (step 3), so the one recovery's source is
-  ``peer-staging``.
+  ``peer-staging``;
+* ``ckpt_write_object_speedup_x`` — ``DSMPool.write_object`` (the
+  streamed frame: one data pass, one fsync) against
+  ``write_object_legacy`` (``np.savez`` + sidecar: three passes, two
+  fsyncs) on one fine-grained object of 8192 rows of 512 bytes, the
+  faster of two writes each, fsync included; at least 5 (asserted, a
+  ratio of two runs on one host: ``ckpt_write_object_speedup_ok``).
 
-Not produced yet: ``ckpt_write_object_*`` (the legacy ``.npz`` writer it
-compares against, ROADMAP A5) and ``ckpt_mesh_*`` (device-local mesh
-commits, ROADMAP A7).  The reference warms its ``jit`` with one extra
-run; eager PyTorch has nothing to warm.
+Not produced yet: ``ckpt_mesh_*`` (device-local mesh commits, ROADMAP
+A7).  The reference warms its ``jit`` with one extra run; eager PyTorch
+has nothing to warm.
 """
 from __future__ import annotations
 
@@ -37,10 +42,11 @@ N_STEPS = 12
 COMMIT_EVERY = 2
 SHARD_SWEEP = (1, 2, 4, 8)
 NOT_PRODUCED = {
-    "ckpt_write_object_*": "the legacy np.savez writer it compares "
-                           "against is not ported (ROADMAP A5)",
     "ckpt_mesh_*": "device-local mesh commits are not ported (ROADMAP A7)",
 }
+#: the write-object comparison's object: rows x row bytes of float32
+WRITE_ROWS = 8192
+ROW_BYTES = 512
 
 
 def run(mode: str, tmp: str, device: str, *, n_shards=1, replicate=False,
@@ -75,6 +81,48 @@ def run(mode: str, tmp: str, device: str, *, n_shards=1, replicate=False,
 
 def blocking_commit_s(r) -> float:
     return sum(t.commit_s for t in r.timings)
+
+
+def bench_write_object_fast_path(report: Report, tmp: str, *,
+                                 rows: int = WRITE_ROWS,
+                                 row_bytes: int = ROW_BYTES):
+    """``write_object`` against ``write_object_legacy`` on a fine-grained
+    object (embedding-row granularity, where the legacy per-zip-member
+    overhead dominates).  Asserted as a RATIO, so the gate does not
+    depend on the host's speed."""
+    import numpy as np
+    from repro_torch.dsm.pool import DSMPool
+    pool = DSMPool(f"{tmp}/fastpath")
+    tree = {f"row{i}": np.random.default_rng(i).standard_normal(
+                (row_bytes // 4,)).astype(np.float32)
+            for i in range(rows)}
+    mb = rows * row_bytes / 2**20
+
+    def run_writer(write, base_version):
+        write("emb", base_version, tree)             # warm (dirs)
+        best = float("inf")
+        for v in (1, 2):
+            t0 = time.perf_counter()
+            write("emb", base_version + v, tree)
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    t_new = run_writer(pool.write_object, 10)
+    t_old = run_writer(pool.write_object_legacy, 20)
+    speedup = t_old / t_new
+    note = (f"{rows} x {row_bytes} B float32 rows ({mb:.0f} MiB), fsync "
+            f"incl., this host")
+    report.record("ckpt_write_object_mb_s", mb / t_new,
+                  f"streamed write_object, {note}", fmt=".0f")
+    report.record("ckpt_write_object_legacy_mb_s", mb / t_old,
+                  f"legacy np.savez write, {note}", fmt=".0f")
+    report.record("ckpt_write_object_speedup_x", speedup,
+                  "streamed vs legacy, same object", fmt=".1f")
+    if speedup < 5.0:
+        raise AssertionError(f"write_object fast path regressed: "
+                             f"{speedup:.1f}x < 5x legacy")
+    report.record("ckpt_write_object_speedup_ok", True,
+                  "write_object >= 5x legacy (asserted)")
 
 
 def bench(device: str) -> Report:
@@ -125,6 +173,7 @@ def bench(device: str) -> Report:
                        crash={5: "before_commit"})
         report.record("ckpt_recoveries", len(r2.recoveries),
                       f"source={','.join(r2.recoveries)}")
+        bench_write_object_fast_path(report, tmp)
         for metrics, why in NOT_PRODUCED.items():
             print(f"# {metrics}: not produced: {why}", flush=True)
     finally:

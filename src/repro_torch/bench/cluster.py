@@ -1,7 +1,6 @@
-"""Cluster-protocol benchmark, the part that needs no rank process — a
-partial twin of ``benchmarks/bench_cluster.py`` (its lines 35-100).
+"""Cluster-protocol benchmark — the twin of ``benchmarks/bench_cluster.py``.
 
-    python -m repro_torch.bench.cluster [--out DIR]
+    python -m repro_torch.bench.cluster [--device cpu] [--out DIR]
 
 * contended multi-writer commits: K committer threads share one pool
   (``DSMPool``); every commit must survive (the ``O_EXCL`` sequence
@@ -11,13 +10,16 @@ partial twin of ``benchmarks/bench_cluster.py`` (its lines 35-100).
   the commit rates are this host's (not gated);
 * cross-process staging: an 8 MiB partition staged into a sibling's
   spill buffer (``FileStagingArea``) and read back through a recovery
-  view, bit for bit; ``cluster_staged_bytes`` is its size (8,388,608).
-
-Not produced yet: ``cluster_stage_speedup_x`` and
-``cluster_view_speedup_x`` compare the streamed spill format with the
-legacy ``np.savez`` one, which is not ported (ROADMAP A5b);
-``cluster_stream_speedup_ok`` and the step-rate rows spawn
-``repro.scenarios.cluster_worker`` rank processes (ROADMAP A5b / A6b).
+  view, bit for bit; ``cluster_staged_bytes`` is its size (8,388,608);
+* the streamed spill format against the legacy ``np.savez`` one
+  (``FileStagingArea(legacy_format=True)``) on a paged-KV partition of
+  8192 x 1 KiB leaves: ``cluster_stage_speedup_x`` and
+  ``cluster_view_speedup_x`` (each >= 10, asserted as ratios of two runs
+  on the same host) and ``cluster_stream_speedup_ok``;
+* ``cluster_steps_per_s_world{2,3,4}``: 2, 3 and 4 rank processes
+  (``scenarios.cluster_worker`` on ``--device``) over one pool, 12
+  lockstep steps with a commit every 3, process start-up included (this
+  host's, not gated).
 """
 from __future__ import annotations
 
@@ -33,14 +35,17 @@ from repro_torch.bench.report import Report, arg_parser
 WRITERS = 4
 PER_WRITER = 40
 STAGED_MB = 8
-NOT_PRODUCED = {
-    "cluster_stage_speedup_x, cluster_view_speedup_x":
-        "they compare against the legacy np.savez staging format, which "
-        "is not ported (ROADMAP A5b)",
-    "cluster_stream_speedup_ok, cluster step rates":
-        "they spawn repro.scenarios.cluster_worker rank processes, not "
-        "ported (ROADMAP A5b / A6b)",
-}
+PAGES = 8192                    # the streamed-vs-legacy partition's leaves
+PAGE_KIB = 1
+#: timed stage rounds a format, the last ``VIEW_REPS`` of them each with a
+#: timed view; the fastest of each counts.  The reference times 2 of each;
+#: the stage gets more rounds here, as its ratio lies nearer the gate and
+#: a stall of the host in few rounds could decide it
+STAGE_REPS = 10
+VIEW_REPS = 2
+STEP_RATE_WORLDS = (2, 3, 4)
+STEP_RATE_STEPS = 12
+STEP_RATE_COMMIT_EVERY = 3
 
 
 def bench_contended_commits(report: Report, tmp: str, *,
@@ -118,21 +123,110 @@ def bench_staging(report: Report, tmp: str, *, mb: int = STAGED_MB):
                   "bytes per staged copy (deterministic)")
 
 
-def run() -> Report:
+def bench_streamed_vs_legacy(report: Report, tmp: str, *,
+                             pages: int = PAGES, page_kib: int = PAGE_KIB):
+    """Stage + view throughput of the streamed spill format against the
+    legacy ``np.savez`` one on the SAME fine-grained workload (a paged KV
+    partition: thousands of ~KiB leaves, where the legacy per-zip-member
+    and double-CRC overheads dominate), the fastest of ``STAGE_REPS``
+    stages and ``VIEW_REPS`` views each.  Asserted as RATIOS, so the gate does not depend on the host's
+    speed."""
+    from repro_torch.dsm.cluster import FileStagingArea
+    tree = {f"page{i}": np.random.default_rng(i).integers(
+                0, 255, (page_kib * 1024,), dtype=np.uint8).astype(np.uint8)
+            for i in range(pages)}
+    mb = pages * page_kib / 1024
+
+    def run_area(area):
+        area.proxy(1).staging["w0/kv"] = (1, tree)      # warm (dirs)
+        stage = view = float("inf")
+        last = 1 + STAGE_REPS
+        for tag in range(2, last + 1):
+            t0 = time.perf_counter()
+            area.proxy(1).staging["w0/kv"] = (tag, tree)
+            stage = min(stage, time.perf_counter() - t0)
+            if tag > last - VIEW_REPS:
+                t0 = time.perf_counter()
+                got = area.view(1, {"w0/kv": tree})
+                view = min(view, time.perf_counter() - t0)
+        if got.staging["w0/kv"][0] != last:
+            raise AssertionError("the view missed the newest staged copy")
+        return stage, view
+
+    s_stage, s_view = run_area(FileStagingArea(os.path.join(tmp, "fast")))
+    l_stage, l_view = run_area(FileStagingArea(os.path.join(tmp, "slow"),
+                                               legacy_format=True))
+    stage_x, view_x = l_stage / s_stage, l_view / s_view
+    note = f"{pages} x {page_kib} KiB pages ({mb:.0f} MiB)"
+    report.record("cluster_stream_stage_mb_s", mb / s_stage,
+                  f"streamed spill, {note}, this host", fmt=".0f")
+    report.record("cluster_legacy_stage_mb_s", mb / l_stage,
+                  f"legacy np.savez spill, {note}, this host", fmt=".0f")
+    report.record("cluster_stream_view_mb_s", mb / s_view,
+                  "streamed mmap view read + CRC, this host", fmt=".0f")
+    report.record("cluster_legacy_view_mb_s", mb / l_view,
+                  "legacy np.load view read + CRC, this host", fmt=".0f")
+    report.record("cluster_stage_speedup_x", stage_x,
+                  "streamed vs legacy stage, same workload", fmt=".1f")
+    report.record("cluster_view_speedup_x", view_x,
+                  "streamed vs legacy view, same workload", fmt=".1f")
+    if stage_x < 10.0 or view_x < 10.0:
+        raise AssertionError(
+            f"staging fast path regressed: stage {stage_x:.1f}x, view "
+            f"{view_x:.1f}x (each must be >= 10x legacy)")
+    report.record("cluster_stream_speedup_ok", True,
+                  "stage AND view >= 10x legacy (asserted)")
+
+
+def bench_cluster_step_rate(report: Report, tmp: str, device: str, *,
+                            steps: int = STEP_RATE_STEPS,
+                            commit_every: int = STEP_RATE_COMMIT_EVERY):
+    """N rank processes over one pool, the full lockstep protocol (board
+    all-reduce, rank records, elected cluster manifests), per world
+    size."""
+    from repro_torch.scenarios.cluster import finish, spawn_worker
+    for world in STEP_RATE_WORLDS:
+        pool = os.path.join(tmp, f"cluster_w{world}")
+        t0 = time.perf_counter()
+        procs = [spawn_worker(pool, r, world, steps=steps,
+                              commit_every=commit_every, replicate=True,
+                              device=device)
+                 for r in range(world)]
+        errs = []
+        for r, p in enumerate(procs):
+            child, err = finish(f"rank {r}", p, 600)
+            if child["rc"] != 0:
+                errs.append(f"rank {r} rc={child['rc']}: {err[-500:]}")
+        wall = time.perf_counter() - t0
+        if errs:
+            raise AssertionError(f"cluster bench world {world}: {errs}")
+        report.record(f"cluster_steps_per_s_world{world}", steps / wall,
+                      f"{steps} lockstep steps, commit every "
+                      f"{commit_every} (incl. process start-up), {device}, "
+                      f"this host", fmt=".2f")
+
+
+def run(device: str = "cuda") -> Report:
+    from repro_torch.utils.device import resolve_device
+    resolve_device(device)
     report = Report("cluster")
     report.set_config(writers=WRITERS, per_writer=PER_WRITER,
-                      staged_mb=STAGED_MB)
+                      staged_mb=STAGED_MB, pages=PAGES, page_kib=PAGE_KIB,
+                      stage_reps=STAGE_REPS, view_reps=VIEW_REPS,
+                      step_rate_steps=STEP_RATE_STEPS,
+                      step_rate_commit_every=STEP_RATE_COMMIT_EVERY,
+                      device=device)
     with tempfile.TemporaryDirectory(prefix="bench-cluster-") as tmp:
         bench_contended_commits(report, tmp)
         bench_staging(report, tmp)
-    for metrics, why in NOT_PRODUCED.items():
-        print(f"# {metrics}: not produced: {why}", flush=True)
+        bench_streamed_vs_legacy(report, tmp)
+        bench_cluster_step_rate(report, tmp, device)
     return report
 
 
 def main(argv=None) -> int:
-    args = arg_parser(__doc__).parse_args(argv)
-    report = run()
+    args = arg_parser(__doc__, device=True).parse_args(argv)
+    report = run(args.device)
     report.write(args.out)
     return 0
 

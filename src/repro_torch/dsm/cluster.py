@@ -35,8 +35,10 @@ module is that setting at process scale:
 
 Records, cluster manifests, staging frames and metas equal the
 reference's byte for byte for equal inputs, and each package reads the
-other's.  Not ported: the reference's legacy ``.npz`` staging format (an
-entry in it reads back as absent here; ROADMAP A5b).
+other's.  ``FileStagingArea(legacy_format=True)`` writes the legacy spill
+format instead (an ``np.savez`` payload and an fsync'd meta carrying the
+dtypes and shapes), kept to fabricate old staging areas and as the
+benchmarks' baseline; ``view`` reads both formats.
 """
 from __future__ import annotations
 
@@ -46,12 +48,16 @@ import os
 import shutil
 import tempfile
 import time
+import zipfile
+import zlib
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
-import torch
+import numpy as np
 
 from repro_torch.dsm import stream
-from repro_torch.dsm.pool import DSMPool, manifest_entry
+from repro_torch.dsm.pool import (DSMPool, _crc_of_arrays, _plain_to_host,
+                                  decode_arrays, encode_arrays,
+                                  manifest_entry)
 from repro_torch.utils.tree import tree_leaves, tree_structure
 
 #: polling period of the file-based rendezvous primitives (seconds)
@@ -83,13 +89,6 @@ class MembershipChange(Exception):
         self.victim = victim
         self.member = victim
         self.kind = kind
-
-
-def _plain_to_host(leaf: Any) -> Any:
-    """An uncounted host copy, for writers that hand no counted one."""
-    if isinstance(leaf, torch.Tensor) and leaf.device.type != "cpu":
-        return leaf.cpu()
-    return leaf
 
 
 def _atomic_json(path: str, doc: dict, *, fsync: bool = True):
@@ -295,15 +294,16 @@ class _StagingBuffer:
     spill frame + meta.  Payload and meta are two atomic renames, so a
     crash between them CAN leave the previous meta next to a new payload:
     the meta carries the CRC of the payload it describes, and ``view``
-    discards any pair that does not match."""
+    discards any pair that does not match.  ``legacy`` writes the legacy
+    spill format (``_write_legacy``)."""
 
     #: tells ``TierManager.rstore`` it may hand over device trees as they
     #: are: this buffer copies each leaf to the host as it writes the frame
     materializes_leaves = True
 
-    def __init__(self, path: str, arena: Optional[stream.SpillArena] = None):
+    def __init__(self, path: str, legacy: bool = False):
         self.path = path
-        self.arena = arena
+        self.legacy = legacy
 
     def __setitem__(self, name: str, value: Tuple[int, Any]):
         tag, tree = value
@@ -315,12 +315,16 @@ class _StagingBuffer:
         the host (``TierManager.to_host``: counted)."""
         try:
             os.makedirs(self.path, exist_ok=True)
-            leaves = [to_host(l) for l in tree_leaves(tree)]
+            leaves = tree_leaves(tree)
             base = os.path.join(self.path, _mangle(name))
+            if self.legacy:
+                self._write_legacy(name, base, int(tag),
+                                   [to_host(l) for l in leaves])
+                return
             fd, tmp = tempfile.mkstemp(dir=self.path)
             try:
                 with os.fdopen(fd, "wb") as f:
-                    crc, _, _ = stream.write_frame(f, leaves, self.arena)
+                    crc, _, _ = stream.write_frame(f, leaves, to_host)
                 os.replace(tmp, base + stream.SUFFIX)
             except BaseException:
                 try:
@@ -337,6 +341,29 @@ class _StagingBuffer:
             # this store: an RStore into a dead peer does not land (the
             # crash semantics, not an error)
             return
+
+    def _write_legacy(self, name: str, base: str, tag: int, leaves):
+        """The legacy spill format (``np.savez`` + fsync'd meta): kept to
+        fabricate old staging areas and as the benchmarks' baseline for
+        the streamed path."""
+        raw, dtypes, shapes = encode_arrays(leaves)
+        fd, tmp = tempfile.mkstemp(dir=self.path)
+        try:
+            with os.fdopen(fd, "wb") as f:
+                np.savez(f, **{f"a{i}": a for i, a in enumerate(raw)})
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, base + ".npz")
+        except BaseException:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise
+        _atomic_json(base + ".json",
+                     {"name": name, "tag": tag, "n": len(leaves),
+                      "crc": _crc_of_arrays(leaves),
+                      "dtypes": dtypes, "shapes": shapes})
 
 
 @dataclasses.dataclass
@@ -361,17 +388,28 @@ class FileStagingArea:
     Worker *i*'s crash loses it (``wipe``), exactly the CXL0 cache-loss
     model; the copies OF worker *i* held in a sibling's buffer survive."""
 
-    def __init__(self, root: str):
+    def __init__(self, root: str, *, legacy_format: bool = False):
         self.root = root
-        self._arena = stream.SpillArena()
+        self.legacy_format = legacy_format
         os.makedirs(root, exist_ok=True)
 
     def area(self, rank: int) -> str:
         return os.path.join(self.root, f"w{rank}")
 
+    def payload_path(self, rank: int, name: str) -> str:
+        """Path of ``name``'s spill payload in ``rank``'s buffer: the
+        streamed frame if present, else the legacy ``.npz``."""
+        base = os.path.join(self.area(rank), _mangle(name))
+        if os.path.exists(base + stream.SUFFIX):
+            return base + stream.SUFFIX
+        if os.path.exists(base + ".npz"):
+            return base + ".npz"
+        return base + stream.SUFFIX
+
     def proxy(self, rank: int) -> StagingProxy:
         """Write INTO ``rank``'s buffer (the rstore target)."""
-        return StagingProxy(_StagingBuffer(self.area(rank), self._arena))
+        return StagingProxy(_StagingBuffer(self.area(rank),
+                                           legacy=self.legacy_format))
 
     def view(self, rank: int, templates: Dict[str, Any]) -> StagedView:
         """Read ``rank``'s OWN buffer: the staged copies it holds for its
@@ -382,14 +420,26 @@ class FileStagingArea:
         for name, template in templates.items():
             base = os.path.join(self.area(rank), _mangle(name))
             meta = _read_json(base + ".json")
-            if meta is None or meta.get("format") != "cxl0":
+            if meta is None:
                 continue
-            try:
-                arrays, crc, _ = stream.read_frame(base + stream.SUFFIX)
-            except (stream.FrameError, OSError):
-                continue                    # torn spill: not a usable copy
-            if crc != meta.get("crc") or len(arrays) != meta.get("n"):
-                continue                    # meta describes another payload
+            if meta.get("format") == "cxl0":
+                try:
+                    arrays, crc, _ = stream.read_frame(base + stream.SUFFIX)
+                except (stream.FrameError, OSError):
+                    continue                # torn spill: not a usable copy
+                if crc != meta.get("crc") or len(arrays) != meta.get("n"):
+                    continue                # meta describes another payload
+            else:
+                try:
+                    with np.load(base + ".npz") as z:
+                        raw = [z[f"a{i}"] for i in range(meta["n"])]
+                    arrays = decode_arrays(raw, meta["dtypes"],
+                                           meta["shapes"])
+                except (OSError, KeyError, ValueError, TypeError, EOFError,
+                        RuntimeError, zipfile.BadZipFile, zlib.error):
+                    continue                # torn spill: not a usable copy
+                if _crc_of_arrays(arrays) != meta.get("crc"):
+                    continue                # meta describes another payload
             staged[name] = (meta["tag"],
                             tree_structure(template).unflatten(arrays))
         return StagedView(staged)

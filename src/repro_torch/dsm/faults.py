@@ -28,9 +28,8 @@ Every decision is a pure hash of (salt, identity) — never the clock, never
 thread timing — so the same (schedule, program) injects the same faults
 in this package and in the reference: a schedule's JSON drives both to
 the same ``fired`` list, and a ``FaultyPool`` of each, given the same
-writes, corrupts the same files the same way.  Payloads are streamed
-``.cxl0`` frames; the legacy ``.npz`` layout the reference can also
-corrupt is not ported (ROADMAP A5b).
+writes, corrupts the same files the same way, in both payload formats
+(streamed ``.cxl0`` frames and legacy ``.npz`` objects).
 """
 from __future__ import annotations
 
@@ -38,6 +37,7 @@ import dataclasses
 import functools
 import os
 import threading
+import zipfile
 import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -198,24 +198,33 @@ class FaultSchedule:
 # ---------------------------------------------------------------------------
 
 def _payload_span(path: str) -> Tuple[int, int]:
-    """(offset, length) of the largest leaf's data bytes: the region the
-    frame's CRC provably covers, so a corruption there must be rejected."""
+    """(offset, length) of the largest leaf's (or zip member's) data
+    bytes: the region the content CRC provably covers, so a corruption
+    there must be rejected.  Sniffs the format: a streamed ``.cxl0`` frame
+    through its header's leaf table, a legacy ``.npz`` through the zip
+    local-file-header walk."""
     with open(path, "rb") as f:
         magic = f.read(len(stream.MAGIC))
-    if magic != stream.MAGIC:
-        raise ValueError(
-            f"{path}: not a .cxl0 frame — corrupting the legacy .npz "
-            f"layout is not ported (reference: repro.dsm.faults, "
-            f"ROADMAP A5b)")
-    return stream.payload_span(path)
+    if magic == stream.MAGIC:
+        return stream.payload_span(path)
+    with zipfile.ZipFile(path) as z:
+        info = max(z.infolist(), key=lambda i: i.file_size)
+    with open(path, "rb") as f:
+        f.seek(info.header_offset)
+        hdr = f.read(30)            # local file header: sizes at 26/28
+    n_name = int.from_bytes(hdr[26:28], "little")
+    n_extra = int.from_bytes(hdr[28:30], "little")
+    return info.header_offset + 30 + n_name + n_extra, info.file_size
 
 
 def corrupt_file(path: str, mode: str):
     """Mangle a payload file in place, deterministically, leaving it
-    visible: ``truncate`` keeps a prefix (the frame's size equation fails
-    and the footer is gone), ``bitflip`` inverts one byte of leaf data,
-    ``zero`` XOR-smears a 64-byte window of leaf data (any nonzero burst
-    under 32 bits changes a CRC32, so detection is certain)."""
+    visible: ``truncate`` keeps a prefix (a frame's size equation fails
+    and its footer is gone; a legacy zip loses its central directory),
+    ``bitflip`` inverts one byte of leaf data, ``zero`` XOR-smears a
+    64-byte window of leaf data (any nonzero burst under 32 bits changes a
+    CRC32, so detection is certain).  The read path rejects all three in
+    both payload formats."""
     size = os.path.getsize(path)
     if mode == "truncate":
         os.truncate(path, max(1, size // 3))

@@ -6,6 +6,7 @@ On-disk layout (one directory per pool)::
     pool/
       objects/<object>/<version>.cxl0      # streamed, self-validating frame
       objects/<object>.s<k>/<version>.cxl0 # shard k of a SHARDED write
+      objects/<object>/<version>.npz       # LEGACY payload (+ .crc sidecar)
       manifest.json                        # CURRENT committed versions
       manifest.<n>.json                    # history (GC-bounded)
 
@@ -19,11 +20,17 @@ to the previous one.  Frame leaves follow ``jax.tree_util`` order
 (``utils.tree``), so frames, shard assignments and manifests equal the
 reference's for equal state.
 
-The legacy ``.npz`` write path and reader (pools from before the streamed
-format) are not ported: reading one raises ``CorruptObjectError`` naming
-the reference.  Sharded ENTRIES are read (a pool the reference wrote under
-a sharded schedule recovers here); sharded WRITES come with the sharded
-schedules.
+The legacy layout (``write_object_legacy``: an ``np.savez`` payload plus a
+JSON ``.crc`` sidecar, two fsyncs) is kept for pools written before the
+streamed format and as the benchmarks' baseline; ``read_object`` reads
+both, and a manifest may mix them.  Non-native dtypes (bfloat16, float8)
+go into the ``.npz`` as raw ``uint8`` views under their dtype token, as the
+reference writes them, and come back through ``torch.uint8`` ->
+``.view(dtype)`` (no ``ml_dtypes``).  The reference's ``.npz`` zip members
+carry a timestamp, so the two packages' legacy files are not byte-equal;
+their ``.crc`` sidecars are (the ``treedef`` string is rendered as
+``jax.tree_util`` prints it: ``treedef_str``), and each package reads the
+other's.  Legacy objects read back as host tensors.
 """
 from __future__ import annotations
 
@@ -31,9 +38,15 @@ import dataclasses
 import json
 import os
 import tempfile
+import zipfile
+import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
+import torch
+
 from repro_torch.dsm import stream
+from repro_torch.utils.convert import TOKEN_TO_TORCH, raw_numpy
 from repro_torch.utils.tree import tree_flatten, tree_structure
 
 
@@ -105,6 +118,80 @@ class CorruptObjectError(Exception):
     pass
 
 
+#: dtypes numpy's npz round-trips natively; everything else (bfloat16,
+#: float8 variants, ...) is stored as a raw byte view + sidecar dtype
+_NATIVE_DTYPES = {
+    "bool", "int8", "int16", "int32", "int64", "uint8", "uint16", "uint32",
+    "uint64", "float16", "float32", "float64", "complex64", "complex128",
+}
+
+
+def _crc_of_arrays(arrays: List[Any]) -> int:
+    """CRC32 folded over each leaf's raw bytes, in order: the streamed
+    frame's payload CRC for the same leaves."""
+    crc = 0
+    for a in arrays:
+        crc = zlib.crc32(raw_numpy(a)[0].tobytes(), crc)
+    return crc
+
+
+def encode_arrays(arrays: List[Any]
+                  ) -> Tuple[List[np.ndarray], List[str], List[List[int]]]:
+    """Host leaves -> what ``np.savez`` stores: numpy arrays of the native
+    dtypes as they are, every other dtype as a raw ``uint8`` view, plus the
+    (dtype token, shape) sidecar data that reverses the view on read."""
+    raws = [raw_numpy(a) for a in arrays]
+    dtypes = [tok for _, tok in raws]
+    out = [raw if tok in _NATIVE_DTYPES else raw.view(np.uint8)
+           for raw, tok in raws]
+    shapes = [list(raw.shape) for raw, _ in raws]
+    return out, dtypes, shapes
+
+
+def decode_arrays(arrays: List[np.ndarray], dtypes: List[str],
+                  shapes: List[List[int]]) -> List[torch.Tensor]:
+    """Reverse of ``encode_arrays``: host tensors (a non-native dtype is
+    re-typed through ``torch.uint8`` -> ``.view(dtype)``)."""
+    out = []
+    for a, tok, shape in zip(arrays, dtypes, shapes):
+        if not a.flags.c_contiguous:    # (ascontiguousarray would make a
+            a = a.copy(order="C")       # 0-d array 1-d)
+        if tok in _NATIVE_DTYPES:
+            out.append(torch.from_numpy(a))
+        else:
+            raw = torch.from_numpy(a.view(np.uint8))
+            out.append(raw.view(TOKEN_TO_TORCH[tok]).reshape(shape))
+    return out
+
+
+def treedef_str(treedef) -> str:
+    """The string ``jax.tree_util``'s ``PyTreeDef`` prints for the same
+    structure — what the reference's legacy sidecar records."""
+    def render(td) -> str:
+        if td.kind == "namedtuple":
+            kids = ", ".join(render(c) for c in td.children)
+            return f"CustomNode(namedtuple[{td.aux.__name__}], [{kids}])"
+        if td.kind in ("leaf", "none"):
+            return repr(td)
+        inner = [render(c) for c in td.children]
+        if td.kind == "dict":
+            return "{" + ", ".join(f"{k!r}: {c}" for k, c in
+                                   zip(td.aux, inner)) + "}"
+        if td.kind == "list":
+            return "[" + ", ".join(inner) + "]"
+        return "(" + ", ".join(inner) + ("," if len(inner) == 1 else "") \
+            + ")"
+    return f"PyTreeDef({render(treedef)})"
+
+
+def _plain_to_host(leaf: Any) -> Any:
+    """An uncounted host copy, for writers that hand no counted one."""
+    if not isinstance(leaf, np.ndarray) and isinstance(leaf, torch.Tensor) \
+            and leaf.device.type != "cpu":
+        return leaf.cpu()
+    return leaf
+
+
 class PendingWrite:
     """A streamed-but-not-yet-durable object write: ``finish`` pays the
     fsync and performs the atomic rename."""
@@ -154,7 +241,6 @@ class DSMPool:
         self.obj_dir = os.path.join(path, "objects")
         os.makedirs(self.obj_dir, exist_ok=True)
         self._manifest_seq = self._latest_manifest_seq()
-        self._arena = stream.SpillArena()
 
     # -- low-level object IO -------------------------------------------------
     def _obj_path(self, name: str, version: int) -> str:
@@ -163,7 +249,15 @@ class DSMPool:
         return os.path.join(d, f"{version:08d}")
 
     def payload_path(self, name: str, version: int) -> str:
-        return self._obj_path(name, version) + stream.SUFFIX
+        """The on-disk payload file of ``(name, version)``: the streamed
+        ``.cxl0`` if present, else the legacy ``.npz`` (the fault layer
+        corrupts payloads through this)."""
+        base = self._obj_path(name, version)
+        if os.path.exists(base + stream.SUFFIX):
+            return base + stream.SUFFIX
+        if os.path.exists(base + ".npz"):
+            return base + ".npz"
+        return base + stream.SUFFIX
 
     def _mkstemp(self, base: str) -> Tuple[int, str]:
         try:
@@ -173,9 +267,7 @@ class DSMPool:
             os.makedirs(os.path.dirname(base), exist_ok=True)
             return tempfile.mkstemp(dir=os.path.dirname(base))
 
-    def start_write(self, name: str, version: int, tree,
-                    arena: Optional[stream.SpillArena] = None
-                    ) -> PendingWrite:
+    def start_write(self, name: str, version: int, tree) -> PendingWrite:
         """Stream one object version onto a temp file (no fsync);
         durability and visibility happen in the handle's ``finish()``."""
         leaves, _ = tree_flatten(tree)
@@ -183,8 +275,7 @@ class DSMPool:
         tmp_fd, tmp_name = self._mkstemp(base)
         f = os.fdopen(tmp_fd, "wb")
         try:
-            crc, nbytes, _ = stream.write_frame(f, leaves,
-                                                arena or self._arena)
+            crc, nbytes, _ = stream.write_frame(f, leaves)
         except BaseException:
             f.close()
             try:
@@ -208,6 +299,36 @@ class DSMPool:
     def _finalize_write(self, name: str, version: int, payload_path: str):
         """Hook after a payload's atomic rename (the reference's fault
         layer tears payloads here)."""
+
+    def write_object_legacy(self, name: str, version: int,
+                            tree) -> PoolObject:
+        """The legacy write path: ``np.savez`` payload + JSON ``.crc``
+        sidecar, two fsyncs, three passes over the data.  Kept to fabricate
+        old pools and as the benchmarks' baseline for ``write_object``.
+        The sidecar's ``treedef`` is the reference's ``PyTreeDef`` string
+        (``treedef_str``; never read back)."""
+        leaves, treedef = tree_flatten(tree)
+        host = [_plain_to_host(l) for l in leaves]
+        crc = _crc_of_arrays(host)
+        base = self._obj_path(name, version)
+        tmp_fd, tmp_name = self._mkstemp(base)
+        os.close(tmp_fd)
+        raw, dtypes, shapes = encode_arrays(host)
+        with open(tmp_name, "wb") as f:
+            np.savez(f, **{f"a{i}": a for i, a in enumerate(raw)})
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp_name, base + ".npz")
+        meta = {"crc": crc, "treedef": treedef_str(treedef),
+                "n": len(host), "dtypes": dtypes, "shapes": shapes}
+        with open(base + ".crc.tmp", "w") as f:
+            json.dump(meta, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(base + ".crc.tmp", base + ".crc")
+        nbytes = sum(raw_numpy(a)[0].nbytes for a in host)
+        self._finalize_write(name, version, base + ".npz")
+        return PoolObject(name, version, crc, nbytes)
 
     def max_version(self, name: str) -> int:
         """Highest version on disk for ``name`` including its shard objects
@@ -236,13 +357,13 @@ class DSMPool:
                     expected_crc: Optional[int] = None) -> Any:
         """Read + CRC-validate one object version into ``treedef_like``'s
         structure (host tensors viewing a private mapping of the file);
-        raises CorruptObjectError on any mismatch."""
+        raises CorruptObjectError on any mismatch.  A legacy ``.npz`` +
+        sidecar pair takes the legacy decode path."""
         base = self._obj_path(name, version)
         if not os.path.exists(base + stream.SUFFIX) \
                 and os.path.exists(base + ".npz"):
-            raise CorruptObjectError(
-                f"{name}@{version}: legacy .npz object — its reader is not "
-                f"ported (reference: repro.dsm.pool.DSMPool.read_object)")
+            leaves = self._read_legacy(name, version, base, expected_crc)
+            return tree_structure(treedef_like).unflatten(leaves)
         try:
             leaves, crc, _ = stream.read_frame(base + stream.SUFFIX)
         except (stream.FrameError, OSError) as e:
@@ -252,6 +373,30 @@ class DSMPool:
                 f"{name}@{version}: content does not match the "
                 f"manifest (overwritten by a later write?)")
         return tree_structure(treedef_like).unflatten(leaves)
+
+    def _read_legacy(self, name: str, version: int, base: str,
+                     expected_crc: Optional[int]) -> List[torch.Tensor]:
+        try:
+            with open(base + ".crc") as f:
+                meta = json.load(f)
+            with np.load(base + ".npz") as z:
+                arrays = [z[f"a{i}"] for i in range(meta["n"])]
+            if "dtypes" in meta:
+                leaves = decode_arrays(arrays, meta["dtypes"],
+                                       meta["shapes"])
+            else:
+                leaves = decode_arrays(arrays, [str(a.dtype) for a in arrays],
+                                       [list(a.shape) for a in arrays])
+        except (OSError, KeyError, ValueError, TypeError, EOFError,
+                RuntimeError, zipfile.BadZipFile, zlib.error) as e:
+            raise CorruptObjectError(f"{name}@{version}: {e}") from e
+        if _crc_of_arrays(leaves) != meta["crc"]:
+            raise CorruptObjectError(f"{name}@{version}: CRC mismatch")
+        if expected_crc is not None and meta["crc"] != expected_crc:
+            raise CorruptObjectError(
+                f"{name}@{version}: content does not match the manifest "
+                f"(overwritten by a later write?)")
+        return leaves
 
     # -- manifests (completeOp) ----------------------------------------------
     def _latest_manifest_seq(self) -> int:

@@ -31,24 +31,25 @@ Torn writes are detected exactly as in the reference: the size equation
 from __future__ import annotations
 
 import json
+import math
 import mmap
 import os
 import struct
-import threading
 import zlib
-from typing import Any, BinaryIO, Dict, List, Optional, Tuple
+from typing import Any, BinaryIO, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.utils.convert import TOKEN_TO_TORCH, raw_numpy
+from repro_torch.utils.convert import TOKEN_TO_TORCH, numpy_token, raw_numpy
 
 MAGIC = b"CXL0FR1\n"
 FOOTER = b"CXL0END\n"
 SUFFIX = ".cxl0"
 #: CRC/write granularity for large leaves
 CHUNK = 1 << 20
-#: leaves below this are coalesced into the arena before hitting the file
+#: leaves below this are coalesced with their neighbours before hitting
+#: the file
 PACK_LIMIT = 256 << 10
 _FOOTER_LEN = len(FOOTER) + 4 + 8        # magic + u32 crc + u64 payload_len
 _HDR_FIXED = len(MAGIC) + 4 + 4          # magic + u32 len + u32 crc
@@ -57,31 +58,6 @@ _HDR_FIXED = len(MAGIC) + 4 + 4          # magic + u32 len + u32 crc
 class FrameError(Exception):
     """Any structural or CRC validation failure of a frame — the caller
     (pool read path) treats it exactly like a torn write."""
-
-
-class SpillArena:
-    """Reusable spill-buffer arena: one geometrically-grown scratch buffer
-    per thread, checked out by the frame writer to coalesce small leaves
-    instead of allocating per commit."""
-
-    MIN_BYTES = 1 << 20
-
-    def __init__(self):
-        self._local = threading.local()
-        self.allocations = 0
-
-    def checkout(self, nbytes: int) -> memoryview:
-        buf = getattr(self._local, "buf", None)
-        if buf is None or len(buf) < nbytes:
-            size = max(self.MIN_BYTES,
-                       len(buf) * 2 if buf is not None else 0, nbytes)
-            buf = bytearray(size)
-            self._local.buf = buf
-            self.allocations += 1
-        return memoryview(buf)
-
-
-_DEFAULT_ARENA = SpillArena()
 
 
 def _leaf_view(raw: np.ndarray) -> memoryview:
@@ -93,73 +69,97 @@ def _leaf_view(raw: np.ndarray) -> memoryview:
 
 
 def _host_leaf(a: Any) -> Tuple[np.ndarray, str]:
-    if isinstance(a, torch.Tensor) and a.device.type != "cpu":
+    if not isinstance(a, np.ndarray) and isinstance(a, torch.Tensor) \
+            and a.device.type != "cpu":
         raise FrameError(f"frame leaves must be host tensors, got one on "
                          f"{a.device} (the tier layer copies D2H first)")
     return raw_numpy(a)
 
 
 def frame_header(leaves: List[Any]) -> Dict[str, Any]:
-    return _header([_host_leaf(a) for a in leaves])
+    header = _raw_leaves(leaves)[1]
+    return {**header, "shapes": [list(s) for s in header["shapes"]]}
 
 
-def _header(raws: List[Tuple[np.ndarray, str]]) -> Dict[str, Any]:
-    return {"n": len(raws), "dtypes": [tok for _, tok in raws],
-            "shapes": [list(raw.shape) for raw, _ in raws],
-            "nbytes": [int(raw.nbytes) for raw, _ in raws]}
+def _raw_leaves(leaves: List[Any],
+                to_host: Optional[Callable[[Any], Any]] = None
+                ) -> Tuple[List[np.ndarray], Dict[str, Any],
+                           List[Tuple[int, int]]]:
+    """One pass over the leaves: each one's raw host array (through
+    ``to_host`` first when it is not a numpy array), the frame header, and
+    the write plan — ``(i, -1)`` for a leaf of ``PACK_LIMIT`` bytes or
+    more, ``(start, end)`` for a run of smaller leaves of about ``CHUNK``
+    bytes.  Shapes stay tuples while the frame is written (JSON writes
+    them as arrays): a tuple of ints leaves the garbage collector's
+    books, a list would not, and thousands of them call a full
+    collection."""
+    arrs: List[np.ndarray] = []
+    dtypes: List[str] = []
+    last_dt = tok = view = None
+    for a in leaves:
+        if type(a) is np.ndarray and a.flags.c_contiguous:
+            if a.dtype is not last_dt:          # (the common case inline)
+                last_dt = a.dtype
+                tok, view = numpy_token(last_dt)
+            arrs.append(a if view is None else a.view(view))
+            dtypes.append(tok)
+        else:
+            raw, t = _host_leaf(a if to_host is None else to_host(a))
+            arrs.append(raw)
+            dtypes.append(t)
+    nbytes = [a.nbytes for a in arrs]
+    plan: List[Tuple[int, int]] = []
+    start = pos = 0
+    for i, n in enumerate(nbytes):
+        if n >= PACK_LIMIT:
+            if start < i:
+                plan.append((start, i))
+            plan.append((i, -1))
+            start, pos = i + 1, 0
+        else:
+            pos += n
+            if pos >= CHUNK:
+                plan.append((start, i + 1))
+                start, pos = i + 1, 0
+    if start < len(arrs):
+        plan.append((start, len(arrs)))
+    return arrs, {"n": len(arrs), "dtypes": dtypes,
+                  "shapes": [a.shape for a in arrs], "nbytes": nbytes}, plan
 
 
 def write_frame(f: BinaryIO, leaves: List[Any],
-                arena: Optional[SpillArena] = None
+                to_host: Optional[Callable[[Any], Any]] = None
                 ) -> Tuple[int, int, Dict[str, Any]]:
     """Stream ``leaves`` into ``f`` as one frame; single pass, CRC folded
-    chunk-by-chunk as the bytes are written.  Returns
-    ``(payload_crc, payload_nbytes, header)``.  The caller owns fsync /
-    rename."""
-    arena = arena or _DEFAULT_ARENA
-    raws = [_host_leaf(a) for a in leaves]
-    header = _header(raws)
+    chunk-by-chunk as the bytes are written.  Leaves of ``PACK_LIMIT``
+    bytes and more go out in ``CHUNK`` slices of their own buffer; runs of
+    smaller ones are coalesced by one ``bytes.join`` over their buffers
+    (one C-level copy a run, no Python work a leaf).  ``to_host`` copies a
+    device leaf to the host (the tiers' counted copy); without it every
+    leaf must already be there.  Returns ``(payload_crc, payload_nbytes,
+    header)``.  The caller owns fsync / rename."""
+    arrs, header, plan = _raw_leaves(leaves, to_host)
     hdr = json.dumps(header, separators=(",", ":")).encode()
     f.write(MAGIC)
     f.write(struct.pack("<II", len(hdr), zlib.crc32(hdr)))
     f.write(hdr)
     crc = 0
-    total = 0
-    pack = arena.checkout(max(PACK_LIMIT * 2, CHUNK))
-    pack_cap = len(pack) - PACK_LIMIT
-    pos = 0
-    for raw, _ in raws:
-        mv = _leaf_view(raw)
-        n = len(mv)
-        total += n
-        if n >= PACK_LIMIT:
-            if pos:                             # flush the packed run
-                crc = _fold(pack, pos, crc)
-                f.write(pack[:pos])
-                pos = 0
-            for lo in range(0, n, CHUNK):
+    for start, end in plan:
+        if end < 0:
+            mv = _leaf_view(arrs[start])
+            for lo in range(0, len(mv), CHUNK):
                 part = mv[lo:lo + CHUNK]
                 crc = zlib.crc32(part, crc)
                 f.write(part)
         else:
-            pack[pos:pos + n] = mv
-            pos += n
-            if pos >= pack_cap:
-                crc = _fold(pack, pos, crc)
-                f.write(pack[:pos])
-                pos = 0
-    if pos:
-        crc = _fold(pack, pos, crc)
-        f.write(pack[:pos])
+            blob = b"".join(arrs[start:end])
+            crc = zlib.crc32(blob, crc)
+            f.write(blob)
+    total = sum(header["nbytes"])
     f.write(FOOTER)
     f.write(struct.pack("<IQ", crc, total))
-    return crc, total, header
-
-
-def _fold(mv: memoryview, end: int, crc: int) -> int:
-    for lo in range(0, end, CHUNK):
-        crc = zlib.crc32(mv[lo:min(lo + CHUNK, end)], crc)
-    return crc
+    return crc, total, {**header, "shapes": [list(s) for s in
+                                             header["shapes"]]}
 
 
 def read_header(path: str) -> Tuple[Dict[str, Any], int, int]:
@@ -242,13 +242,14 @@ def read_frame(path: str, expected_crc: Optional[int] = None
                                   header["nbytes"]):
             dt = TOKEN_TO_TORCH[tok]
             count = nb // dt.itemsize
-            if count != int(np.prod(shape)) or count * dt.itemsize != nb:
+            if count != math.prod(shape) or count * dt.itemsize != nb:
                 raise ValueError(f"{nb} bytes cannot hold {tok}{shape}")
             if count == 0:
                 t = torch.empty(shape, dtype=dt)
             else:
-                t = torch.frombuffer(mm, dtype=dt, count=count,
-                                     offset=off).reshape(shape)
+                t = torch.frombuffer(mm, dtype=dt, count=count, offset=off)
+                if len(shape) != 1:
+                    t = t.reshape(shape)
             tensors.append(t)
             off += nb
     except (KeyError, TypeError, ValueError, RuntimeError) as e:

@@ -54,7 +54,6 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.dsm import stream
 from repro_torch.dsm.pool import (DSMPool, PoolObject, ShardedObject,
                                   partition_leaves)
 from repro_torch.utils.tree import tree_flatten
@@ -86,7 +85,6 @@ class TierManager:
             str, Tuple[int, int, List[List[int]], List[Future]]] = {}
         self._executor: Optional[ThreadPoolExecutor] = None
         self._fsync_lane: Optional[ThreadPoolExecutor] = None
-        self._arena = stream.SpillArena()   # reusable spill pack buffers
         self._lock = threading.Lock()
         #: D2H accounting (bytes): whole-leaf host gathers of the flush
         #: and paging paths (``d2h_gather_bytes``) and, kept for the
@@ -262,8 +260,7 @@ class TierManager:
 
         def serialize():
             try:
-                pending = self.pool.start_write(name, version, leaves,
-                                                arena=self._arena)
+                pending = self.pool.start_write(name, version, leaves)
             except BaseException as e:
                 out.set_exception(e)
                 return

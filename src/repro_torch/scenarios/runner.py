@@ -27,13 +27,19 @@ the plain versions) and is started with ``PYTHONPATH`` at this package's
 code, wall seconds and its JSON line, the killed ones' included), so a
 caller can hold the children's kernel launches and recovery times.
 
-    python -m repro_torch.scenarios.runner --suite train|serve|fuzz|all \\
-        [--device cpu] [--workdir DIR] [--steps 8] [--commit-every 2] \\
-        [--mode sharded-async] [--shards 4]
+The CLUSTER suite (``--suite cluster``, ``scenarios.cluster``) kills 1 of
+``--world`` real rank processes sharing one pool at each commit-window
+point x {peer, pool} recovery source; the survivors must shrink and finish
+bit-identical to a planned shrink.
 
-The rank-process cluster suite and the scale suite spawn
-``repro.scenarios.cluster_worker``, which is not ported: ``--suite
-cluster`` and ``--suite scale`` raise ``NotImplementedError``.
+    python -m repro_torch.scenarios.runner \\
+        --suite train|serve|cluster|fuzz|all \\
+        [--device cpu] [--workdir DIR] [--steps 8] [--commit-every 2] \\
+        [--mode sharded-async] [--shards 4] [--world 3] \\
+        [--kill-points pre_flush,...] [--cluster-sources peer,pool]
+
+The scale suite spawns joiners through ``repro.scenarios.scale``, which is
+not ported: ``--suite scale`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -52,14 +58,11 @@ from repro_torch.scenarios.worker import KILL_EXIT
 
 #: suites of the reference the runner does not run yet, and why
 NOT_PORTED = {
-    "cluster": "repro.scenarios.cluster (its rank processes run "
-               "repro.scenarios.cluster_worker, which needs launch/mesh.py "
-               "and train/elastic.remesh: ROADMAP A5b, with or after A6b)",
-    "scale": "repro.scenarios.scale (it spawns "
-             "repro.scenarios.cluster_worker: ROADMAP A6b)",
+    "scale": "repro.scenarios.scale (its grow cells, the fleet scale cell "
+             "and the autoscale cell: ROADMAP A6b)",
 }
-#: the suites ``--suite all`` runs
-PORTED_SUITES = ("train", "serve", "fuzz")
+#: the suites ``--suite all`` runs, in the reference's order
+PORTED_SUITES = ("train", "serve", "cluster", "fuzz")
 
 
 @dataclasses.dataclass
@@ -498,8 +501,8 @@ def main(argv=None) -> int:
                     choices=["train", "serve", "cluster", "scale", "fuzz",
                              "all"],
                     help="'all' runs the ported suites (train, serve, "
-                         "fuzz); cluster and scale are not ported and "
-                         "raise NotImplementedError")
+                         "cluster, fuzz); scale is not ported and raises "
+                         "NotImplementedError")
     ap.add_argument("--workdir", default=None)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where every worker runs")
@@ -525,6 +528,21 @@ def main(argv=None) -> int:
     ap.add_argument("--engines", type=int, default=1,
                     help="serve suite: >= 2 switches to the fleet "
                          "migration kill cells")
+    def _world(v):
+        if int(v) < 3:
+            raise argparse.ArgumentTypeError(
+                "--world must be >= 3 (the shrunk cluster still needs a "
+                "staging sibling for every rank)")
+        return int(v)
+    ap.add_argument("--world", type=_world, default=3,
+                    help="cluster suite: rank processes (N >= 3)")
+    ap.add_argument("--kill-points", default=",".join(KILL_POINTS),
+                    help="cluster suite: comma-separated subset of the "
+                         "kill points")
+    ap.add_argument("--cluster-sources", default="peer,pool",
+                    help="cluster suite: recovery sources to exercise "
+                         "(peer = sibling staging newer than the pool, "
+                         "pool = replication off)")
     ap.add_argument("--episodes", type=int, default=10,
                     help="fuzz suite: episodes per (workload, topology)")
     ap.add_argument("--seed", type=int, default=0,
@@ -596,6 +614,30 @@ def main(argv=None) -> int:
                   f"outputs_bit_identical={r.outputs_match}"
                   + (f",detail={r.detail}" if r.detail else ""))
 
+    def _cluster_suite():
+        nonlocal failed
+        from repro_torch.scenarios.cluster import run_cluster_suite
+        points = [p for p in args.kill_points.split(",") if p]
+        srcs = [s for s in args.cluster_sources.split(",") if s]
+        for r in run_cluster_suite(workdir, points=points, sources=srcs,
+                                   world=args.world,
+                                   # survivors must reach at least one
+                                   # all-reduce AFTER the kill at commit
+                                   # step 2C-1 to detect the death
+                                   steps=max(args.steps,
+                                             2 * args.commit_every + 1),
+                                   commit_every=args.commit_every,
+                                   device=args.device):
+            status = "OK" if r.ok else "FAIL"
+            failed += not r.ok
+            print(f"cluster_scenario,{r.kill_point},"
+                  f"{'peer' if r.replicate else 'pool'},{status},"
+                  f"completed={r.completed_steps_at_kill},"
+                  f"resumed={r.resumed_from},source={r.recovery_source},"
+                  f"expected=({r.expected_resume},{r.expected_source}),"
+                  f"digest_match={r.digests == r.reference_digests}"
+                  + (f",detail={r.detail}" if r.detail else ""))
+
     def _fuzz_suite():
         nonlocal failed
         from repro_torch.dsm.emu import PRESETS
@@ -622,7 +664,7 @@ def main(argv=None) -> int:
               f"log={s.log_path}")
 
     suites = {"train": _train_suite, "serve": _serve_suite,
-              "fuzz": _fuzz_suite}
+              "cluster": _cluster_suite, "fuzz": _fuzz_suite}
     for name in PORTED_SUITES:
         if args.suite in (name, "all"):
             _suite_guard(name, suites[name])

@@ -19,6 +19,9 @@ The serving loop per decode tick (``tick()``; ``run()`` loops it):
    commit are copied to the host, staged and flushed; the manifest carries
    every clean block by reference (serve.sessions), under the store's
    schedule (``sync`` / ``async`` / ``sharded`` / ``sharded-async``).
+   ``paged=False`` keeps the legacy whole-lane layout: each running lane
+   is copied on the card (``read_slot``), staged whole (``store.stage``)
+   and flushed through the tiers' counted D2H copy at every commit.
    ``finish()`` commits the final table and drains the store, so the last
    async commit lands.
 
@@ -42,8 +45,6 @@ handoff because the adopted cache bytes equal the frozen lane bytes.
 ``run_static`` is the static-batch baseline the benchmark compares
 against: batched prefill (B = ``n_slots``), then decode until the LONGEST
 sequence of the batch finishes.
-
-Not ported yet: the legacy whole-lane commit layout.
 """
 from __future__ import annotations
 
@@ -91,12 +92,14 @@ class ServeEngine:
                  commit_every: int = 0,
                  restore_mode: str = "cache",
                  retire_done: bool = False,
+                 paged: bool = True,
                  block_tokens: int = BLOCK_TOKENS,
                  allocator: Optional[BlockAllocator] = None,
                  prefix_reuse: bool = False,
                  prefix_key: str = ""):
-        """``allocator``: a frame allocator shared with other engines (a
-        fleet's); by default the engine sizes its own."""
+        """``paged=False``: the legacy whole-lane commit layout (no pager,
+        no prefix reuse).  ``allocator``: a frame allocator shared with
+        other engines (a fleet's); by default the engine sizes its own."""
         if restore_mode not in ("cache", "replay"):
             raise ValueError(restore_mode)
         if bundle.cfg.is_encdec:
@@ -110,15 +113,17 @@ class ServeEngine:
         self.commit_every = commit_every if store is not None else 0
         self.restore_mode = restore_mode
         self.retire_done = retire_done
+        self.paged = paged and store is not None
         #: reuse is sound only within one model identity: ``prefix_key``
         #: must name the weights (build_serve_engine sets it)
-        self.prefix_reuse = prefix_reuse and store is not None
+        self.prefix_reuse = prefix_reuse and self.paged
         self.prefix_key = prefix_key
 
         self._prefill, self._decode = make_serve_steps(bundle)
         self._slot_decode = make_slot_decode_step(bundle)
         self.kv = TieredKVCache(bundle, n_slots, t_max,
-                                tiers=store.tiers if store else None)
+                                tiers=store.tiers if store else None,
+                                placement=getattr(store, "placement", None))
         #: single-sequence prefill cache, zeroed before every prefill (the
         #: reference prefills into fresh zeros: positions past the prompt
         #: must be zero in the lane, and so in every committed block)
@@ -131,7 +136,7 @@ class ServeEngine:
         #: whose target may not have committed its adoption — the fleet
         #: resume completes these (``serve.fleet.FleetController.resume``)
         self._handoffs: Dict[str, Optional[BlockTable]] = {}
-        if store is not None:
+        if self.paged:
             self.pager = BlockPager(bundle, t_max, block_tokens)
             frames = n_slots * (self.pager.n_blocks(t_max) + 1) + 8
             self.allocator = allocator or BlockAllocator(max(64, 4 * frames))
@@ -172,7 +177,8 @@ class ServeEngine:
         (cold pool)."""
         if self.store is None:
             return None
-        rec = self.store.recover(self.pager)
+        rec = self.store.recover(self.pager if self.paged else None,
+                                 self.kv.template1)
         if rec is None:
             return None
         for rid, s in rec.sessions.items():
@@ -186,7 +192,7 @@ class ServeEngine:
                 self.results[rid] = list(s.emitted)
             else:
                 self._resume_cache[rid] = rec.caches.get(rid)
-                if rid in rec.tables:
+                if self.paged and rid in rec.tables:
                     self.tables[rid] = rec.tables[rid]
                     for bid in rec.tables[rid].bids():
                         self.allocator.adopt(bid)
@@ -325,11 +331,14 @@ class ServeEngine:
         s.done = True
         self.results[rid] = list(s.emitted)
         if self.store is not None:
-            t = self.tables.pop(rid, None)
-            if t is not None:
-                for bid in t.bids():
-                    self.allocator.free(bid)
-            self.store.discard_session_blocks(rid)
+            if self.paged:
+                t = self.tables.pop(rid, None)
+                if t is not None:
+                    for bid in t.bids():
+                        self.allocator.free(bid)
+                self.store.discard_session_blocks(rid)
+            else:
+                self.store.discard(rid)
 
     def _stage_paged(self, rid: str, cache1: Any, proxy=None,
                      tag: Optional[int] = None):
@@ -353,10 +362,16 @@ class ServeEngine:
                 self.store.tiers.rstore(ref.name, proxy, tag=tag)
 
     def _commit(self):
-        for rid, slot in self.sched.running.items():
-            self._stage_paged(rid, self.kv.read_slot(slot))
-        self.store.commit_paged(self.sessions, self.tables, self._tick,
-                                block_tokens=self.pager.block_tokens)
+        if self.paged:
+            for rid, slot in self.sched.running.items():
+                self._stage_paged(rid, self.kv.read_slot(slot))
+            self.store.commit_paged(self.sessions, self.tables, self._tick,
+                                    block_tokens=self.pager.block_tokens)
+        else:
+            for rid, slot in self.sched.running.items():
+                self.store.stage(self.sessions[rid],
+                                 self.kv.read_slot(slot))
+            self.store.commit(self.sessions, self._tick)
         self._n_commits += 1
         if self.retire_done:
             # done sessions were durable in the table just committed;
@@ -475,7 +490,7 @@ def build_serve_engine(arch: str = "olmo-1b", *, smoke: bool = True,
                        n_shards: Optional[int] = None,
                        restore_mode: str = "cache",
                        retire_done: bool = False, seed: int = 0,
-                       engine_id: int = 0,
+                       engine_id: int = 0, paged: bool = True,
                        block_tokens: int = BLOCK_TOKENS,
                        allocator: Optional[BlockAllocator] = None,
                        prefix_reuse: bool = False,
@@ -496,7 +511,8 @@ def build_serve_engine(arch: str = "olmo-1b", *, smoke: bool = True,
     sessions: a ``SessionStore`` of engine ``engine_id`` over that pool,
     committed under ``commit_mode`` (``n_shards`` flush pipelines for the
     sharded schedules; None sizes them at the first commit) every
-    ``commit_every`` ticks.  ``topology`` (a ``dsm.emu`` preset) prices
+    ``commit_every`` ticks, in the paged layout or, with ``paged=False``,
+    the legacy whole-lane one.  ``topology`` (a ``dsm.emu`` preset) prices
     the shard count through its placement policy, and with
     ``commit_mode="auto"`` the schedule too; ``allocator`` shares one
     frame allocator across engines (the fleet's).
@@ -507,8 +523,9 @@ def build_serve_engine(arch: str = "olmo-1b", *, smoke: bool = True,
     ``fault_hook`` be folded into one here, as the reference does.
     ``fault_hook(point, step)`` fires inside each session commit's window
     (``dsm.flit_runtime.KILL_POINTS``); ``retention`` reaches the
-    committer, whose delegated paged completeOp runs no GC, so it changes
-    nothing on this layout (as in the reference).
+    committer: the legacy layout's commits keep that many manifests, the
+    paged layout's delegated completeOp runs no GC (as in the
+    reference).
 
     ``prefix_key`` names the weights for prefix reuse.  Its default is
     the reference's key with ``|torch`` appended: the port's generated
@@ -541,7 +558,7 @@ def build_serve_engine(arch: str = "olmo-1b", *, smoke: bool = True,
     engine = ServeEngine(
         bundle, params, n_slots=n_slots, t_max=t_max, store=store,
         commit_every=commit_every, restore_mode=restore_mode,
-        retire_done=retire_done, block_tokens=block_tokens,
+        retire_done=retire_done, paged=paged, block_tokens=block_tokens,
         allocator=allocator, prefix_reuse=prefix_reuse,
         prefix_key=prefix_key)
     return engine, cfg

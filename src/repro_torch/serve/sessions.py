@@ -1,9 +1,18 @@
 """Durable session store: serving state committed through the FliT path —
-the port of ``repro.serve.sessions`` (paged layout).
+the port of ``repro.serve.sessions``.
 
 One session commit at decode tick ``s`` is the paper's Alg. 2 over the
-serving worker's live state with a DYNAMIC object set: one pool object per
-token BLOCK, ``kv/<rid>/b<k>`` (serve.paging).  A commit flushes only the
+serving worker's live state with a DYNAMIC object set.  Two layouts share
+the machinery:
+
+* **paged** (the engine's default) — one pool object per token BLOCK,
+  ``kv/<rid>/b<k>`` (serve.paging), below;
+* **legacy** (``ServeEngine(paged=False)``) — one whole-lane ``kv/<rid>``
+  object per running session, staged (``stage``) and re-flushed at every
+  commit (``commit``: the committer's own completeOp, with its retention
+  GC), read back by ``_read_legacy``.
+
+Paged: a commit flushes only the
 blocks a session's position touched since the last commit; the manifest's
 object dict is the union of those fresh flushes and the CARRIED entries of
 every clean block (merged in a delegated completeOp), so any one manifest
@@ -36,7 +45,9 @@ manifest (a tombstone); ``recover`` returns that table with the others so
 a fleet restart can finish an interrupted adoption, and ``peek_engine``
 reads a sibling engine's newest manifest.
 
-Not ported yet: the legacy whole-lane layout (``stage`` / ``commit``).
+``recover`` dispatches on each manifest's ``meta["paged"]`` as the
+reference does: paged manifests need the ``pager``, legacy ones the
+single-sequence ``cache_template``.
 """
 from __future__ import annotations
 
@@ -51,6 +62,10 @@ from repro_torch.serve.paging import (BlockPager, BlockRef, BlockTable,
                                       shared_head_name)
 
 KV_PREFIX = "kv/"
+
+
+def kv_name(rid: str) -> str:
+    return KV_PREFIX + rid
 
 
 def engine_ns(engine_id: int) -> str:
@@ -109,6 +124,7 @@ class SessionStore:
     def __init__(self, pool=None, *, mode: str = "sync",
                  n_shards: Optional[int] = None, engine_id: int = 0,
                  topology: Optional[str] = None, fault_hook=None,
+                 retention: Optional[int] = 2,
                  ctx: Optional[CXL0Context] = None):
         """Either an open ``CXL0Context`` (``ctx``, which wins: the
         ``CXL0Config`` path of ``build_serve_engine``) or ``pool``, a pool
@@ -116,17 +132,18 @@ class SessionStore:
         under ``mode`` (``n_shards`` pipelines for the sharded schedules;
         ``"auto"`` and the shard count priced by the placement policy of
         ``topology``) with ``fault_hook(point, step)`` firing inside each
-        session commit's window.  The paged commit's delegated completeOp
-        owns the manifests, so no retention GC runs and the store takes no
-        ``retention`` (the reference's knob does nothing on this layout).
-        ``engine_id`` namespaces this store's objects and manifests in a
-        shared pool."""
+        session commit's window.  ``retention`` manifests are kept by the
+        committer's GC after each legacy commit; the paged commit's
+        delegated completeOp owns the manifests and runs no GC, as in the
+        reference.  ``engine_id`` namespaces this store's objects and
+        manifests in a shared pool."""
         if ctx is None:
             if pool is None:
                 raise ValueError("SessionStore needs a pool or an open "
                                  "CXL0Context (ctx=)")
             ctx = open_cxl0(pool, schedule=mode, n_shards=n_shards,
-                            topology=topology, fault_hook=fault_hook)
+                            retention=retention, topology=topology,
+                            fault_hook=fault_hook)
         self.ctx = ctx
         self.pool: DSMPool = self.ctx.pool
         self.placement = self.ctx.placement
@@ -147,6 +164,31 @@ class SessionStore:
 
     def block_name(self, rid: str, blk: int) -> str:
         return block_object_name(rid, blk, self.ns)
+
+    # -- legacy commit side (whole-lane kv/<rid> objects) --------------------
+    def stage(self, session: Session, cache1: Any):
+        """LStore a running session's lane copy for the next commit and
+        record the version it becomes durable at."""
+        name = self.ns + kv_name(session.rid)
+        self.tiers.lstore(name, cache1)
+        session.cache_version = self.tiers.versions[name]
+
+    def discard(self, rid: str):
+        """Session finished (or evicted): its cache leaves the object tier
+        so the next commit stops flushing it."""
+        self.tiers.ldiscard(self.ns + kv_name(rid))
+
+    def commit(self, sessions: Dict[str, Session], step: int):
+        """Alg. 2 commit as ONE commit region: RFlush every staged lane,
+        then exactly one completeOp manifest carrying the session table."""
+        meta = {"kind": "serve", "engine": self.engine_id,
+                "sessions": {rid: s.to_meta()
+                             for rid, s in sessions.items()}}
+        if not self.engine_id:
+            meta.pop("engine")        # the single-engine meta has none
+        with self.ctx.commit(step, meta=meta) as txn:
+            pass                # lanes were staged via ``stage``
+        return txn.stats
 
     # -- paged commit side ---------------------------------------------------
     def stage_block(self, session: Session, ref: BlockRef, leaves):
@@ -287,18 +329,21 @@ class SessionStore:
             out.append(m)
         return out
 
-    def recover(self, pager: BlockPager) -> Optional[RecoveredState]:
-        """Newest fully-valid paged session commit of THIS engine, or None
-        on a cold pool.  Any torn or unreadable block fails the WHOLE
-        manifest and recovery falls back to an older one."""
+    def recover(self, pager: Optional[BlockPager] = None,
+                cache_template=None) -> Optional[RecoveredState]:
+        """Newest fully-valid session commit of THIS engine, or None on a
+        cold pool.  Paged manifests assemble each running session from its
+        block table's objects (``pager`` needed); legacy manifests read the
+        whole-lane ``kv/<rid>`` objects against ``cache_template``.  A
+        manifest whose layout has no reader here (no pager, or no
+        template) does not match.  Any torn or unreadable object fails the
+        WHOLE manifest and recovery falls back to an older one.  (The
+        reference takes ``(cache_template, *, pager=)``; the port keeps
+        the pager first, as its paged callers pass it.)"""
         for m in self._manifests_for_engine():
             meta = m.get("meta") or {}
-            if not meta.get("paged"):
-                raise NotImplementedError(
-                    f"manifest {m['seq']} uses the legacy whole-lane "
-                    f"layout, whose reader is not ported yet (reference: "
-                    f"repro.serve.sessions.SessionStore._read_legacy)")
-            got = self._read_paged(m, meta, pager)
+            got = (self._read_paged(m, meta, pager) if meta.get("paged")
+                   else self._read_legacy(m, meta, cache_template))
             if got is None:
                 continue                      # torn commit: older manifest
             sessions, caches, tables = got
@@ -306,7 +351,26 @@ class SessionStore:
                                   tables=tables)
         return None
 
-    def _read_paged(self, m: dict, meta: dict, pager: BlockPager):
+    def _read_legacy(self, m: dict, meta: dict, cache_template):
+        if cache_template is None:
+            return None       # a legacy pool read without a template
+        sessions = {rid: Session.from_meta(rid, d)
+                    for rid, d in meta["sessions"].items()}
+        caches: Dict[str, Any] = {}
+        try:
+            for name, entry in m["objects"].items():
+                caches[name] = self.pool.read_entry(name, entry,
+                                                    cache_template)
+        except (CorruptObjectError, KeyError, ValueError):
+            return None
+        caches = {rid: caches[self.ns + kv_name(rid)] for rid in sessions
+                  if self.ns + kv_name(rid) in caches}
+        return sessions, caches, {}
+
+    def _read_paged(self, m: dict, meta: dict,
+                    pager: Optional[BlockPager]):
+        if pager is None:
+            return None       # a paged pool read without a pager
         sessions = {rid: Session.from_meta(rid, d)
                     for rid, d in meta["sessions"].items()}
         tables = {rid: BlockTable.from_meta(d)

@@ -1,18 +1,54 @@
-"""Elastic scaling: the host planners of a worker-count change — the
-port of ``repro.train.elastic``'s ``shrink_plan``, ``grow_plan``,
-``plan_delta`` and ``partition_plan`` (pure functions of the membership,
-no device in them).
+"""Elastic scaling: re-lay training state when the worker set changes —
+the port of ``repro.train.elastic``.
 
 On a worker-count change (scale-up, or shrink after a permanent failure)
 the launcher recovers the newest durable state, re-lays it on the new
-worker set and re-plans the data shards (``data.pipeline.shard_plan``);
-these planners say which rank owns what before and after.  Re-laying the
-state itself (the reference's ``remesh`` / ``reshard`` over a device
-mesh) is not ported yet (ROADMAP A6b).
+worker set and re-plans the data shards (``data.pipeline.shard_plan``).
+The planners (``shrink_plan``, ``grow_plan``, ``plan_delta``,
+``partition_plan``) are pure functions of the membership.  ``reshard`` /
+``remesh`` re-lay the state: here the single-device part, a ``.to`` of
+every leaf onto the rank's device (``launch.mesh.rank_submesh``), which
+is what the reference's ``device_put`` does on a one-device mesh.  A
+slice of more than one device needs a sharded layout (``ParallelCtx``)
+and raises (ROADMAP A7).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.utils.tree import tree_map
+
+
+def _one_device(devices) -> torch.device:
+    devs = ([devices] if isinstance(devices, (str, torch.device))
+            else list(devices))
+    if len(devs) != 1:
+        raise NotImplementedError(
+            f"re-laying state over {len(devs)} devices needs a sharded "
+            f"layout, not ported yet (reference: repro.train.elastic."
+            f"remesh with a ParallelCtx over a Mesh, ROADMAP A7)")
+    return torch.device(devs[0])
+
+
+def reshard(tree: Any, new_device) -> Any:
+    """Move every tensor leaf onto ``new_device`` (one device, or a
+    one-device slice); numpy leaves become tensors there."""
+    dev = _one_device(new_device)
+    return tree_map(lambda a: (a.to(dev) if isinstance(a, torch.Tensor)
+                               else torch.as_tensor(a, device=dev)), tree)
+
+
+def remesh(tree: Any, descs: Any, new_mesh: Sequence, *,
+           ep: bool = True) -> Tuple[Any, torch.device]:
+    """Recovered state -> state placed on ``new_mesh`` (a rank's device
+    slice).  Returns ``(placed, device)``; the reference returns its
+    ``ParallelCtx`` there.  ``descs`` and ``ep`` are the reference's
+    arguments: with one device nothing is sharded, so neither changes the
+    placement."""
+    dev = _one_device(new_mesh)
+    return reshard(tree, dev), dev
 
 
 def shrink_plan(old_ranks: int, new_ranks: int) -> dict:

@@ -13,6 +13,7 @@ and reinterpreted with ``a.view(np.uint16)``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Tuple
 
 import numpy as np
@@ -54,7 +55,9 @@ def raw_numpy(x: Any) -> Tuple[np.ndarray, str]:
     """``(C-contiguous numpy array with the leaf's exact bytes, token)``
     for a CPU tensor or a numpy array (ml_dtypes bfloat16 included).  No
     copy when the input is already contiguous."""
-    if isinstance(x, torch.Tensor):
+    if isinstance(x, np.ndarray):     # (the cheap check first: a torch
+        a = x                         # isinstance goes through its
+    elif isinstance(x, torch.Tensor):   # metaclass)
         if x.device.type != "cpu":
             raise ValueError("raw_numpy needs a host tensor; copy it with "
                              ".cpu() first (and count the D2H)")
@@ -64,15 +67,23 @@ def raw_numpy(x: Any) -> Tuple[np.ndarray, str]:
         if view is not None:
             return t.view(view[0]).numpy().view(view[1]), tok
         return t.numpy(), tok
-    a = np.asarray(x)
+    else:
+        a = np.asarray(x)
     if not a.flags.c_contiguous:      # (ascontiguousarray would make a
         a = np.ascontiguousarray(a)   # 0-d array 1-d)
-    tok = str(a.dtype)
-    if a.dtype.name == "bfloat16":
-        return a.view(np.uint16), tok
-    if a.dtype.name.startswith("float8"):
-        return a.view(np.uint8), tok
-    return a, tok
+    tok, view = numpy_token(a.dtype)
+    return (a if view is None else a.view(view)), tok
+
+
+@functools.lru_cache(maxsize=None)
+def numpy_token(dt: np.dtype):
+    """``(token, raw view dtype or None)`` of a numpy dtype, once per dtype
+    (``str(dtype)`` and ``dtype.name`` are slow next to a small leaf)."""
+    if dt.name == "bfloat16":
+        return str(dt), np.uint16
+    if dt.name.startswith("float8"):
+        return str(dt), np.uint8
+    return str(dt), None
 
 
 def from_numpy(a: Any, device="cpu") -> torch.Tensor:

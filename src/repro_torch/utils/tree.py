@@ -113,24 +113,38 @@ class TreeDef:
             c._up_to(t, out)
 
 
+#: the structures of a leaf and of None (TreeDefs are never mutated, so
+#: every leaf of every tree shares one)
+_LEAF = TreeDef("leaf")
+_NONE = TreeDef("none")
+
+
 def _flatten(tree: Any, is_leaf: IsLeaf, out: List[Any]) -> TreeDef:
     if is_leaf is not None and is_leaf(tree):
         out.append(tree)
-        return TreeDef("leaf")
+        return _LEAF
     if tree is None:
-        return TreeDef("none")
+        return _NONE
+    if not isinstance(tree, (dict, list, tuple)):
+        out.append(tree)
+        return _LEAF
     if isinstance(tree, dict):
         keys = tuple(sorted(tree))
-        return TreeDef("dict", keys,
-                       tuple(_flatten(tree[k], is_leaf, out) for k in keys))
+        kids = []
+        for k in keys:
+            v = tree[k]
+            if is_leaf is None and v is not None \
+                    and not isinstance(v, (dict, list, tuple)):
+                out.append(v)               # a leaf, without the call
+                kids.append(_LEAF)
+            else:
+                kids.append(_flatten(v, is_leaf, out))
+        return TreeDef("dict", keys, tuple(kids))
     if _is_namedtuple(tree):
         return TreeDef("namedtuple", type(tree),
                        tuple(_flatten(c, is_leaf, out) for c in tree))
-    if isinstance(tree, (list, tuple)):
-        return TreeDef("list" if isinstance(tree, list) else "tuple", None,
-                       tuple(_flatten(c, is_leaf, out) for c in tree))
-    out.append(tree)
-    return TreeDef("leaf")
+    return TreeDef("list" if isinstance(tree, list) else "tuple", None,
+                   tuple(_flatten(c, is_leaf, out) for c in tree))
 
 
 def tree_flatten(tree: Any, is_leaf: IsLeaf = None

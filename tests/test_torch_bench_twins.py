@@ -14,20 +14,22 @@
   three (``serve_fleet_speedup_ge_1.6``, the migration's token loss and
   outputs) included;
 * ``python -m repro_torch.bench.checkpoint --device cpu`` meets
-  ``benchmarks/baselines/checkpoint.json`` on the two metrics it produces
-  (``ckpt_bytes_per_commit`` 3,768,348 and ``ckpt_recoveries`` 1, from
-  ``['peer-staging']``), through ``scripts/bench_gate.py`` on a baseline
-  cut to those two; the rest (the legacy writer's speedup, the mesh rows)
-  are ROADMAP A5 / A7 and reported missing;
+  ``benchmarks/baselines/checkpoint.json`` on the four metrics it
+  produces (``ckpt_bytes_per_commit`` 3,768,348, ``ckpt_recoveries`` 1,
+  from ``['peer-staging']``, ``ckpt_write_object_speedup_x`` >= 5 over
+  the legacy writer and ``ckpt_write_object_speedup_ok``), through
+  ``scripts/bench_gate.py`` on a baseline cut to those four; the mesh
+  rows are ROADMAP A7 and reported missing;
 * ``python -m repro_torch.bench.fuzz`` (host code: the crash fuzzer at 3
   episodes x train / serve / cluster x 3 topologies, seed 0) meets all six
   of ``fuzz.json``'s exact counts, 27 / 0 / 19 / 55 / 40 / 6, and with
   ``REPRO_FUZZ_BREAK_RECOVERY=1`` its violation count is above 0;
-* ``python -m repro_torch.bench.cluster`` meets ``cluster.json`` on the
-  two metrics it produces (``cluster_commits_total`` 200 with zero lost
-  commits, ``cluster_staged_bytes`` 8,388,608); the other three (the
-  legacy staging format's speedups, the rank processes) are ROADMAP A5b /
-  A6b and reported missing;
+* ``python -m repro_torch.bench.cluster --device cpu`` meets all five
+  metrics of ``cluster.json``: ``cluster_commits_total`` 200 with zero
+  lost commits, ``cluster_staged_bytes`` 8,388,608, the streamed spill
+  format's stage and view speedups over the legacy one (each >= 10) and
+  ``cluster_stream_speedup_ok``; its step-rate rows ran 2, 3 and 4 rank
+  processes;
 * ``python -m repro_torch.examples.{quickstart,durable_kv}`` print what
   the reference examples print, line for line.
 """
@@ -118,10 +120,13 @@ def test_checkpoint_twin_meets_the_baseline_on_the_metrics_it_produces(
     doc = json.loads((tmp_path / "BENCH_checkpoint.json").read_text())
     assert doc["bench"] == "checkpoint"
     values = {k: m["value"] for k, m in doc["metrics"].items()}
-    produced = ["ckpt_bytes_per_commit", "ckpt_recoveries"]
+    produced = ["ckpt_bytes_per_commit", "ckpt_recoveries",
+                "ckpt_write_object_speedup_x", "ckpt_write_object_speedup_ok"]
     assert (values["ckpt_bytes_per_commit"], values["ckpt_recoveries"]) \
         == (3768348, 1)
     assert doc["metrics"]["ckpt_recoveries"]["note"] == "source=peer-staging"
+    assert values["ckpt_write_object_speedup_x"] >= 5.0
+    assert values["ckpt_write_object_speedup_ok"] is True
     cut = {"bench": "checkpoint",
            "metrics": {k: baseline["metrics"][k] for k in produced}}
     cut_path = tmp_path / "checkpoint_cut.json"
@@ -133,7 +138,7 @@ def test_checkpoint_twin_meets_the_baseline_on_the_metrics_it_produces(
         k for k in baseline["metrics"] if k not in produced)
     assert all("missing" in f for f in failures)
     assert [r.split(",", 1)[0] for r in rows] == list(doc["metrics"])
-    assert sum(l.startswith("# ckpt_") for l in lines) == 2
+    assert sum(l.startswith("# ckpt_") for l in lines) == 1
 
 
 def test_fuzz_twin_goes_red_when_recovery_is_broken(tmp_path, capsys,
@@ -150,28 +155,29 @@ def test_fuzz_twin_goes_red_when_recovery_is_broken(tmp_path, capsys,
 
 def test_cluster_twin_meets_the_baseline_on_the_metrics_it_produces(
         tmp_path, capsys):
-    assert cluster_bench.main(["--out", str(tmp_path)]) == 0
+    assert cluster_bench.main(["--out", str(tmp_path), "--device",
+                               "cpu"]) == 0
     lines = capsys.readouterr().out.splitlines()
     rows = [l for l in lines if not l.startswith(("bench_json,", "#"))]
     baseline_path = ROOT / "benchmarks" / "baselines" / "cluster.json"
     baseline = json.loads(baseline_path.read_text())
+    assert len(baseline["metrics"]) == 5
     doc = json.loads((tmp_path / "BENCH_cluster.json").read_text())
     assert doc["bench"] == "cluster"
     values = {k: m["value"] for k, m in doc["metrics"].items()}
-    produced = ["cluster_commits_total", "cluster_staged_bytes"]
-    assert [values[k] for k in produced] == [200, 8388608]
-    cut = {"bench": "cluster",
-           "metrics": {k: baseline["metrics"][k] for k in produced}}
-    cut_path = tmp_path / "cluster_cut.json"
-    cut_path.write_text(json.dumps(cut))
-    assert gate_bench(str(cut_path), str(tmp_path)) == ("cluster", [])
-    # what is not produced yet is reported missing, and nothing else fails
-    _, failures = gate_bench(str(baseline_path), str(tmp_path))
-    assert sorted(f.split(":")[0] for f in failures) == sorted(
-        k for k in baseline["metrics"] if k not in produced)
-    assert all("missing" in f for f in failures)
+    # every metric of the baseline is produced now, and each holds
+    assert set(baseline["metrics"]) <= set(values)
+    assert [values[k] for k in ("cluster_commits_total",
+                                "cluster_staged_bytes")] == [200, 8388608]
+    assert values["cluster_stage_speedup_x"] >= 10.0
+    assert values["cluster_view_speedup_x"] >= 10.0
+    assert values["cluster_stream_speedup_ok"] is True
+    assert check_against(values, baseline) == []
+    assert gate_bench(str(baseline_path), str(tmp_path)) == ("cluster", [])
+    assert all(values[f"cluster_steps_per_s_world{w}"] > 0
+               for w in (2, 3, 4))
     assert [r.split(",", 1)[0] for r in rows] == list(doc["metrics"])
-    assert sum(l.startswith("# cluster_") for l in lines) == 2
+    assert not any(l.startswith("# cluster_") for l in lines)
 
 
 def test_check_against_catches_a_regression():

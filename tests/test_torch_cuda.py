@@ -86,7 +86,13 @@ machine with the card, where there is no JAX:
 * the CXL0 model's tensor twin (``core.semantics_torch``, plain PyTorch:
   no kernel of its own) gives on the card the bits it gives on the CPU
   for 4,096 schedules on two systems, and ``random_schedules`` with a
-  CUDA generator draws CUDA actions.
+  CUDA generator draws CUDA actions;
+* a CUDA KV lane (olmo-1b smoke) through the tiers: a peer ``spill`` by
+  ``spill_auto`` (one counted D2H copy of the lane) and a sharded
+  ``spill_durable``, each read back as host tensors and written into a
+  lane on the card bit-identically; ``remesh`` places recovered host
+  state on the rank's slice of the card (every rank shares ``cuda:0``
+  on one card).
 """
 import numpy as np
 import pytest
@@ -1073,3 +1079,59 @@ def test_cxl0_random_schedules_on_a_cuda_generator(cuda):
     assert int(acts[..., 1].max()) == 1 and int(acts[..., 2].max()) == 3
     C, M, obs = cxl0.run_schedules(sys_, acts)
     assert obs.device.type == "cuda" and int(cxl0.invariant_violations(C)) == 0
+
+
+def test_cuda_lane_spills_and_restores_bit_identically(cuda, tmp_path):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.dsm.placement import PlacementPolicy
+    from repro_torch.dsm.pool import DSMPool
+    from repro_torch.dsm.tiers import TierManager
+    from repro_torch.models.registry import build
+    from repro_torch.serve.kvcache import TieredKVCache
+    from repro_torch.utils.tree import tree_leaves
+    bundle = build(get_smoke_config("olmo-1b"), device=cuda)
+    params = bundle.init_params(torch.Generator(cuda).manual_seed(0))
+    _, st = bundle.prefill(
+        params, {"tokens": torch.arange(12, device=cuda)[None] % 64},
+        bundle.init_caches(1, 32))
+    tiers = TierManager(DSMPool(str(tmp_path / "a")), 0)
+    peer = TierManager(DSMPool(str(tmp_path / "peer")), 1)
+    kv = TieredKVCache(bundle, 2, 32, tiers=tiers,
+                       placement=PlacementPolicy("cxl11-direct"))
+    kv.write_slot(1, st.caches)
+    lane = kv.read_slot(1)
+    want = [l.cpu() for l in tree_leaves(lane)]
+    nbytes = sum(l.nbytes for l in want)
+    assert all(l.device.type == "cuda" for l in tree_leaves(lane))
+    # peer staging: one counted D2H copy of the lane
+    assert kv.spill_auto("kv/s", lane, peer=peer)["tier"] == "staging"
+    assert tiers.d2h_gather_bytes == nbytes
+    # the pool: a sharded flush, restored into a lane on the card
+    entry = kv.spill_durable("kv/p", lane, n_blocks=2)
+    for tree in (peer.rload("kv/s"),
+                 tiers.pool.read_entry("kv/p", entry, kv.template1)):
+        assert all(l.device.type == "cpu" for l in tree_leaves(tree))
+        kv.write_slot(0, tree)
+        got = kv.read_slot(0)
+        assert all(l.device.type == "cuda" for l in tree_leaves(got))
+        assert all(torch.equal(a.cpu(), b)
+                   for a, b in zip(tree_leaves(got), want))
+    tiers.close()
+    peer.close()
+
+
+def test_remesh_places_recovered_state_on_the_card(cuda):
+    from repro_torch.launch.mesh import mesh_device_sets, rank_submesh
+    from repro_torch.train.elastic import remesh
+    live = [0, 1, 2]
+    n = torch.cuda.device_count()
+    assert mesh_device_sets(live) == {r: max(1, n // 3) for r in live}
+    if n == 1:                         # every rank shares the one card
+        assert all(rank_submesh(r, live) == [torch.device("cuda", 0)]
+                   for r in live)
+    host = {"t00": {"p": torch.arange(6.0), "mu": np.zeros(3, np.float32)}}
+    placed, dev = remesh(host, None, rank_submesh(0, live)[:1])
+    assert dev.type == "cuda"
+    assert placed["t00"]["p"].device == dev
+    assert torch.equal(placed["t00"]["p"].cpu(), host["t00"]["p"])
+    assert placed["t00"]["mu"].device == dev

@@ -18,8 +18,9 @@ against the JAX package's ``repro.scenarios.fuzz``.
   other to the same violations, and a torn pool left by one package's
   episode is recovered by the other's ``RecoveryManager`` at the step
   the episode's oracle named, bit-identical to the clean replay;
-* ``--suite cluster`` / ``--suite scale`` refuse with the reference
-  module and ROADMAP item named.
+* ``--suite scale``, and ``--mesh`` (here on ``--suite cluster``), refuse
+  with the reference module and ROADMAP item named (the cluster suite
+  itself runs: ``tests/test_torch_cluster_worker.py``).
 """
 import json
 import os
@@ -274,12 +275,12 @@ def test_runner_propagates_fuzz_violation_as_nonzero_exit(tmp_path):
     assert repros, "violated run left no reproducer JSON"
 
 
-@pytest.mark.parametrize("suite,names", [
-    ("cluster", ("repro.scenarios.cluster", "A5b")),
-    ("scale", ("repro.scenarios.scale", "A6b"))])
-def test_runner_refuses_the_suites_not_ported(suite, names):
+@pytest.mark.parametrize("argv,names", [
+    (["--suite", "scale"], ("repro.scenarios.scale", "A6b")),
+    (["--suite", "cluster", "--mesh", "2x4"], ("repro.launch.mesh", "A7"))])
+def test_runner_refuses_the_suites_not_ported(argv, names):
     from repro_torch.scenarios.runner import main
     with pytest.raises(NotImplementedError) as ei:
-        main(["--suite", suite, "--device", "cpu"])
+        main(argv + ["--device", "cpu"])
     for n in names:
         assert n in str(ei.value)

@@ -71,6 +71,9 @@ SLICE_MODULES = [
     "repro_torch.scenarios.fuzz", "repro_torch.scenarios.runner",
     "repro_torch.scenarios.worker", "repro_torch.scenarios.serve_worker",
     "repro_torch.bench.fuzz", "repro_torch.bench.cluster",
+    "repro_torch.launch.mesh", "repro_torch.launch.cluster",
+    "repro_torch.scenarios.cluster", "repro_torch.scenarios.cluster_worker",
+    "repro_torch.serve.kvcache", "repro_torch.serve.sessions",
 ]
 
 _FORBIDDEN = re.compile(

@@ -15,8 +15,9 @@ committer and config, and ``tests/test_placement.py``'s cases on the port.
   reference's schedule and shard decisions and emits its tokens.
 
 Not here: ``test_durable_loop_with_placement_auto`` (the training loop,
-ROADMAP A2) and ``test_spill_auto_routes_by_policy_and_restores``
-(``TieredKVCache.spill_auto``, A5) wait for their slices.
+ROADMAP A2) waits for its slice.  The twin of
+``test_spill_auto_routes_by_policy_and_restores`` is in
+``tests/test_torch_legacy_serve.py``.
 """
 import dataclasses
 

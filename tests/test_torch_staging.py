@@ -5,8 +5,10 @@ package's.
 * a ``FileStagingArea`` entry — frame and meta — equals the reference's
   byte for byte for the same leaves (fp32, int32, bool, bf16, 0-d and
   empty), and each package's ``view`` reads the other's buffer;
-* a torn frame, a meta whose CRC belongs to another payload, a missing
-  meta and the reference's legacy ``.npz`` entry all read back as absent;
+* a torn frame, a meta whose CRC belongs to another payload and a
+  missing meta all read back as absent; the reference's legacy ``.npz``
+  entry reads back (the legacy format is ported:
+  ``tests/test_torch_legacy_pool.py``);
 * ``rstore`` into an in-process peer takes a host snapshot; into a
   spill-file proxy it hands the buffer its counted ``to_host``, one call
   a leaf; ``rload`` reads a staged copy back; ``crash()`` empties
@@ -122,13 +124,15 @@ def test_torn_or_mismatched_entries_read_back_as_absent(tmp_path):
     with open(meta, "w") as f:
         f.write(old)
     assert area.view(0, tpl).staging == {}
-    # a missing meta, and the reference's legacy .npz entry, are absent
+    # a missing meta is absent; the reference's legacy .npz entry reads
+    # back in both packages
     os.unlink(meta)
     ref = RefArea(str(tmp_path / "legacy"), legacy_format=True)
     ref.proxy(0).staging["a"] = (1, [np.arange(4, dtype=np.int32)])
     assert RefArea(str(tmp_path / "legacy")).view(0, {"a": [0]}).staging
-    assert FileStagingArea(str(tmp_path / "legacy")).view(
-        0, {"a": [0]}).staging == {}
+    tag, (got,) = FileStagingArea(str(tmp_path / "legacy")).view(
+        0, {"a": [0]}).staging["a"]
+    assert tag == 1 and torch.equal(got, torch.arange(4, dtype=torch.int32))
     # the owner's crash wipes its buffer
     area.wipe(0)
     assert not os.path.exists(area.area(0))
