@@ -17,7 +17,10 @@ layers), then durable training, prefill and decode of the encoder-decoder
 whisper-small at full width and depth, then real process kills of the
 serving and training workers inside the commit window, then the rank
 cluster (three rank processes on the card, one killed), whole-lane KV
-tiers and legacy serving of olmo-1b, and prints one line per phase:
+tiers and legacy serving of olmo-1b, then elastic scaling (a joiner rank
+grows the live cluster and is killed at each join phase, an olmo-1b
+fleet grows and drains, the autoscaler's cell), and prints one line per
+phase:
 
 1. environment — the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions;
@@ -302,10 +305,13 @@ tiers and legacy serving of olmo-1b, and prints one line per phase:
         ms a prefill and a decode step printed; then the phase's time.
 
 14. crash scenarios (``repro_torch.scenarios``): the port's runner spawns
-    the killable workers as child processes on the card, one after
-    another (they load the libraries phase 2 built), after the parent has
-    freed every earlier model; a child that exits with anything but 0 or
-    17 fails the phase:
+    the killable workers as child processes on the card (they load the
+    libraries phase 2 built), after the parent has freed every earlier
+    model; for the time limit the independent chains run at once (the
+    serving reference, each serving kill and its restart, the training
+    reference and then its kill and restart), the children of a chain one
+    after another; a child that exits with anything but 0 or 17 fails the
+    phase:
     (a) serving olmo-1b at full width and depth (random weights, seed 0):
         10 requests of 128 prompt tokens, budgets 4,8,16,24, 4 slots, a
         ``sync`` session commit every 3 ticks; an uninterrupted run, then
@@ -359,10 +365,38 @@ tiers and legacy serving of olmo-1b, and prints one line per phase:
         paged run of the same requests; a crash after 10 ticks resumes at
         tick 8 from the whole lanes with every token equal.  Commits, D2H
         bytes and host s in commit printed against the paged run's.
+16. elastic scaling (``repro_torch.scenarios.scale``):
+    (a) the grow cells at phase 15 (a)'s size (``reduced`` as there):
+        three rank processes and a joiner (rank 3, ``--joiner --join-at
+        4``) with ``--device cuda``, 8 steps, a commit every 2; no kill,
+        and the joiner killed (``os._exit(17)``) at each of
+        ``join_staged``, ``join_committed`` and ``join_adopted``; the four
+        cells run at once (sixteen processes).  The joiner must exit 17
+        at each kill point, the survivors end on live ``(0, 1, 2)``
+        after a kill and on ``(0, 1, 2, 3)`` at gen 1 without one, and
+        every cell's merged digests must equal phase 15's planned shrink
+        on the card AND on the CPU (a straight run's digests equal the
+        planned shrink's: ``tests/test_torch_scale_cells.py``); the
+        no-kill joiner's bytes adopted from peer staging must equal its
+        partition's bytes at world 4, and each rank's exit
+        code, wall s, ``start_s`` and ``recover_s`` beside the card's
+        name and power limit;
+    (b) olmo-1b at full width and depth, one set of weights for both
+        fleets, the first 8 requests of phase 10's trace (prompt 512,
+        budgets 4,8,16,24, two distinct prompts), 2 slots an engine: a
+        2-engine fleet takes half, ticks 3 times, grows by engine 3, takes
+        the rest, ticks twice and drains the busiest engine with RUNNING
+        sessions; it must have grown, drained, migrated at least once and
+        end with all 8 outputs equal to a fixed 2-engine fleet's, token
+        for token; 16 flash launches a prefill at the prefills the CPU
+        rehearsal gives (``SCALE_FLEET_PREFILLS``: 2 a fleet);
+    (c) the autoscale cell (host code, the emulator's modelled ns): the
+        controller must beat every fixed fleet size with no session lost;
+        its cost against the best fixed fleet's is printed.
 
-Each path and each run of phases 9, 10, 11, 12, 13 and 15 (c) is driven
-with every launch count set to 0 just before it and read just after; the
-children of phase 14 start with theirs at 0.  Then a
+Each path and each run of phases 9, 10, 11, 12, 13, 15 (c) and 16 (b) is
+driven with every launch count set to 0 just before it and read just
+after; the children of phase 14 start with theirs at 0.  Then a
 ``{"kernels": [...]}`` line, the card line again, and as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises and the script exits non-zero; without a CUDA device, or without
 the repo's ``src/repro_torch`` beside it, it exits non-zero and prints no
@@ -2744,7 +2778,12 @@ def _crash_child(name: str, child: dict, card: str) -> dict:
 def phase_crash(torch, card: str) -> dict:
     """Phase 14: the crash scenarios on the card (see the module
     docstring): every child runs ``--device cuda``; a child that exits
-    with anything but 0 (restarts, references) or 17 (kills) fails."""
+    with anything but 0 (restarts, references) or 17 (kills) fails.  For
+    the time limit the independent chains run at once: the serving
+    reference, each serving kill + restart, and the training reference
+    followed by its kill + restart; each chain's children run one after
+    another, and the checks come after all have ended."""
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.configs import get_config
     from repro_torch.dsm.flit_runtime import KILL_POINTS
     from repro_torch.scenarios.runner import (reference_run, run_scenario,
@@ -2764,9 +2803,36 @@ def phase_crash(torch, card: str) -> dict:
     LT = CRASH_TRAIN_KW["layers"]
     out = {"children": {}, "launches": {}}
     work = tempfile.mkdtemp(prefix="chip_smoke_crash_")
+    serve_dir, train_dir = (os.path.join(work, d) for d in ("serve", "train"))
+    point, kill_step = CRASH_TRAIN_KILL
+
+    def serve_cell(p):
+        # the reference runs beside it: the tokens are compared below
+        r = run_serve_scenario(p, serve_dir, kill_step=CRASH_SERVE_KILL_STEP,
+                               ref_outputs={}, device="cuda",
+                               **CRASH_SERVE_KW)
+        shutil.rmtree(os.path.join(serve_dir, f"serve_{p}_cache"),
+                      ignore_errors=True)
+        return r
+
+    def train_chain():
+        tref = reference_run(train_dir, device="cuda", **CRASH_TRAIN_KW)
+        shutil.rmtree(os.path.join(train_dir, "pool_reference"),
+                      ignore_errors=True)
+        return tref, run_scenario(point, train_dir, kill_step=kill_step,
+                                  ref_digest=tref["result"]["digest"],
+                                  device="cuda", **CRASH_TRAIN_KW)
+
     try:
+        with ThreadPoolExecutor(2 + len(KILL_POINTS)) as ex:
+            f_train = ex.submit(train_chain)
+            f_ref = ex.submit(serve_reference_run, serve_dir, device="cuda",
+                              **CRASH_SERVE_KW)
+            f_cells = {p: ex.submit(serve_cell, p) for p in KILL_POINTS}
+            ref = f_ref.result()
+            cells = {p: f.result() for p, f in f_cells.items()}
+            tref, r = f_train.result()
         # (a) serving: an uninterrupted run, then one kill per point
-        ref = serve_reference_run(work, device="cuda", **CRASH_SERVE_KW)
         res = ref["result"]
         n = _crash_child("serve reference", ref, card)
         out["children"]["serve reference"] = ref
@@ -2778,18 +2844,18 @@ def phase_crash(torch, card: str) -> dict:
               f"crash: serve reference: {res['prefills']} prefills, "
               f"launches {n}, resumed {res['resumed_from']}, workspace "
               f"{res['cublas_workspace']}")
-        for p in KILL_POINTS:
-            r = run_serve_scenario(p, work, kill_step=CRASH_SERVE_KILL_STEP,
-                                   ref_outputs=res["outputs"],
-                                   device="cuda", **CRASH_SERVE_KW)
-            for c in r.children:
+        for p, sr in cells.items():
+            for c in sr.children:
                 out["children"][f"serve {p} {c['role']}"] = c
-            check(r.killed and len(r.children) == 2
-                  and r.children[0]["rc"] == KILL_EXIT
-                  and r.children[1]["rc"] == 0,
+            check(sr.killed and len(sr.children) == 2
+                  and sr.children[0]["rc"] == KILL_EXIT
+                  and sr.children[1]["rc"] == 0,
                   f"crash: serve {p}: exit codes "
-                  f"{[c['rc'] for c in r.children]} (17 then 0): {r.detail}")
-            kill, restart = r.children
+                  f"{[c['rc'] for c in sr.children]} (17 then 0): "
+                  f"{sr.detail}")
+            kill, restart = sr.children
+            sr = dataclasses.replace(sr, outputs_match=(
+                restart["result"]["outputs"] == res["outputs"]))
             kn = _crash_child(f"serve {p} kill", kill, card)
             rn = _crash_child(f"serve {p} restart", restart, card)
             out["launches"][f"crash serve {p} kill"] = kn
@@ -2802,31 +2868,22 @@ def phase_crash(torch, card: str) -> dict:
                   f"crash: serve {p}: prefills {got} (rehearsal "
                   f"{(want_k, want_r)}), launches {kn} / {rn}, expected "
                   f"{L} a prefill")
-            check(r.ok and r.resumed_from == CRASH_RESUME[p]
+            check(sr.ok and sr.resumed_from == CRASH_RESUME[p]
                   and restart["result"]["cublas_workspace"]
                   == CUBLAS_WORKSPACE,
-                  f"crash: serve {p}: completed {r.completed_ticks_at_kill},"
-                  f" resumed {r.resumed_from} (expected "
+                  f"crash: serve {p}: completed {sr.completed_ticks_at_kill},"
+                  f" resumed {sr.resumed_from} (expected "
                   f"{CRASH_RESUME[p]}), outputs bit-identical "
-                  f"{r.outputs_match}")
+                  f"{sr.outputs_match}")
             print(f"crash: serve {p}: killed at tick "
                   f"{kill['result']['tick']}, commits durable "
-                  f"{r.completed_ticks_at_kill}, resumed at tick "
-                  f"{r.resumed_from} with {r.resumed_sessions} sessions "
-                  f"running and {r.recovered_done} done; every session's "
+                  f"{sr.completed_ticks_at_kill}, resumed at tick "
+                  f"{sr.resumed_from} with {sr.resumed_sessions} sessions "
+                  f"running and {sr.recovered_done} done; every session's "
                   f"tokens bit-identical to the uninterrupted run",
                   flush=True)
-        shutil.rmtree(work, ignore_errors=True)
 
         # (b) training: an uninterrupted run, then a mid_flush kill
-        os.makedirs(work, exist_ok=True)
-        tref = reference_run(work, device="cuda", **CRASH_TRAIN_KW)
-        shutil.rmtree(os.path.join(work, "pool_reference"),
-                      ignore_errors=True)
-        point, kill_step = CRASH_TRAIN_KILL
-        r = run_scenario(point, work, kill_step=kill_step,
-                         ref_digest=tref["result"]["digest"], device="cuda",
-                         **CRASH_TRAIN_KW)
         out["children"]["train reference"] = tref
         for c in r.children:
             out["children"][f"train {point} {c['role']}"] = c
@@ -2891,15 +2948,16 @@ LEGACY_REQUESTS = 8
 LEGACY_CRASH_TICKS = 10
 
 
-def _cluster_child(name: str, child: dict, card: str) -> dict:
-    """Print one rank of phase 15 (a) and return its numbers."""
+def _cluster_child(name: str, child: dict, card: str,
+                   tag: str = "cluster") -> dict:
+    """Print one rank of phase 15 (a) or 16 (a) and return its numbers."""
     r = child["result"] or {}
     row = dict(rc=child["rc"], wall_s=child["wall_s"],
                start_s=r.get("start_s"), recover_s=r.get("recover_s"),
                recovered_bytes=r.get("recovered_bytes"),
                commits=r.get("commits"), steps_run=r.get("steps_run"))
     fmt = lambda v: "-" if v is None else format(v, ".2f")
-    print(f"cluster: {name}: rc {row['rc']}, wall {row['wall_s']:.2f} s, "
+    print(f"{tag}: {name}: rc {row['rc']}, wall {row['wall_s']:.2f} s, "
           f"start_s {fmt(row['start_s'])}, recover_s "
           f"{fmt(row['recover_s'])}, bytes read back "
           f"{row['recovered_bytes'] if row['recovered_bytes'] is not None else '-'}"
@@ -2968,6 +3026,7 @@ def phase_cluster_ranks(torch, card: str) -> dict:
         check(planned["cuda"] == planned["cpu"],
               "cluster: the planned shrink's digests on the card differ "
               "from the CPU's")
+        out["planned_digests"] = planned
         for (point, replicate), (source, resume) in CLUSTER_CELLS.items():
             name = f"{point} {'replicated' if replicate else 'unreplicated'}"
             r, wall = results[(point, replicate)]
@@ -3238,6 +3297,176 @@ def phase_cluster(torch, cfg, trace, t_max, counters, card: str) -> dict:
     return out
 
 
+#: phase 16 (a): the grow cells at phase 15's cluster size; the joiner
+#: (rank 3) joins at step 4 and adopts the state of step 3.  Their
+#: reference is phase 15's planned shrink (the straight 3-rank run's
+#: digests equal it: ``tests/test_torch_scale_cells.py``)
+GROW_KW = {k: v for k, v in CLUSTER_KW.items() if k != "victim"}
+GROW_JOIN_AT = 4
+#: phase 16 (b): the first 8 requests of phase 10's trace, 2 slots an engine
+SCALE_FLEET_REQUESTS = 8
+#: the CPU rehearsal of phase 16 (b) (olmo-1b's smoke config, the same
+#: trace): prefills of the grown-and-drained fleet and of the fixed fleet
+#: (prefix reuse serves the other 6 requests of each)
+SCALE_FLEET_PREFILLS = {"grown": 2, "fixed": 2}
+
+
+def phase_scale(torch, cfg, planned: dict, counters, card: str) -> dict:
+    """Phase 16: (a) the grow cells, (b) the fleet grow-and-drain cell,
+    (c) the autoscale cell (see the module docstring).  ``planned`` maps
+    "cuda" / "cpu" to phase 15's planned-shrink digests."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.dsm.faults import JOIN_POINTS
+    from repro_torch.models.registry import build
+    from repro_torch.scenarios.scale import (run_autoscale_cell,
+                                             run_fleet_scale_cell,
+                                             run_grow_scenario)
+    from repro_torch.scenarios.worker import KILL_EXIT
+    from repro_torch.serve.trace import synthetic_trace, trace_t_max
+    t_phase = time.perf_counter()
+    out = {"cells": {}, "launches": {}, "reduced": CLUSTER_REDUCED}
+    work = tempfile.mkdtemp(prefix="chip_smoke_scale_")
+    dim, n_tensors = GROW_KW["dim"], GROW_KW["tensors"]
+    try:
+        # -- (a) the grow cells, all four at once (sixteen processes) ------
+        def cell(point):
+            t0 = time.perf_counter()
+            r = run_grow_scenario(point, work, join_at=GROW_JOIN_AT,
+                                  ref_digests=planned["cuda"],
+                                  device="cuda", timeout=600, **GROW_KW)
+            shutil.rmtree(os.path.join(work, f"scale_grow_{point}"),
+                          ignore_errors=True)
+            return r, time.perf_counter() - t0
+
+        points = ("none",) + JOIN_POINTS
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(points)) as ex:
+            results = dict(zip(points, ex.map(cell, points)))
+        out["grow_s"] = time.perf_counter() - t0
+        for point, (r, wall) in results.items():
+            name = ("no kill" if point == "none"
+                    else f"joiner killed at {point}")
+            ranks = [_cluster_child(f"{name} {c['role']}", c, card,
+                                    tag="scale") for c in r.children]
+            rcs = [c["rc"] for c in r.children]
+            if point == "none":
+                check(rcs == [0, 0, 0, 0] and not r.killed,
+                      f"scale: {name}: exit codes {rcs}: {r.detail}")
+                check(r.gens == [1] * 4,
+                      f"scale: {name}: gens {r.gens}, expected 1 (0 + 1) "
+                      f"on every rank")
+            else:
+                joiner = r.children[0]["result"] if r.children else None
+                check(r.killed and rcs == [KILL_EXIT, 0, 0, 0]
+                      and joiner is not None
+                      and joiner.get("point") == point,
+                      f"scale: {name}: exit codes {rcs} (17, 0, 0, 0), "
+                      f"joiner's line {joiner}: {r.detail}")
+            check(set(r.lives) == {r.expected_live},
+                  f"scale: {name}: live sets {sorted(set(r.lives))}, "
+                  f"expected {r.expected_live}")
+            check(len(r.digests) == n_tensors
+                  and r.digests == planned["cuda"] == planned["cpu"]
+                  and r.ok,
+                  f"scale: {name}: merged digests ({len(r.digests)}) differ "
+                  f"from the planned shrink's on the card and on the CPU")
+            row = dict(wall_s=wall, lives=sorted(set(r.lives)),
+                       gens=r.gens, sources=r.sources, ranks=ranks)
+            if point == "none":
+                res = r.children[-1]["result"]
+                part = len(res["digests"]) * 3 * dim * dim * 4
+                check(res["recovered_bytes"] == part
+                      and res["source"] == "peer-staging",
+                      f"scale: {name}: the joiner adopted "
+                      f"{res['recovered_bytes']} bytes from {res['source']}, "
+                      f"expected its partition's {part}")
+                row.update(joiner_adopted_bytes=res["recovered_bytes"],
+                           joiner_partition_bytes=part)
+                print(f"scale: {name}: the joiner adopted "
+                      f"{res['recovered_bytes']} bytes from "
+                      f"{res['source']} at step {res['resumed_from']}, its "
+                      f"partition at world 4 {len(res['digests'])} tensors "
+                      f"= {part} bytes; recover_s {res['recover_s']:.2f} "
+                      f"[{card}]", flush=True)
+            out["cells"][name] = row
+            print(f"scale: {name}: live {sorted(set(r.lives))}, gens "
+                  f"{sorted(set(r.gens))}, sources "
+                  f"{sorted(set(map(str, r.sources)))}, merged digests "
+                  f"equal the planned shrink's on the card and on the CPU; "
+                  f"{wall:.2f} s [{card}]", flush=True)
+
+        # -- (b) the fleet grows and drains, against a fixed fleet ----------
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        trace_kw = dict(prompt_lens=(512,), new_tokens=FLEET_NEW_TOKENS,
+                        n_prompts=2, vocab_size=cfg.vocab_size)
+        t_max = trace_t_max(synthetic_trace(SCALE_FLEET_REQUESTS, seed=0,
+                                            **trace_kw))
+        bundle = build(cfg, device="cuda")
+        params = bundle.init_params(torch.Generator("cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        reset_counts(counters)
+        t1 = time.perf_counter()
+        fr = run_fleet_scale_cell(
+            work, requests=SCALE_FLEET_REQUESTS, n_slots=2, t_max=t_max,
+            smoke=False, bundle=bundle, params=params, device="cuda",
+            **trace_kw)
+        torch.cuda.synchronize()
+        cell_s = time.perf_counter() - t1
+        n = read_counts(counters)
+        del bundle, params
+        out["launches"]["olmo-1b fleet grow and drain (phase 16)"] = n
+        n_attn = sum(cfg.layer_kind(l) == "attn"
+                     for l in range(cfg.n_layers))
+        prefills = SCALE_FLEET_PREFILLS
+        check(fr.grew and fr.drained and fr.migrations >= 1
+              and fr.outputs_match and fr.n_outputs == SCALE_FLEET_REQUESTS,
+              f"scale: fleet: {fr}")
+        check(n["flash_attention"] == n_attn * sum(prefills.values())
+              and sum(v for k, v in n.items()
+                      if k != "flash_attention") == 0,
+              f"scale: fleet: launches {n}: expected {n_attn} flash a "
+              f"prefill of the rehearsal's {prefills} and nothing else")
+        out["fleet"] = dict(wall_s=cell_s, grew=fr.grew, drained=fr.drained,
+                            migrations=fr.migrations,
+                            n_outputs=fr.n_outputs, prefills=prefills,
+                            launches=n)
+        out["fleet_s"] = time.perf_counter() - t0
+        print(f"scale: olmo-1b fleet, {SCALE_FLEET_REQUESTS} requests prompt "
+              f"512, 2 slots an engine: grew to engine 3, drained an engine "
+              f"with running sessions, {fr.migrations} migrations; all "
+              f"{fr.n_outputs} outputs equal the fixed 2-engine fleet's "
+              f"token for token; prefills {prefills['grown']} (grown) + "
+              f"{prefills['fixed']} (fixed), flash launches "
+              f"{n['flash_attention']}; {cell_s:.2f} s the two fleets, "
+              f"{out['fleet_s']:.2f} s with the weights [{card}]",
+              flush=True)
+
+        # -- (c) the autoscale cell (host code, modelled costs) -------------
+        t0 = time.perf_counter()
+        ar = run_autoscale_cell(work)
+        out["autoscale_s"] = time.perf_counter() - t0
+        check(ar.ok, f"scale: autoscale: {ar}")
+        out["autoscale"] = {k: v for k, v in dataclasses.asdict(ar).items()
+                            if k != "decision_log"}
+        print(f"scale: autoscale (host, modelled CXL ns): auto "
+              f"{ar.auto_cost_ns:.6g} against the best fixed fleet "
+              f"(n={ar.best_fixed_n}) {ar.best_fixed_cost_ns:.6g}, ratio "
+              f"{ar.auto_cost_ns / ar.best_fixed_cost_ns:.4f}; p99 "
+              f"{ar.auto_p99} vs {ar.best_fixed_p99} ticks, lost "
+              f"{ar.lost_sessions}, {ar.decisions} decisions, {ar.grows} "
+              f"grows, {ar.shrinks} shrinks; {out['autoscale_s']:.2f} s "
+              f"[{card}]", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"scale: phase 16 took {out['phase_s']:.1f} s ((a) "
+          f"{out['grow_s']:.1f}, (b) {out['fleet_s']:.1f}, (c) "
+          f"{out['autoscale_s']:.1f}) [{card}]", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", default=None,
@@ -3404,6 +3633,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     report["cluster"] = phase_cluster(torch, get_config("olmo-1b"), trace,
                                       t_max, counters, card)
+    # -- 16. elastic scaling: grow cells, the fleet, the autoscaler -------
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["scale"] = phase_scale(
+        torch, get_config("olmo-1b"),
+        report["cluster"]["ranks"]["planned_digests"], counters, card)
     by_run = {a: p["launches"] for a, p in paths.items()}
     by_run.update({f"olmo-1b {r}": n
                    for r, n in report["features"]["launches"].items()})
@@ -3417,6 +3652,7 @@ def main(argv=None) -> int:
     # the flash pair
     by_run.update(report["crash"]["launches"])
     by_run.update(report["cluster"]["launches"])
+    by_run.update(report["scale"]["launches"])
 
     mains = {"flash_attention": report["kernel_cases"]["path_s512"],
              "grouped_matmul": report["gmm_cases"]["decode_up"],

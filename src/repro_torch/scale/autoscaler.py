@@ -1,7 +1,6 @@
 """Cost-priced autoscaling: capacity follows demand, per topology (the
 port's copy of ``repro.scale.autoscaler``: host code, the same decisions
-and simulations for the same trace; the scale scenario suite that drives a
-live fleet with it is ROADMAP A6b).
+and simulations for the same trace).
 
 The controller watches the fleet signals a ``FleetController`` exposes —
 queue depth, per-engine occupancy — and every ``window_ticks`` prices
@@ -21,10 +20,11 @@ thresholds.
 
 ``simulate_autoscale`` / ``simulate_fixed`` run a deterministic queueing
 simulation of a fleet under an arrival-timed trace (``scale.traffic``):
-a pure function of (trace, config), used by the bench to show the
-autoscaled fleet beats every fixed size on priced cost, and by the scale
-scenario suite to drive a real ``FleetController`` through the same
-decisions.
+a pure function of (trace, config), used by the bench and by the scale
+scenario suite's autoscale cell (``scenarios.scale.run_autoscale_cell``)
+to show the autoscaled fleet beats every fixed size on priced cost.  Both
+only simulate: no ``FleetController`` is driven by these decisions (the
+reference's cell does not drive one either).
 """
 from __future__ import annotations
 

@@ -14,9 +14,14 @@ newest completed commit and finish bit-identical to an uninterrupted run.
 * ``repro_torch.scenarios.cluster`` — kill 1 of N rank processes inside
   the commit window; the survivors shrink and must finish bit-identical
   to a planned shrink (``run_cluster_scenario`` / ``run_cluster_suite``);
+* ``repro_torch.scenarios.scale`` — elastic scaling end to end: a joiner
+  rank grows a 3-rank cluster (killed at each join phase, the survivors
+  fall back bit-identically), a fleet grows and drains with running
+  sessions, and the autoscaler's simulated cell (``run_grow_suite`` /
+  ``run_fleet_scale_cell`` / ``run_autoscale_cell``);
 * ``repro_torch.scenarios.runner`` — kill -> inspect -> restart ->
   compare, one scenario per kill point (CLI ``--suite
-  train|serve|cluster|fuzz|all``; library ``run_scenario`` /
+  train|serve|cluster|scale|fuzz|all``; library ``run_scenario`` /
   ``run_suite`` / ``run_serve_scenario`` / ``run_serve_suite`` /
   ``run_fleet_suite``);
 * ``repro_torch.scenarios.fuzz`` — the adversarial crash fuzzer
@@ -24,7 +29,6 @@ newest completed commit and finish bit-identical to an uninterrupted run.
   cluster / scale workloads, held to one invariant by an independent
   oracle.
 
-The scale suite (``repro.scenarios.scale``) is not ported (ROADMAP A6b).
 Import the run functions from the submodules (they are not re-exported
 here, so ``python -m`` entry points stay clean).
 """

@@ -30,16 +30,18 @@ caller can hold the children's kernel launches and recovery times.
 The CLUSTER suite (``--suite cluster``, ``scenarios.cluster``) kills 1 of
 ``--world`` real rank processes sharing one pool at each commit-window
 point x {peer, pool} recovery source; the survivors must shrink and finish
-bit-identical to a planned shrink.
+bit-identical to a planned shrink.  The SCALE suite (``--suite scale``,
+``scenarios.scale``) grows a 3-rank cluster by a joiner, killed at each
+join phase (``--scale-points``), then runs the fleet grow-and-drain cell
+and the autoscale cell.  ``--suite all`` runs train, serve, cluster, scale
+and fuzz, in that order.
 
     python -m repro_torch.scenarios.runner \\
-        --suite train|serve|cluster|fuzz|all \\
+        --suite train|serve|cluster|scale|fuzz|all \\
         [--device cpu] [--workdir DIR] [--steps 8] [--commit-every 2] \\
         [--mode sharded-async] [--shards 4] [--world 3] \\
-        [--kill-points pre_flush,...] [--cluster-sources peer,pool]
-
-The scale suite spawns joiners through ``repro.scenarios.scale``, which is
-not ported: ``--suite scale`` raises ``NotImplementedError``.
+        [--kill-points pre_flush,...] [--cluster-sources peer,pool] \\
+        [--scale-points none,join_staged,join_committed,join_adopted]
 """
 from __future__ import annotations
 
@@ -56,13 +58,8 @@ from repro_torch.dsm.flit_runtime import KILL_POINTS
 from repro_torch.dsm.pool import DSMPool
 from repro_torch.scenarios.worker import KILL_EXIT
 
-#: suites of the reference the runner does not run yet, and why
-NOT_PORTED = {
-    "scale": "repro.scenarios.scale (its grow cells, the fleet scale cell "
-             "and the autoscale cell: ROADMAP A6b)",
-}
 #: the suites ``--suite all`` runs, in the reference's order
-PORTED_SUITES = ("train", "serve", "cluster", "fuzz")
+SUITES = ("train", "serve", "cluster", "scale", "fuzz")
 
 
 @dataclasses.dataclass
@@ -498,11 +495,9 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser()
     ap.add_argument("--suite", default="train",
-                    choices=["train", "serve", "cluster", "scale", "fuzz",
-                             "all"],
-                    help="'all' runs the ported suites (train, serve, "
-                         "cluster, fuzz); scale is not ported and raises "
-                         "NotImplementedError")
+                    choices=list(SUITES) + ["all"],
+                    help="'all' runs train, serve, cluster, scale and "
+                         "fuzz, in that order")
     ap.add_argument("--workdir", default=None)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where every worker runs")
@@ -543,6 +538,11 @@ def main(argv=None) -> int:
                     help="cluster suite: recovery sources to exercise "
                          "(peer = sibling staging newer than the pool, "
                          "pool = replication off)")
+    ap.add_argument("--scale-points", default="none,join_staged,"
+                    "join_committed,join_adopted",
+                    help="scale suite: grow cells to run ('none' = the "
+                         "no-kill grow; join_* kill the joiner at that "
+                         "phase boundary)")
     ap.add_argument("--episodes", type=int, default=10,
                     help="fuzz suite: episodes per (workload, topology)")
     ap.add_argument("--seed", type=int, default=0,
@@ -552,10 +552,6 @@ def main(argv=None) -> int:
     ap.add_argument("--fuzz-workloads", default="train,serve,cluster",
                     help="fuzz suite: comma-separated workload subset")
     args = ap.parse_args(argv)
-    if args.suite in NOT_PORTED:
-        raise NotImplementedError(
-            f"--suite {args.suite} is not ported yet (reference: "
-            f"{NOT_PORTED[args.suite]})")
     if args.mesh:
         raise NotImplementedError(
             "--mesh is not ported yet (reference: repro.dsm.meshio and "
@@ -638,6 +634,37 @@ def main(argv=None) -> int:
                   f"digest_match={r.digests == r.reference_digests}"
                   + (f",detail={r.detail}" if r.detail else ""))
 
+    def _scale_suite():
+        nonlocal failed
+        from repro_torch.scenarios.scale import (run_autoscale_cell,
+                                                 run_fleet_scale_cell,
+                                                 run_grow_suite)
+        points = [p for p in args.scale_points.split(",") if p]
+        for r in run_grow_suite(workdir, points=points, device=args.device):
+            status = "OK" if r.ok else "FAIL"
+            failed += not r.ok
+            print(f"grow_scenario,{r.kill_point},{status},"
+                  f"lives={sorted(set(r.lives))},"
+                  f"sources={sorted(set(map(str, r.sources)))},"
+                  f"digest_match={r.digests == r.reference_digests}"
+                  + (f",detail={r.detail}" if r.detail else ""))
+        fr = run_fleet_scale_cell(workdir, device=args.device)
+        failed += not fr.ok
+        print(f"fleet_scale,{'OK' if fr.ok else 'FAIL'},"
+              f"grew={fr.grew},drained={fr.drained},"
+              f"migrations={fr.migrations},"
+              f"outputs_bit_identical={fr.outputs_match}"
+              + (f",detail={fr.detail}" if fr.detail else ""))
+        ar = run_autoscale_cell(workdir)
+        failed += not ar.ok
+        print(f"autoscale,{'OK' if ar.ok else 'FAIL'},"
+              f"auto_cost={ar.auto_cost_ns:.3g},"
+              f"best_fixed(n={ar.best_fixed_n})={ar.best_fixed_cost_ns:.3g},"
+              f"p99={ar.auto_p99}vs{ar.best_fixed_p99},"
+              f"lost={ar.lost_sessions},decisions={ar.decisions},"
+              f"grows={ar.grows},shrinks={ar.shrinks},"
+              f"log={ar.decision_log}")
+
     def _fuzz_suite():
         nonlocal failed
         from repro_torch.dsm.emu import PRESETS
@@ -664,8 +691,9 @@ def main(argv=None) -> int:
               f"log={s.log_path}")
 
     suites = {"train": _train_suite, "serve": _serve_suite,
-              "cluster": _cluster_suite, "fuzz": _fuzz_suite}
-    for name in PORTED_SUITES:
+              "cluster": _cluster_suite, "scale": _scale_suite,
+              "fuzz": _fuzz_suite}
+    for name in SUITES:
         if args.suite in (name, "all"):
             _suite_guard(name, suites[name])
     print(f"runner,{'FAIL' if failed else 'OK'},failed={failed}")

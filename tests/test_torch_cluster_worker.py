@@ -27,7 +27,8 @@ cluster``) against the JAX package's, every rank on ``--device cpu``.
   real-process suite's ``expected_recovery`` says, for all six cells,
   and that table equals the reference's;
 * the N-worker launcher and ``runner --suite cluster`` (one cell) on
-  ``--device cpu``; ``--suite scale`` still raises naming A6b.
+  ``--device cpu`` (``--suite scale`` is held in
+  ``test_torch_scale_cells.py``).
 
 The rank processes import torch each (a few seconds of start-up); the
 file runs seven clusters of three ranks (the reference's two among
@@ -229,11 +230,3 @@ def test_runner_suite_cluster_on_cpu(tmp_path):
                     "completed=[-1, 1, 3],resumed=3,source=pool,"
                     "expected=(3,pool),digest_match=True"]
     assert "runner,OK,failed=0" in p.stdout
-
-
-def test_runner_still_refuses_the_scale_suite():
-    from repro_torch.scenarios.runner import main
-    with pytest.raises(NotImplementedError) as ei:
-        main(["--suite", "scale", "--device", "cpu"])
-    assert "repro.scenarios.scale" in str(ei.value)
-    assert "A6b" in str(ei.value)

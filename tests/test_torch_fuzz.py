@@ -18,9 +18,10 @@ against the JAX package's ``repro.scenarios.fuzz``.
   other to the same violations, and a torn pool left by one package's
   episode is recovered by the other's ``RecoveryManager`` at the step
   the episode's oracle named, bit-identical to the clean replay;
-* ``--suite scale``, and ``--mesh`` (here on ``--suite cluster``), refuse
-  with the reference module and ROADMAP item named (the cluster suite
-  itself runs: ``tests/test_torch_cluster_worker.py``).
+* ``--mesh`` (here on ``--suite cluster``) refuses with the reference
+  module and ROADMAP item named (the cluster and scale suites themselves
+  run: ``tests/test_torch_cluster_worker.py``,
+  ``tests/test_torch_scale_cells.py``).
 """
 import json
 import os
@@ -276,7 +277,6 @@ def test_runner_propagates_fuzz_violation_as_nonzero_exit(tmp_path):
 
 
 @pytest.mark.parametrize("argv,names", [
-    (["--suite", "scale"], ("repro.scenarios.scale", "A6b")),
     (["--suite", "cluster", "--mesh", "2x4"], ("repro.launch.mesh", "A7"))])
 def test_runner_refuses_the_suites_not_ported(argv, names):
     from repro_torch.scenarios.runner import main

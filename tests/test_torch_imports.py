@@ -74,6 +74,7 @@ SLICE_MODULES = [
     "repro_torch.launch.mesh", "repro_torch.launch.cluster",
     "repro_torch.scenarios.cluster", "repro_torch.scenarios.cluster_worker",
     "repro_torch.serve.kvcache", "repro_torch.serve.sessions",
+    "repro_torch.scenarios.scale",
 ]
 
 _FORBIDDEN = re.compile(
