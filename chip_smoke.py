@@ -19,14 +19,17 @@ serving and training workers inside the commit window, then the rank
 cluster (three rank processes on the card, one killed), whole-lane KV
 tiers and legacy serving of olmo-1b, then elastic scaling (a joiner rank
 grows the live cluster and is killed at each join phase, an olmo-1b
-fleet grows and drains, the autoscaler's cell), and prints one line per
-phase:
+fleet grows and drains, the autoscaler's cell); durable training of
+olmoe-1b-7b at full width (depth cut to 2 layers) through the grouped
+matmul's forward and backward kernels runs right after olmo-1b's
+training (phase 17 below).  It prints one line per phase:
 
 1. environment — the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions;
 2. build — compiles the five kernel libraries of the paths from
    ``src/repro_torch/csrc`` (one ``nvcc`` each, started together: the four
-   TPU kernels' counterparts and the flash backward) and
+   TPU kernels' counterparts, the grouped matmul's library holding its dx
+   and dw kernels too, and the flash backward) and
    shows ptxas's register / spill / static shared-memory report for each
    kernel instantiation (template arguments kept); the dynamic shared
    memory, ring stages and blocks of each flash and grouped-matmul launch
@@ -78,12 +81,22 @@ phase:
      down, decode up/gate (64, 32, 2048) @ (64, 2048, 1024) and down), at
      the jamba-1.5-large path's four ((16, 80 | 32, 8192) @ (16, 8192,
      24576) and down) and at ragged shapes (C 37 and C 1 with D 200, F 72;
-     D 1000, not a multiple of 64; C 300, two passes, with F 200) and at
+     D 1000, not a multiple of 64; C 300, two passes, with F 200), at
      deepseek-v2's four ((160, 24 | 32, 5120) @ (160, 5120, 1536) and
-     down: its prefill and per-sequence decode capacities):
-     elementwise
+     down: its prefill and per-sequence decode capacities) and at olmoe's
+     training capacity (C 640 at (8, 512): (64, 640, 2048) @ (64, 2048,
+     1024) and down): elementwise
      |kernel - plain_fp32| <= 1e-2 * max|plain_fp32| (one rounding to
      bf16 is half an ulp, 3.9e-3 relative); library: ``torch.bmm``;
+   * the grouped matmul's backward: dx = dy w^T (the forward's kernel
+     with w's tile read K-major) and dw = x^T dy (a kernel of its own:
+     128 D x 256 F tiles, both operands MN-major, summed over C in one
+     fixed order) at the two training shapes (the last 37 capacity rows
+     empty) and at the four ragged ones: the same limit against the fp32
+     plain backward, two launches bit-identical; timed at the training
+     shapes beside ``torch.bmm(dy, w.transpose(1, 2))`` and
+     ``torch.bmm(x.transpose(1, 2), dy)``; each row moves the same bytes
+     and operations as the forward's (bound 0.17371 ms, operations);
    * the WKV-6 recurrence (two routes chosen by T: below 64 steps the
      step recurrence with S in registers, read and written coalesced; at
      64 and above the chunked closed form in three launches, the chunks of
@@ -234,26 +247,53 @@ phase:
         printed; tokens and every count equal (a)'s under sync.
 
 11. durable training (``repro_torch.train``) of olmo-1b at full width
-    with its depth cut from 16 layers to 4 (since PR 25, for the time
-    limit; 371,458,048 parameters, random weights from a torch.Generator
-    seeded 0, deterministic algorithms on):
+    with its depth cut from 16 layers to 4 (for the time limit;
+    371,458,048 parameters, random weights from a torch.Generator seeded
+    0, deterministic algorithms on):
     (a) the loss and the global grad norm of one (1, 64) batch on the card
         through the kernels (4 layers: 8 forward launches under remat,
         4 backward) against the port on the CPU with the same weights in
         fp32 and plain attention: within 2e-2 relative;
-    (b) ``run_durable_loop``: 8 steps at the reference launcher's global
-        batch 8 x seq 512, a ``sync`` commit every 4 steps, retention 2,
-        on a pool in a temp dir (the free disk printed first: the phase
-        fails below ~12 GB): losses, ms a step, host s a commit, peak
-        memory and the bf16 param elements that moved printed; each
+    (b) the clean run: 8 train steps at the reference launcher's global
+        batch 8 x seq 512 on ``run_durable_loop``'s pipeline, with no
+        commit: losses, ms a step, peak memory and the bf16 param elements
+        that moved printed; 64 forward and 32 backward flash launches;
+    (c) ``run_durable_loop`` on a pool in a temp dir (the free disk printed
+        first: the phase fails below ~12 GB): 8 steps, a ``sync`` commit
+        every 4, retention 2, a crash before the commit of step 6: 1 crash,
+        recovered from the pool at step 3, steps 4-7 run again; params,
+        mu, nu, the step, the key data and the pipeline state
+        bit-identical to (b)'s, and the losses of steps 4-7 too; each
         commit exactly 3,714,580,508 bytes (params bf16, mu and nu fp32,
-        28 bytes of counters and pipeline); 64 forward and 32 backward
-        flash launches;
-    (c) the same run on a fresh pool with a crash before the commit of
-        step 6: 1 crash, recovered from the pool at step 3, steps 4-7 run
-        again; params, mu, nu, the step, the key data and the pipeline
-        state bit-identical to (b)'s, and the losses of steps 4-7 too.
+        28 bytes of counters and pipeline), the newest manifest step 7,
+        two kept; host s a commit printed; 11 steps' flash launches.
     The phase's time is printed.
+17. durable training of olmoe-1b-7b (runs right after phase 11, when the
+    card is free) at full width — 64 experts top-8, d_model 2048,
+    d_ff_expert 1024, 16 heads of 128, vocab 50304, bf16 — with its depth
+    cut from 16 layers to 2 (``reduced``: 16 layers hold 6.9e9 params, a
+    69.2 GB state the out-of-place update holds twice; 2 layers count
+    1,045,168,128 and hold 1,045,178,880 with the norm scales), random
+    weights from a torch.Generator seeded 0:
+    (a) the loss and the global grad norm of one (1, 64) batch on the card
+        through the kernels against the port on the CPU in fp32 with the
+        plain versions: within 2e-2 relative; the launches a step of the
+        CPU rehearsal: the grouped matmul 3 a MoE layer a forward pass
+        (twice under remat: 12), dx and dw 3 a MoE layer (6 each), flash
+        4 forward and 2 backward;
+    (b) the clean run: 4 steps of (8, 512) (capacity 640) on the loop's
+        pipeline with no commit: losses, ms a step, peak memory, launches
+        4 x (a)'s;
+    (c) ``run_durable_loop``: ``sync`` commits every 2 steps, one
+        manifest kept, a crash before the commit of step 3 (the free disk
+        printed first: the phase fails below ~25 GB): recovered from the
+        pool at step 1, steps 2-3 run again; params, mu, nu, the step, the
+        key data and the pipeline state bit-identical to (b)'s, the losses
+        of steps 0-3 and of the rerun steps 2-3 equal to (b)'s; each
+        commit exactly 10,452,313,116 bytes (params bf16 with the two
+        routers in fp32, mu and nu fp32, 28 bytes); 6 steps' launches.
+    ms a step (compute), host s a commit, peak GB, launches and the
+    phase's time are printed.
 12. the other five decoder-only architectures — internlm2-1.8b,
     phi3-medium-14b, yi-34b, chameleon-34b at full width and depth
     (yi-34b's and chameleon-34b's stacked MLP leaves drawn a layer at a
@@ -394,7 +434,7 @@ phase:
         controller must beat every fixed fleet size with no session lost;
         its cost against the best fixed fleet's is printed.
 
-Each path and each run of phases 9, 10, 11, 12, 13, 15 (c) and 16 (b) is
+Each path and each run of phases 9, 10, 11, 12, 13, 15 (c), 16 (b) and 17 is
 driven with every launch count set to 0 just before it and read just
 after; the children of phase 14 start with theirs at 0.  Then a
 ``{"kernels": [...]}`` line, the card line again, and as the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -442,7 +482,16 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     # (jax.grad through attention_ref, use_pallas off for training)
     "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
                             "src/repro/models/attention.py:164"),
+    # no TPU kernel: jax.grad differentiates the reference's expert einsums
+    # (repro/models/moe.py:_expert_mlp); both live in the forward's library
+    "grouped_matmul_dx": ("src/repro_torch/csrc/grouped_matmul.cu",
+                          "src/repro/models/moe.py:108"),
+    "grouped_matmul_dw": ("src/repro_torch/csrc/grouped_matmul.cu",
+                          "src/repro/models/moe.py:108"),
 }
+#: the kernel libraries the rows above live in (one nvcc each)
+LIBRARIES = sorted({os.path.basename(src)[:-3] for src, _ in
+                    KERNELS.values()})
 ARCHS = ("olmo-1b", "olmoe-1b-7b", "rwkv6-7b", "jamba-1.5-large-398b")
 #: the depth each path runs at (the rest of each config as published):
 #: jamba-1.5-large-398b is 797 GB in bf16 at its 72 layers; 5 hold 48.1 GB
@@ -573,9 +622,9 @@ def ptxas_report(log: str):
                 ident = name[m.end():m.end() + n]
                 rest = name[m.end() + n:]
                 if ident.endswith("_kernel") and len(ident) == n:
-                    args = re.match(r"I((?:Li\d+E)+)E", rest)
+                    args = re.match(r"I((?:L[ib]\d+E)+)E", rest)
                     return (f"{ident}<"
-                            f"{','.join(re.findall(r'Li(\d+)E', args.group(1)))}>"
+                            f"{','.join(re.findall(r'L[ib](\d+)E', args.group(1)))}>"
                             if args else ident)
         return name
 
@@ -926,11 +975,20 @@ def gmm_bound_ms(E, C, D, F) -> tuple:
                                  else "operations")
 
 
+#: olmoe-1b-7b's training capacity at (8, 512): ceil(4096 x 8 x 1.25 / 64)
+GMM_TRAIN_C = 640
+
+
 def phase_gmm(torch, gmm_ops):
     """Phase 3: the grouped-matmul kernel against its plain version on the
-    card, timed at the olmoe and the jamba-1.5-large paths' four shapes."""
+    card, timed at the olmoe and the jamba-1.5-large paths' four shapes,
+    then its dx and dw kernels.  Returns the forward's, dx's and dw's
+    rows."""
     from repro_torch.kernels.moe_gmm import kernel
-    from repro_torch.kernels.moe_gmm.ref import grouped_matmul_ref
+    from repro_torch.kernels.moe_gmm.ref import (grouped_matmul_dw_ref,
+                                                 grouped_matmul_dx_ref,
+                                                 grouped_matmul_ref)
+    C_T = GMM_TRAIN_C
     cases = [  # (name, E, C, D, F, timed)
         ("prefill_up", 64, 80, 2048, 1024, True),
         ("prefill_down", 64, 80, 1024, 2048, True),
@@ -944,43 +1002,39 @@ def phase_gmm(torch, gmm_ops):
         ("deepseek_prefill_down", 160, 24, 1536, 5120, True),
         ("deepseek_decode_up", 160, 32, 5120, 1536, True),
         ("deepseek_decode_down", 160, 32, 1536, 5120, True),
+        ("train_up", 64, C_T, 2048, 1024, True),
+        ("train_down", 64, C_T, 1024, 2048, True),
         ("ragged_c37", 3, 37, 200, 72, False),
         ("ragged_c1", 3, 1, 200, 72, False),
         ("d1000", 8, 48, 1000, 256, False),
         ("c300_f200", 4, 300, 512, 200, False),
     ]
+    # the backward at the training shapes and at the ragged ones
+    bwd_cases = [c for c in cases if c[0].startswith("train_")
+                 or not c[5]]
     gen = torch.Generator("cuda").manual_seed(4321)
-    rows = {}
-    for name, E, C, D, F, timed in cases:
-        x = torch.randn((E, C, D), generator=gen, device="cuda"
-                        ).to(torch.bfloat16)
-        w = torch.randn((E, D, F), generator=gen, device="cuda"
-                        ).mul_(0.02).to(torch.bfloat16)
-        out = gmm_ops.grouped_matmul(x, w)
-        torch.cuda.synchronize()
-        config = launch_config(kernel, "repro_grouped_matmul_last_launch")
-        ref = grouped_matmul_ref(x.float(), w.float())
+
+    def report_row(what, name, shape, out, ref, config, timed_fns):
         err = float((out.float() - ref).abs().max())
         limit = GMM_REL_TOL * float(ref.abs().max())
-        check(bool(torch.isfinite(out).all()), f"gmm {name}: non-finite")
-        check(err <= limit, f"gmm {name}: max abs err {err} > {limit}")
-        row = dict(shape=[E, C, D, F], max_abs_err=err, limit=limit,
+        check(bool(torch.isfinite(out).all()), f"{what} {name}: non-finite")
+        check(err <= limit, f"{what} {name}: max abs err {err} > {limit}")
+        row = dict(shape=shape, max_abs_err=err, limit=limit,
                    launch=dict(chunks=config[0], stages=config[1],
                                shared_bytes=config[2], blocks=config[3]))
-        msg = (f"kernel grouped_matmul {name}: E={E} C={C} D={D} F={F} "
-               f"max_abs_err={err:.3e} (limit {limit:.3e}) launch: "
-               f"{config[0]} 16-row chunks, {config[1]} stages, {config[2]} "
-               f"bytes of shared memory, {config[3]} blocks")
-        if timed:
-            kernel_ms, library_ms, k_runs, l_runs = paired_ms(
-                lambda: kernel.grouped_matmul_fwd(x, w, out),
-                lambda: torch.bmm(x, w))
-            kernel_call_ms = call_ms(lambda: gmm_ops.grouped_matmul(x, w))
+        msg = (f"kernel {what} {name}: E C D F {shape} max_abs_err="
+               f"{err:.3e} (limit {limit:.3e}) launch: {config[0]} "
+               f"{'F columns a tile' if what.endswith('_dw') else '16-row chunks'}"
+               f", {config[1]} stages, {config[2]} bytes of shared memory, "
+               f"{config[3]} blocks")
+        if timed_fns is not None:
+            raw, library, call, plain, big = timed_fns
+            kernel_ms, library_ms, k_runs, l_runs = paired_ms(raw, library)
+            kernel_call_ms = call_ms(call)
             # the plain version makes an fp32 copy of w (12.9 GB at
             # jamba's widths): one call a graph there
-            plain_ms = device_ms(lambda: grouped_matmul_ref(x, w),
-                                 reps=5 if E * D * F < 1e9 else 1)
-            bound_ms, bound_by = gmm_bound_ms(E, C, D, F)
+            plain_ms = device_ms(plain, reps=1 if big else 5)
+            bound_ms, bound_by = gmm_bound_ms(*shape)
             row.update(kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms,
                        plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=bound_ms, bound_by=bound_by,
@@ -993,10 +1047,72 @@ def phase_gmm(torch, gmm_ops):
                     f"bound_ms={bound_ms:.5f} ({bound_by}) kernel/library="
                     f"{kernel_ms / library_ms:.3f} kernel/bound="
                     f"{kernel_ms / bound_ms:.2f}")
-        rows[name] = row
         print(msg, flush=True)
-        del x, w, out, ref
-    return rows
+        return row
+
+    rows, dx_rows, dw_rows = {}, {}, {}
+    for name, E, C, D, F, timed in cases:
+        x = torch.randn((E, C, D), generator=gen, device="cuda"
+                        ).to(torch.bfloat16)
+        w = torch.randn((E, D, F), generator=gen, device="cuda"
+                        ).mul_(0.02).to(torch.bfloat16)
+        out = gmm_ops.grouped_matmul(x, w)
+        torch.cuda.synchronize()
+        config = launch_config(kernel, "repro_grouped_matmul_last_launch")
+        ref = grouped_matmul_ref(x.float(), w.float())
+        big = E * D * F >= 1e9
+        rows[name] = report_row(
+            "grouped_matmul", name, [E, C, D, F], out, ref, config,
+            (lambda: kernel.grouped_matmul_fwd(x, w, out),
+             lambda: torch.bmm(x, w),
+             lambda: gmm_ops.grouped_matmul(x, w),
+             lambda: grouped_matmul_ref(x, w), big) if timed else None)
+        del out, ref
+        if not any(c[0] == name for c in bwd_cases):
+            del x, w
+            continue
+        # dx = dy w^T and dw = x^T dy; the last rows of a training-sized
+        # buffer hold no token (zeros), as a capacity buffer's do
+        dy = torch.randn((E, C, F), generator=gen, device="cuda"
+                         ).to(torch.bfloat16)
+        if name.startswith("train_"):
+            x[:, -37:] = 0
+            dy[:, -37:] = 0
+        xf, wf, dyf = x.float(), w.float(), dy.float()
+        for what, launch_fn, a, b, out_like, plain, ref, library in (
+                ("grouped_matmul_dx", kernel.grouped_matmul_dx, dy, w, x,
+                 lambda: grouped_matmul_dx_ref(w, dy),
+                 grouped_matmul_dx_ref(wf, dyf),
+                 lambda: torch.bmm(dy, w.transpose(1, 2))),
+                ("grouped_matmul_dw", kernel.grouped_matmul_dw, x, dy, w,
+                 lambda: grouped_matmul_dw_ref(x, dy),
+                 grouped_matmul_dw_ref(xf, dyf),
+                 lambda: torch.bmm(x.transpose(1, 2), dy))):
+            got = torch.empty_like(out_like)
+            again = torch.empty_like(out_like)
+            launch_fn(a, b, got)
+            torch.cuda.synchronize()
+            config = launch_config(kernel,
+                                   "repro_grouped_matmul_last_launch")
+            launch_fn(a, b, again)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again),
+                  f"{what} {name}: two launches differ in bits")
+
+            def call(fn=launch_fn, a=a, b=b, like=out_like):
+                fn(a, b, torch.empty_like(like))
+
+            def raw(fn=launch_fn, a=a, b=b, got=got):
+                fn(a, b, got)
+
+            row = report_row(what, name, [E, C, D, F], got, ref, config,
+                             (raw, library, call, plain, big)
+                             if timed else None)
+            row["repeat_bit_identical"] = True
+            (dx_rows if what.endswith("_dx") else dw_rows)[name] = row
+            del got, again
+        del x, w, dy, xf, wf, dyf, ref
+    return rows, dx_rows, dw_rows
 
 
 def wkv_bound_ms(B, T, H, n, Q=16) -> tuple:
@@ -2268,6 +2384,24 @@ def _timing_means(r) -> tuple:
             statistics.mean(commits) if commits else 0.0, len(commits))
 
 
+def clean_run(torch, step, state0, pipe, n_steps: int) -> tuple:
+    """``n_steps`` of the train step on ``pipe``'s batches, as
+    ``run_durable_loop`` feeds them, with no commit: (state, pipeline state,
+    losses, host s of each step, wall s)."""
+    import numpy as np
+    state, losses, step_s = state0, [], []
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        ts = time.perf_counter()
+        batch = {k: torch.from_numpy(np.asarray(v)).cuda()
+                 for k, v in pipe.next_global().items()}
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        step_s.append(time.perf_counter() - ts)
+    torch.cuda.synchronize()
+    return state, pipe.state, losses, step_s, time.perf_counter() - t0
+
+
 def phase_train(torch, cfg, counters) -> dict:
     """Phase 11: durable training of olmo-1b at full width and depth
     through the hand-written forward and backward kernels (see the module
@@ -2326,99 +2460,301 @@ def phase_train(torch, cfg, counters) -> dict:
           f"train (a): launches {a_launches}, expected {2 * L} forward "
           f"(remat runs each twice) and {L} backward")
 
-    # (b) the clean run
+    # (b) the clean run: the loop's steps on its pipeline, no commit
     state0 = init_train_state(params, 0, cfg.moment_dtype)
     step = make_train_step(bundle)
 
-    def loop(pool, **kw):
-        pipe = DataPipeline(SyntheticLMSource(cfg.vocab_size), TRAIN_BATCH,
+    def pipeline():
+        return DataPipeline(SyntheticLMSource(cfg.vocab_size), TRAIN_BATCH,
                             TRAIN_SEQ)
-        reset_counts(counters)
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        r = run_durable_loop(step, state0, pipe, pool, **TRAIN_KW, **kw)
-        torch.cuda.synchronize()
-        return r, time.perf_counter() - t0, read_counts(counters)
 
-    pool_b = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    try:
-        rb, wall_b, b_launches = loop(pool_b)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        man = DSMPool(pool_b).latest_manifest()
-        n_manifests = len(DSMPool(pool_b).manifests_desc())
-    finally:
-        shutil.rmtree(pool_b, ignore_errors=True)
-    nbytes = sum(o["nbytes"] for o in man["objects"].values())
-    step_ms, commit_s, n_commits = _timing_means(rb)
-    moved = sum(int((a != b).sum()) for a, b in
-                zip(tree_leaves(rb.state.params), tree_leaves(params)))
     n_steps = TRAIN_KW["n_steps"]
-    out["clean"] = dict(losses=rb.losses, wall_s=wall_b, step_ms=step_ms,
-                        commit_s=commit_s, commits_timed=n_commits,
-                        ckpt_bytes_per_commit=nbytes, launches=b_launches,
-                        peak_gb=peak_gb, params_moved=moved,
-                        manifests_kept=n_manifests)
-    print(f"train (b): {n_steps} steps of ({TRAIN_BATCH}, {TRAIN_SEQ}), "
-          f"losses {[round(x, 6) for x in rb.losses]}; {step_ms:.1f} ms a "
-          f"step (compute), {commit_s:.3f} host s a commit ({n_commits} "
-          f"timed, schedule sync), wall {wall_b:.1f} s; "
-          f"ckpt_bytes_per_commit {nbytes}; launches {b_launches}; peak "
-          f"{peak_gb:.2f} GB; bf16 param elements moved {moved} of "
-          f"{n_params}; manifests kept {n_manifests}", flush=True)
-    check(nbytes == TRAIN_CKPT_BYTES,
-          f"train (b): {nbytes} bytes a commit, expected {TRAIN_CKPT_BYTES}")
-    check(man["step"] == n_steps - 1 and int(rb.state.opt.step) == n_steps,
-          f"train (b): newest manifest step {man['step']}, opt step "
-          f"{int(rb.state.opt.step)}")
-    check(all(math.isfinite(x) for x in rb.losses) and len(rb.losses)
-          == n_steps, f"train (b): losses {rb.losses}")
+    reset_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    rb_state, rb_pipe, losses_b, step_s, wall_b = clean_run(
+        torch, step, state0, pipeline(), n_steps)
+    b_launches = read_counts(counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = statistics.mean(step_s[1:]) * 1e3
+    moved = sum(int((a != b).sum()) for a, b in
+                zip(tree_leaves(rb_state.params), tree_leaves(params)))
+    out["clean"] = dict(losses=losses_b, wall_s=wall_b, step_ms=step_ms,
+                        step_s=step_s, launches=b_launches, peak_gb=peak_gb,
+                        params_moved=moved)
+    print(f"train (b): {n_steps} steps of ({TRAIN_BATCH}, {TRAIN_SEQ}), no "
+          f"commit: losses {[round(x, 6) for x in losses_b]}; {step_ms:.1f} "
+          f"ms a step (compute, steps 1-{n_steps - 1}; step 0 "
+          f"{step_s[0] * 1e3:.1f} ms), wall {wall_b:.1f} s; launches "
+          f"{b_launches}; peak {peak_gb:.2f} GB; bf16 param elements moved "
+          f"{moved} of {n_params}", flush=True)
+    check(int(rb_state.opt.step) == n_steps,
+          f"train (b): opt step {int(rb_state.opt.step)}")
+    check(all(math.isfinite(x) for x in losses_b) and len(losses_b)
+          == n_steps, f"train (b): losses {losses_b}")
     check(b_launches["flash_attention"] == n_steps * 2 * L
           and b_launches["flash_attention_bwd"] == n_steps * L,
           f"train (b): launches {b_launches}, expected {n_steps * 2 * L} "
           f"forward and {n_steps * L} backward")
 
-    # (c) crash before the commit of step 6, recover, finish
+    # (c) the durable run: a sync commit every 4 steps, two manifests kept,
+    # a crash before the commit of step 6, recovery, the end
     pool_c = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
-        rc, wall_c, c_launches = loop(pool_c,
-                                      crash_at={6: "before_commit"})
+        reset_counts(counters)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = run_durable_loop(step, state0, pipeline(), pool_c, **TRAIN_KW,
+                              crash_at={6: "before_commit"})
+        torch.cuda.synchronize()
+        wall_c = time.perf_counter() - t0
+        c_launches = read_counts(counters)
+        man = DSMPool(pool_c).latest_manifest()
+        n_manifests = len(DSMPool(pool_c).manifests_desc())
     finally:
         shutil.rmtree(pool_c, ignore_errors=True)
+    nbytes = sum(o["nbytes"] for o in man["objects"].values())
     check(rc.crashes == 1 and rc.recoveries == ["pool"],
           f"train (c): {rc.crashes} crashes, recoveries {rc.recoveries}")
     # steps 0-6, then 4-7 again from the commit of step 3
     check(len(rc.losses) == n_steps + 3,
           f"train (c): {len(rc.losses)} losses, expected steps 0-6 then "
           f"4-7")
-    check(rc.losses[-4:] == rb.losses[4:],
+    check(rc.losses[-4:] == losses_b[4:],
           f"train (c): losses of steps 4-7 {rc.losses[-4:]} != clean "
-          f"{rb.losses[4:]}")
+          f"{losses_b[4:]}")
     same = {
         "params": all(torch.equal(a, b) for a, b in zip(
-            tree_leaves(rc.state.params), tree_leaves(rb.state.params))),
+            tree_leaves(rc.state.params), tree_leaves(rb_state.params))),
         "opt_mu": all(torch.equal(a, b) for a, b in zip(
-            tree_leaves(rc.state.opt.mu), tree_leaves(rb.state.opt.mu))),
+            tree_leaves(rc.state.opt.mu), tree_leaves(rb_state.opt.mu))),
         "opt_nu": all(torch.equal(a, b) for a, b in zip(
-            tree_leaves(rc.state.opt.nu), tree_leaves(rb.state.opt.nu))),
-        "opt_step": int(rc.state.opt.step) == int(rb.state.opt.step),
-        "rng": torch.equal(rc.state.rng, rb.state.rng),
-        "pipeline": rc.pipeline_state == rb.pipeline_state,
+            tree_leaves(rc.state.opt.nu), tree_leaves(rb_state.opt.nu))),
+        "opt_step": int(rc.state.opt.step) == int(rb_state.opt.step),
+        "rng": torch.equal(rc.state.rng, rb_state.rng),
+        "pipeline": rc.pipeline_state == rb_pipe,
     }
-    step_ms_c, commit_s_c, _ = _timing_means(rc)
+    step_ms_c, commit_s, n_commits = _timing_means(rc)
     out["crash"] = dict(losses=rc.losses, wall_s=wall_c, step_ms=step_ms_c,
-                        commit_s=commit_s_c, launches=c_launches,
-                        recoveries=rc.recoveries, bit_identical=same)
-    print(f"train (c): crash before the commit of step 6: {rc.crashes} "
-          f"crash, recoveries {rc.recoveries}, resumed at step 4; losses "
-          f"of steps 4-7 bit-identical to (b)'s; bit-identical to (b): "
-          f"{same}; wall {wall_c:.1f} s, {step_ms_c:.1f} ms a step, "
-          f"{commit_s_c:.3f} host s a commit; launches {c_launches}",
-          flush=True)
+                        commit_s=commit_s, commits_timed=n_commits,
+                        ckpt_bytes_per_commit=nbytes, launches=c_launches,
+                        recoveries=rc.recoveries, manifests_kept=n_manifests,
+                        bit_identical=same)
+    print(f"train (c): sync every 4, crash before the commit of step 6: "
+          f"{rc.crashes} crash, recoveries {rc.recoveries}, resumed at step "
+          f"4; losses of steps 4-7 bit-identical to (b)'s; bit-identical to "
+          f"(b): {same}; wall {wall_c:.1f} s, {step_ms_c:.1f} ms a step, "
+          f"{commit_s:.3f} host s a commit ({n_commits} timed); "
+          f"ckpt_bytes_per_commit {nbytes}; manifests kept {n_manifests}; "
+          f"launches {c_launches}", flush=True)
     check(all(same.values()), f"train (c): not bit-identical: {same}")
+    check(nbytes == TRAIN_CKPT_BYTES,
+          f"train (c): {nbytes} bytes a commit, expected {TRAIN_CKPT_BYTES}")
+    check(man["step"] == n_steps - 1 and n_manifests == TRAIN_KW["retention"],
+          f"train (c): newest manifest step {man['step']}, {n_manifests} "
+          f"kept")
+    check(c_launches["flash_attention"] == len(rc.losses) * 2 * L
+          and c_launches["flash_attention_bwd"] == len(rc.losses) * L,
+          f"train (c): launches {c_launches}, expected {len(rc.losses)} "
+          f"steps of {2 * L} forward and {L} backward")
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"train: phase 11 took {out['phase_s']:.1f} s", flush=True)
     out["launches"] = {"train (a)": a_launches, "train (b)": b_launches,
                        "train (c)": c_launches}
+    return out
+
+
+#: phase 17 trains olmoe-1b-7b at full width with its depth cut from 16
+#: layers to 2: 16 layers hold 6,919,028,736 params, a 69.2 GB state (bf16
+#: params, fp32 mu and nu) that the out-of-place update holds twice.  At 2
+#: layers the stacked group still has two repeats, so remat recomputes it
+MOE_TRAIN_LAYERS = 2
+#: ``ModelConfig.param_count`` at 2 layers (the analytic count, equal to the
+#: reference's) and the params the bundle holds, which add the 10,752
+#: norm scales it leaves out (two block norms and the q / k norms a layer,
+#: and the final norm)
+MOE_TRAIN_PARAM_COUNT = 1_045_168_128
+MOE_TRAIN_PARAMS = 1_045_178_880
+#: the held params (bf16, the two routers' 262,144 fp32) + mu and nu fp32
+#: + 28 bytes of counters and pipeline
+MOE_TRAIN_CKPT_BYTES = 10_452_313_116
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 8, 512
+MOE_TRAIN_STEPS = 4
+#: (c): a sync commit every 2 steps, one manifest kept, a crash before the
+#: commit of step 3 (recovered from the commit of step 1)
+MOE_TRAIN_KW = dict(n_steps=MOE_TRAIN_STEPS, commit_every=2,
+                    commit_mode="sync", retention=1)
+MOE_TRAIN_CRASH = {3: "before_commit"}
+#: retention 1 keeps one commit on disk and writes the next beside it
+MOE_TRAIN_DISK_BYTES = 25e9
+
+
+def moe_step_launches(cfg) -> dict:
+    """Kernel launches of one olmoe train step (``with_remat``): the
+    grouped matmul 3 times a MoE layer a forward pass and flash once an
+    attention, each forward twice when the stacked group repeats (remat
+    recomputes it); dx, dw and the flash backward once each a backward."""
+    L = cfg.n_layers
+    passes = 2 if L > 1 else 1
+    return {"flash_attention": passes * L, "flash_attention_bwd": L,
+            "grouped_matmul": 3 * passes * L, "grouped_matmul_dx": 3 * L,
+            "grouped_matmul_dw": 3 * L, "wkv6": 0, "selective_scan": 0}
+
+
+def phase_moe_train(torch, cfg, counters) -> dict:
+    """Phase 17: durable training of olmoe-1b-7b at full width through the
+    flash forward and backward and the grouped matmul's forward, dx and dw
+    kernels (see the module docstring)."""
+    from repro_torch.data.pipeline import DataPipeline, SyntheticLMSource
+    from repro_torch.dsm.pool import DSMPool
+    from repro_torch.models.registry import build
+    from repro_torch.train.loop import run_durable_loop
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    t_phase = time.perf_counter()
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    print(f"moe train: free disk in {tmp}: {free / 1e9:.1f} GB", flush=True)
+    check(free >= MOE_TRAIN_DISK_BYTES,
+          f"moe train: the temp filesystem {tmp} holds {free / 1e9:.1f} GB "
+          f"free; phase 17 writes a 10.5 GB commit beside the one it keeps "
+          f"and needs ~{MOE_TRAIN_DISK_BYTES / 1e9:.0f} GB")
+    out = {}
+    per_step = moe_step_launches(cfg)
+    bundle = build(cfg, device="cuda")
+    params = bundle.init_params(torch.Generator("cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    check((cfg.param_count(), n_params)
+          == (MOE_TRAIN_PARAM_COUNT, MOE_TRAIN_PARAMS),
+          f"moe train: olmoe-1b-7b at {cfg.n_layers} layers counts "
+          f"{cfg.param_count()} params and holds {n_params}, expected "
+          f"{MOE_TRAIN_PARAM_COUNT} and {MOE_TRAIN_PARAMS}")
+
+    # (a) the kernel path against the plain path: one (1, 64) batch
+    tok = torch.randint(0, cfg.vocab_size, (1, 65),
+                        generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+    reset_counts(counters)
+    card = _loss_and_grad_norm(torch, bundle, params,
+                               {k: v.cuda() for k, v in batch.items()})
+    a_launches = read_counts(counters)
+    cpu_cfg = cfg.with_(param_dtype="float32", compute_dtype="float32")
+    t0 = time.perf_counter()
+    plain = _loss_and_grad_norm(torch, build(cpu_cfg, device="cpu"),
+                                tree_map(lambda x: x.float().cpu(), params),
+                                batch)
+    cpu_s = time.perf_counter() - t0
+    rel = [abs(c - p) / abs(p) for c, p in zip(card, plain)]
+    out["kernel_vs_plain"] = dict(card=card, cpu_fp32=plain, rel=rel,
+                                  launches=a_launches, cpu_s=cpu_s)
+    print(f"moe train (a): olmoe-1b-7b (1, 64) loss {card[0]:.6f} grad norm "
+          f"{card[1]:.6f} on the card (bf16, kernels; launches "
+          f"{a_launches}) vs {plain[0]:.6f} / {plain[1]:.6f} plain fp32 on "
+          f"the CPU ({cpu_s:.1f} s); rel {rel[0]:.2e} / {rel[1]:.2e} (tol "
+          f"2e-2)", flush=True)
+    check(max(rel) <= TOL, f"moe train (a): card vs plain rel {rel} > {TOL}")
+    check(a_launches == per_step,
+          f"moe train (a): launches {a_launches}, expected {per_step}")
+
+    state0 = init_train_state(params, 0, cfg.moment_dtype)
+    step = make_train_step(bundle)
+
+    def pipeline():
+        return DataPipeline(SyntheticLMSource(cfg.vocab_size),
+                            MOE_TRAIN_BATCH, MOE_TRAIN_SEQ)
+
+    # (b) the clean run: the loop's steps on its pipeline, no commit
+    reset_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    rb_state, rb_pipe, losses_b, step_s, wall_b = clean_run(
+        torch, step, state0, pipeline(), MOE_TRAIN_STEPS)
+    b_launches = read_counts(counters)
+    peak_b = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = statistics.mean(step_s[1:]) * 1e3
+    out["clean"] = dict(losses=losses_b, wall_s=wall_b, step_ms=step_ms,
+                        step_s=step_s, launches=b_launches, peak_gb=peak_b)
+    print(f"moe train (b): {MOE_TRAIN_STEPS} steps of ({MOE_TRAIN_BATCH}, "
+          f"{MOE_TRAIN_SEQ}), no commit: losses "
+          f"{[round(x, 6) for x in losses_b]}; {step_ms:.1f} ms a step "
+          f"(compute, steps 1-{MOE_TRAIN_STEPS - 1}; step 0 "
+          f"{step_s[0] * 1e3:.1f} ms), wall {wall_b:.1f} s; launches "
+          f"{b_launches}; peak {peak_b:.2f} GB", flush=True)
+    check(all(math.isfinite(x) for x in losses_b),
+          f"moe train (b): losses {losses_b}")
+    check(b_launches == {k: MOE_TRAIN_STEPS * n for k, n in per_step.items()},
+          f"moe train (b): launches {b_launches}, expected "
+          f"{MOE_TRAIN_STEPS} x {per_step}")
+
+    # (c) the durable run: sync commits every 2 steps, a crash before the
+    # commit of step 3, recovery from the pool at step 1, then the end
+    pool_c = tempfile.mkdtemp(prefix="chip_smoke_moe_train_")
+    try:
+        reset_counts(counters)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = run_durable_loop(step, state0, pipeline(), pool_c,
+                              crash_at=dict(MOE_TRAIN_CRASH),
+                              **MOE_TRAIN_KW)
+        torch.cuda.synchronize()
+        wall_c = time.perf_counter() - t0
+        c_launches = read_counts(counters)
+        peak_c = torch.cuda.max_memory_allocated() / 1e9
+        man = DSMPool(pool_c).latest_manifest()
+        n_manifests = len(DSMPool(pool_c).manifests_desc())
+    finally:
+        shutil.rmtree(pool_c, ignore_errors=True)
+    nbytes = sum(o["nbytes"] for o in man["objects"].values())
+    step_ms_c, commit_s, n_commits = _timing_means(rc)
+    same = {
+        "params": all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(rc.state.params), tree_leaves(rb_state.params))),
+        "opt_mu": all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(rc.state.opt.mu), tree_leaves(rb_state.opt.mu))),
+        "opt_nu": all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(rc.state.opt.nu), tree_leaves(rb_state.opt.nu))),
+        "opt_step": int(rc.state.opt.step) == int(rb_state.opt.step),
+        "rng": torch.equal(rc.state.rng, rb_state.rng),
+        "pipeline": rc.pipeline_state == rb_pipe,
+    }
+    n_runs = len(rc.losses)
+    out["durable"] = dict(losses=rc.losses, wall_s=wall_c,
+                          step_ms=step_ms_c, commit_s=commit_s,
+                          commits_timed=n_commits,
+                          ckpt_bytes_per_commit=nbytes, launches=c_launches,
+                          peak_gb=peak_c, recoveries=rc.recoveries,
+                          manifests_kept=n_manifests, bit_identical=same)
+    print(f"moe train (c): sync every 2, crash before the commit of step 3: "
+          f"{rc.crashes} crash, recoveries {rc.recoveries}, {n_runs} steps "
+          f"run (0-3, then 2-3 again from the commit of step 1); losses "
+          f"{[round(x, 6) for x in rc.losses]}; {step_ms_c:.1f} ms a step "
+          f"(compute), {commit_s:.3f} host s a commit ({n_commits} timed), "
+          f"wall {wall_c:.1f} s; ckpt_bytes_per_commit {nbytes}; manifests "
+          f"kept {n_manifests}; launches {c_launches}; peak {peak_c:.2f} "
+          f"GB; bit-identical to (b): {same}", flush=True)
+    check(rc.crashes == 1 and rc.recoveries == ["pool"],
+          f"moe train (c): {rc.crashes} crashes, recoveries "
+          f"{rc.recoveries}")
+    check(n_runs == MOE_TRAIN_STEPS + 2,
+          f"moe train (c): {n_runs} losses, expected steps 0-3 then 2-3 "
+          f"(a recovery at step 1)")
+    check(rc.losses[:MOE_TRAIN_STEPS] == losses_b
+          and rc.losses[-2:] == losses_b[2:],
+          f"moe train (c): losses {rc.losses} against (b)'s {losses_b}")
+    check(all(same.values()), f"moe train (c): not bit-identical: {same}")
+    check(nbytes == MOE_TRAIN_CKPT_BYTES,
+          f"moe train (c): {nbytes} bytes a commit, expected "
+          f"{MOE_TRAIN_CKPT_BYTES}")
+    check(man["step"] == MOE_TRAIN_STEPS - 1 and n_manifests == 1,
+          f"moe train (c): newest manifest step {man['step']}, "
+          f"{n_manifests} kept")
+    check(c_launches == {k: n_runs * n for k, n in per_step.items()},
+          f"moe train (c): launches {c_launches}, expected {n_runs} x "
+          f"{per_step}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"moe train: phase 17 took {out['phase_s']:.1f} s", flush=True)
+    out["launches"] = {"moe train (a)": a_launches,
+                       "moe train (b)": b_launches,
+                       "moe train (c)": c_launches}
     return out
 
 
@@ -3496,6 +3832,8 @@ def main(argv=None) -> int:
     counters = {"flash_attention": (ops, "LAUNCHES"),
                 "flash_attention_bwd": (ops, "BWD_LAUNCHES"),
                 "grouped_matmul": (gmm_ops, "LAUNCHES"),
+                "grouped_matmul_dx": (gmm_ops, "DX_LAUNCHES"),
+                "grouped_matmul_dw": (gmm_ops, "DW_LAUNCHES"),
                 "wkv6": (wkv_ops, "LAUNCHES"),
                 "selective_scan": (scan_ops, "LAUNCHES")}
 
@@ -3511,10 +3849,10 @@ def main(argv=None) -> int:
 
     # -- 2. build: one nvcc per source, all started together ----------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        libs = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        libs = dict(zip(LIBRARIES, pool.map(build.build, LIBRARIES)))
     build_s = time.perf_counter() - t0
-    print(f"build: {', '.join(KERNELS)} in {build_s:.1f}s (in parallel)",
+    print(f"build: {', '.join(LIBRARIES)} in {build_s:.1f}s (in parallel)",
           flush=True)
     for name, lib in libs.items():
         print(f"build: {name} -> {lib}", flush=True)
@@ -3530,7 +3868,8 @@ def main(argv=None) -> int:
           f"beside {FLASH_SERVE_MS_BEFORE} before it (PERF.md); "
           f"ratio {serve_ms / FLASH_SERVE_MS_BEFORE:.3f}", flush=True)
     report["bwd_cases"] = phase_flash_bwd(torch, ops)
-    report["gmm_cases"] = phase_gmm(torch, gmm_ops)
+    (report["gmm_cases"], report["gmm_dx_cases"],
+     report["gmm_dw_cases"]) = phase_gmm(torch, gmm_ops)
     report["wkv_cases"] = phase_wkv(torch, wkv_ops)
     report["scan_cases"] = phase_scan(torch, scan_ops)
 
@@ -3615,6 +3954,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     report["train"] = phase_train(
         torch, get_config("olmo-1b").with_(n_layers=TRAIN_LAYERS), counters)
+    # -- 17. durable training of olmoe-1b-7b (after 11: the card is free) --
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["moe_train"] = phase_moe_train(
+        torch, get_config("olmoe-1b-7b").with_(n_layers=MOE_TRAIN_LAYERS),
+        counters)
     # -- 12. the other five decoder-only architectures ----------------------
     gc.collect()
     torch.cuda.empty_cache()
@@ -3646,6 +3991,8 @@ def main(argv=None) -> int:
                    for r, n in report["fleet"]["launches"].items()})
     by_run.update({f"olmo-1b {r}": n
                    for r, n in report["train"]["launches"].items()})
+    by_run.update({f"olmoe-1b-7b {r}": n
+                   for r, n in report["moe_train"]["launches"].items()})
     by_run.update(report["archs"]["launches"])
     by_run.update(report["whisper"]["launches"])
     # the children of phase 14 count in their own processes and report
@@ -3658,11 +4005,15 @@ def main(argv=None) -> int:
              "grouped_matmul": report["gmm_cases"]["decode_up"],
              "wkv6": report["wkv_cases"]["prefill"],
              "selective_scan": report["scan_cases"]["prefill"],
-             "flash_attention_bwd": report["bwd_cases"]["train_b8_s512"]}
+             "flash_attention_bwd": report["bwd_cases"]["train_b8_s512"],
+             "grouped_matmul_dx": report["gmm_dx_cases"]["train_up"],
+             "grouped_matmul_dw": report["gmm_dw_cases"]["train_up"]}
     timed = {"flash_attention": report["kernel_cases"],
              "grouped_matmul": report["gmm_cases"],
              "wkv6": report["wkv_cases"], "selective_scan": report["scan_cases"],
-             "flash_attention_bwd": report["bwd_cases"]}
+             "flash_attention_bwd": report["bwd_cases"],
+             "grouped_matmul_dx": report["gmm_dx_cases"],
+             "grouped_matmul_dw": report["gmm_dw_cases"]}
     kernels = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
         row = mains[name]

@@ -8,13 +8,14 @@ import torch
 def refuse_grad(name: str, *tensors) -> None:
     """Raise before a kernel launch that autograd would not see.
 
-    The grouped-matmul, WKV-6 and selective-scan kernels have no backward
-    yet: a launch fills a fresh tensor that has no ``grad_fn``, so an
-    input that requires grad would get no gradient through the kernel,
-    silently.  Each of their dispatchers' CUDA branches calls this first
-    (the flash kernel has its backward, ``attention.ops.FlashAttention``);
-    the CPU branches run the differentiable plain versions.  ``None``
-    entries are skipped."""
+    The WKV-6 and selective-scan kernels have no backward yet: a launch
+    fills a fresh tensor that has no ``grad_fn``, so an input that
+    requires grad would get no gradient through the kernel, silently.
+    Both dispatchers' CUDA branches call this first (the flash kernel and
+    the grouped matmul have their backwards, ``attention.ops.
+    FlashAttention`` and ``moe_gmm.ops.GroupedMatmul``); the CPU branches
+    run the differentiable plain versions.  ``None`` entries are
+    skipped."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(

@@ -1,6 +1,9 @@
 """Binding of the hand-written Hopper grouped matmul
 (``csrc/grouped_matmul.cu``), the port of the TPU kernel
-``repro/kernels/moe_gmm/kernel.py:grouped_matmul_kernel``.
+``repro/kernels/moe_gmm/kernel.py:grouped_matmul_kernel``, and of its two
+backward kernels in the same library: dx = dy @ w^T (the forward's kernel
+with w read K-major) and dw = x^T @ dy (a kernel of its own).  The
+reference has no backward kernel: ``jax.grad`` differentiates its einsum.
 
 The CUDA source has a plain C interface; it is compiled at first use by
 ``kernels.build`` and loaded with ctypes (pointers and the stream as
@@ -29,9 +32,12 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = build.load(NAME)
-        fn = lib.repro_grouped_matmul_bf16
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+        for name in ("repro_grouped_matmul_bf16",
+                     "repro_grouped_matmul_dx_bf16",
+                     "repro_grouped_matmul_dw_bf16"):
+            fn = getattr(lib, name)
+            fn.argtypes = _ARGTYPES
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -43,10 +49,30 @@ def grouped_matmul_fwd(x: torch.Tensor, w: torch.Tensor,
     dispatcher (``ops.grouped_matmul``) checks all of that.  Raises if the
     launch is refused."""
     E, C, D = x.shape
-    F = w.shape[2]
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = library().repro_grouped_matmul_bf16(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, D, F, stream)
+    _launch("repro_grouped_matmul_bf16", x, w, out, E, C, D, w.shape[2])
+
+
+def grouped_matmul_dx(dy: torch.Tensor, w: torch.Tensor,
+                      dx: torch.Tensor) -> None:
+    """Launch dx (E, C, D) = dy (E, C, F) @ w (E, D, F)^T on the current
+    stream; bf16, contiguous, 16-byte aligned, one CUDA device (the
+    dispatcher's backward checks it).  Raises if the launch is refused."""
+    E, C, F = dy.shape
+    _launch("repro_grouped_matmul_dx_bf16", dy, w, dx, E, C, w.shape[1], F)
+
+
+def grouped_matmul_dw(x: torch.Tensor, dy: torch.Tensor,
+                      dw: torch.Tensor) -> None:
+    """Launch dw (E, D, F) = x (E, C, D)^T @ dy (E, C, F) on the current
+    stream, summed over the C rows in one fixed order (no split, no
+    atomics); as ``grouped_matmul_dx`` otherwise."""
+    E, C, D = x.shape
+    _launch("repro_grouped_matmul_dw_bf16", x, dy, dw, E, C, D, dy.shape[2])
+
+
+def _launch(fn: str, a, b, out, E, C, D, F) -> None:
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    err = getattr(library(), fn)(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                 E, C, D, F, stream)
     if err != 0:
-        raise RuntimeError(f"grouped_matmul kernel launch failed: "
-                           f"cudaError_t {err}")
+        raise RuntimeError(f"{fn} launch failed: cudaError_t {err}")

@@ -60,9 +60,16 @@ machine with the card, where there is no JAX:
   need the tensors' context current there) with the main thread's bits;
 * the flash dispatcher, given inputs that require grad under grad mode,
   runs the forward kernel (with its logsumexp) and the backward kernel,
-  and the gradients match the plain backward; each of the other three
-  dispatchers raises before it launches (their kernels have no backward
-  yet), and launches the same call under ``torch.no_grad()``;
+  and the gradients match the plain backward; the grouped-matmul
+  dispatcher runs its forward kernel and then the dx and dw kernels (only
+  the one whose input requires grad), each counted once, the gradients
+  matching ``grouped_matmul_bwd_ref``; the WKV-6 and scan dispatchers
+  raise before they launch (their kernels have no backward yet), and
+  launch the same call under ``torch.no_grad()``;
+* the grouped matmul's dx and dw kernels against the fp32 plain backward
+  at the forward's ragged shapes (1e-2 x max|plain|), empty capacity rows
+  adding nothing, two launches with the same bits, and both launched from
+  a thread that has made no CUDA call yet;
 * the flash kernel at the static baseline's batched prefill shape (4, 16,
   512, 128) causal against its plain version (2e-2), and ``run_static``
   of the olmo-1b smoke config launching it once per layer per batch;
@@ -103,7 +110,8 @@ from repro_torch.kernels.attention import ops
 from repro_torch.kernels.mamba import ops as scan_ops
 from repro_torch.kernels.mamba.ref import selective_scan_ref
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
-from repro_torch.kernels.moe_gmm.ref import grouped_matmul_ref
+from repro_torch.kernels.moe_gmm.ref import (grouped_matmul_bwd_ref,
+                                             grouped_matmul_ref)
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6.ref import wkv6_ref
 
@@ -563,6 +571,69 @@ def test_grouped_matmul_launches_from_a_fresh_thread(cuda):
     assert torch.equal(fresh, main)
 
 
+def _gmm_bwd(x, w, dy):
+    """One launch of each backward kernel: (dx, dw)."""
+    from repro_torch.kernels.moe_gmm import kernel
+    dx, dw = torch.empty_like(x), torch.empty_like(w)
+    kernel.grouped_matmul_dx(dy, w, dx)
+    kernel.grouped_matmul_dw(x, dy, dw)
+    return dx, dw
+
+
+@pytest.mark.parametrize("case", GMM_CASES,
+                         ids=lambda c: "E%dC%dD%dF%d" % c)
+def test_grouped_matmul_backward_matches_plain_version_bit_for_bit_twice(
+        case, cuda):
+    """dx and dw against the fp32 plain backward (1e-2 x max|plain|
+    elementwise), with the last capacity rows empty (zeros) where C > 4,
+    and a second launch of each with the same bits."""
+    x, w = _gmm_inputs(case, cuda, seed=21)
+    E, C, D, F = case
+    dy = torch.from_numpy(np.random.default_rng(22).standard_normal(
+        (E, C, F), np.float32)).to(cuda, torch.bfloat16)
+    if C > 4:
+        x[:, -3:] = 0
+        dy[:, -3:] = 0
+    dx, dw = _gmm_bwd(x, w, dy)
+    again = _gmm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    want = grouped_matmul_bwd_ref(x.float(), w.float(), dy.float())
+    for got, ref, rep in zip((dx, dw), want, again):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        assert bool(torch.isfinite(got).all())
+        assert float((got.float() - ref).abs().max()) <= \
+            1e-2 * float(ref.abs().max())
+        assert torch.equal(got, rep)
+    if C > 4:
+        assert not bool(dx[:, -3:].any())
+
+
+def test_grouped_matmul_backward_launches_from_a_fresh_thread(cuda):
+    """Autograd runs the backward on a thread of its own: both backward
+    kernels launch from a thread that has made no CUDA call yet, with the
+    main thread's bits."""
+    import threading
+    x, w = _gmm_inputs((3, 40, 264, 200), cuda, seed=23)
+    dy = torch.randn((3, 40, 200), device=cuda).to(torch.bfloat16)
+    main = _gmm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    fresh, errors = [], []
+
+    def launch():
+        try:
+            fresh.extend(_gmm_bwd(x, w, dy))
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            errors.append(e)
+
+    worker = threading.Thread(target=launch)
+    worker.start()
+    worker.join()
+    torch.cuda.synchronize()
+    assert errors == []
+    assert all(torch.equal(a, b) for a, b in zip(fresh, main))
+
+
 def test_grouped_matmul_row_bits_do_not_depend_on_where_the_row_sits(cuda):
     x, w = _gmm_inputs((2, 70, 136, 264), cuda, seed=7)
     out = gmm_ops.grouped_matmul(x, w)
@@ -799,6 +870,32 @@ def _grad_case(name, device):
                                   "wkv6", "selective_scan"])
 def test_cuda_dispatchers_refuse_inputs_that_require_grad(name, cuda):
     module, call, inputs = _grad_case(name, cuda)
+    if name == "grouped_matmul":
+        # the grouped matmul has its backward: dx and dw come from the two
+        # backward kernels and match the plain backward (1e-2 x max|plain|:
+        # one rounding of an fp32 sum to bf16)
+        leaves = [t.clone().requires_grad_(True) for t in inputs]
+        dy = torch.randn((2, 16, 32), device=cuda).to(torch.bfloat16)
+        before = (gmm_ops.LAUNCHES, gmm_ops.BWD_LAUNCHES,
+                  gmm_ops.DX_LAUNCHES, gmm_ops.DW_LAUNCHES)
+        call(*leaves).backward(dy)
+        torch.cuda.synchronize()
+        assert (gmm_ops.LAUNCHES, gmm_ops.BWD_LAUNCHES, gmm_ops.DX_LAUNCHES,
+                gmm_ops.DW_LAUNCHES) == tuple(n + 1 for n in before)
+        want = grouped_matmul_bwd_ref(inputs[0].float(), inputs[1].float(),
+                                      dy.float())
+        for got, ref in zip(leaves, want):
+            assert bool(torch.isfinite(got.grad).all())
+            assert float((got.grad.float() - ref).abs().max()) <= \
+                1e-2 * float(ref.abs().max())
+        # only the input that requires grad gets a kernel
+        w = inputs[1].clone().requires_grad_(True)
+        call(inputs[0], w).backward(dy)
+        torch.cuda.synchronize()
+        assert (gmm_ops.DX_LAUNCHES, gmm_ops.DW_LAUNCHES) == \
+            (before[2] + 1, before[3] + 2)
+        assert torch.equal(w.grad, leaves[1].grad)
+        return
     if name == "flash_attention":
         # the flash kernel has its backward: a gradient goes through both
         # kernels and matches the plain backward (2e-2 x max|plain|: bf16

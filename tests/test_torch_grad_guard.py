@@ -1,13 +1,15 @@
 """The guard that keeps the port's CUDA kernel paths from cutting autograd.
 
-Three CUDA kernels have no backward yet (grouped matmul, WKV-6, the
-selective scan): a launch fills a fresh tensor with no ``grad_fn``.
+Two CUDA kernels have no backward yet (WKV-6, the selective scan): a
+launch fills a fresh tensor with no ``grad_fn``.
 ``repro_torch.kernels.refuse_grad`` raises before such a launch when grad
-mode is on and an input requires grad; each of those three dispatchers
-calls it first in its CUDA branch.  The flash kernel has its backward
-(``kernels.attention.ops.FlashAttention``: the forward kernel writes the
-logsumexp, ``csrc/flash_attention_bwd.cu`` computes dq, dk, dv), so its
-dispatcher runs both kernels under autograd instead.  Here, on the CPU:
+mode is on and an input requires grad; both dispatchers call it first in
+their CUDA branch.  The flash kernel and the grouped matmul have their
+backwards (``kernels.attention.ops.FlashAttention``: the forward kernel
+writes the logsumexp, ``csrc/flash_attention_bwd.cu`` computes dq, dk,
+dv; ``kernels.moe_gmm.ops.GroupedMatmul``: the dx and dw kernels of
+``csrc/grouped_matmul.cu``), so their dispatchers run the kernels under
+autograd instead.  Here, on the CPU:
 
 * ``refuse_grad`` raises for an input that requires grad under grad mode,
   and passes under ``torch.no_grad()``, for inputs that do not require
@@ -17,9 +19,9 @@ dispatcher runs both kernels under autograd instead.  Here, on the CPU:
   equal to autograd's through the plain version called directly.
 
 ``tests/test_torch_cuda.py`` checks the CUDA branches on the card: the
-flash dispatcher's gradient goes through both kernels and matches the
-plain backward; each of the other three raises without launching, and
-launches under ``torch.no_grad()``.
+flash and grouped-matmul dispatchers' gradients go through their kernels
+and match the plain backwards; WKV-6's and the scan's raise without
+launching, and launch under ``torch.no_grad()``.
 """
 import numpy as np
 import pytest

@@ -12,11 +12,14 @@ committer and config, and ``tests/test_placement.py``'s cases on the port.
   ``tests/test_placement.py:109-150`` ask of the reference;
 * ``CXL0Config(topology=, placement=)`` resolves its policy and schedule
   as the reference's does, and a serving engine under ``auto`` makes the
-  reference's schedule and shard decisions and emits its tokens.
+  reference's schedule and shard decisions and emits its tokens;
+* the training loop under ``commit_mode="auto"`` (the twin of
+  ``test_durable_loop_with_placement_auto``): it commits durably, ends
+  bit-identical to the port's own ``sync`` run, and makes the reference's
+  decisions with final params within ``PARAMS_REL_TOL`` of the
+  reference's run from the same initial params.
 
-Not here: ``test_durable_loop_with_placement_auto`` (the training loop,
-ROADMAP A2) waits for its slice.  The twin of
-``test_spill_auto_routes_by_policy_and_restores`` is in
+The twin of ``test_spill_auto_routes_by_policy_and_restores`` is in
 ``tests/test_torch_legacy_serve.py``.
 """
 import dataclasses
@@ -38,6 +41,10 @@ from repro_torch.dsm.pool import DSMPool
 from repro_torch.dsm.tiers import TierManager
 
 MB = 1 << 20
+#: final toy params of the two packages' training loops: fp32 elementwise
+#: updates computed by XLA and by PyTorch (the batch mean sums in another
+#: order), as ``tests/test_torch_scenarios.py`` holds its toy pools
+PARAMS_REL_TOL = 1e-6
 SIZES = [1, 4 << 10, 100_003, MB, 2 * MB + 7, 8 * MB, 64 * MB, 512 * MB]
 
 
@@ -231,6 +238,57 @@ def test_committer_auto_mode_resolves_schedule(tmp_path):
     assert c2.mode == "sharded-async"
     assert c2.drain().step == 0
     tiers2.close()
+
+
+def test_durable_loop_with_placement_auto(tmp_path):
+    """``tests/test_placement.py:150`` on the port: ``commit_mode="auto"``
+    with a policy resolves to a real schedule, the run commits durably,
+    and the final state equals the fixed-schedule run's bit for bit
+    (placement trades latency, never correctness).  Against the
+    reference's loop from the same initial params: the same decisions and
+    final params within ``PARAMS_REL_TOL``."""
+    from repro.data.pipeline import DataPipeline as RefPipeline
+    from repro.data.pipeline import SyntheticLMSource as RefSource
+    from repro.scenarios.worker import make_toy_state as ref_toy_state
+    from repro.scenarios.worker import make_toy_step as ref_toy_step
+    from repro.train.loop import run_durable_loop as ref_loop
+    from repro_torch.data.pipeline import DataPipeline, SyntheticLMSource
+    from repro_torch.scenarios.worker import make_toy_step, state_digest
+    from repro_torch.train.loop import run_durable_loop
+    from repro_torch.train.state import init_train_state
+    from repro_torch.utils.tree import tree_leaves
+
+    ref_state = ref_toy_state()
+    params = {k: torch.from_numpy(np.asarray(v).copy())
+              for k, v in ref_state.params.items()}
+    kw = dict(n_steps=6, commit_every=2)
+
+    def pipe():
+        return DataPipeline(SyntheticLMSource(1024), 4, 32)
+
+    p = PlacementPolicy("cxl20-switched-pool")
+    pool = DSMPool(str(tmp_path / "auto"))
+    r = run_durable_loop(make_toy_step(), init_train_state(params, 0),
+                         pipe(), pool, commit_mode="auto", placement=p, **kw)
+    assert pool.latest_manifest()["step"] == 5
+    assert p.decisions_for("schedule")           # the choice was priced
+    r_sync = run_durable_loop(make_toy_step(), init_train_state(params, 0),
+                              pipe(), DSMPool(str(tmp_path / "sync")),
+                              commit_mode="sync", **kw)
+    assert state_digest(r.state) == state_digest(r_sync.state)
+
+    ref_p = ref_placement.PlacementPolicy("cxl20-switched-pool")
+    ref = ref_loop(ref_toy_step(), ref_state,
+                   RefPipeline(RefSource(1024), 4, 32),
+                   RefPool(str(tmp_path / "ref")), commit_mode="auto",
+                   placement=ref_p, **kw)
+    assert _decisions(p) == _decisions(ref_p)
+    assert RefPool(str(tmp_path / "ref")).latest_manifest()["step"] == 5
+    for ours, theirs in zip(tree_leaves(r.state.params),
+                            [np.asarray(v) for v in
+                             ref.state.params.values()]):
+        assert float(np.max(np.abs(ours.numpy() - theirs))) <= \
+            PARAMS_REL_TOL * float(np.max(np.abs(theirs)))
 
 
 def test_auto_mode_requires_policy(tmp_path):

@@ -17,8 +17,9 @@ the same weights (the reference's params through ``from_reference``):
   internlm2-1.8b, phi3-medium-14b, yi-34b, chameleon-34b and
   deepseek-v2-236b): fp32 within 1e-5 relative, bf16 within 2e-2 (bf16
   rounds at other places in the two frameworks);
-* ``make_train_step`` on olmo-1b smoke for 3 steps (a single step would
-  run at lr 0), microbatch 1 and 2: in fp32 the loss, grad norm and lr of
+* ``make_train_step`` on the olmo-1b smoke config and on olmoe-1b-7b's
+  (fp32 only: ``STEP_CASES``) for 3 steps (a single step would run at lr
+  0), microbatch 1 and 2: in fp32 the loss, grad norm and lr of
   each step and the params, mu and nu after it within 1e-5 x max|ref| per
   leaf (fp32 sums in another order; Adam divides by sqrt(nu)); in bf16
   the same within 2e-2.
@@ -218,10 +219,24 @@ def test_remat_recomputes_the_same_values():
     assert all(torch.equal(x, y) for x, y in zip(*out))
 
 
+#: olmoe-1b-7b in fp32 only: in bf16 the two frameworks round the MoE
+#: block's input at other places, its router logits differ by up to 2.8e-3,
+#: and one of the 64 tokens of this batch has a top-2 margin of 1.8e-4 in
+#: layer 1, so it goes to another pair of experts — their weight gradients
+#: then differ by up to a third of their size.  That is top-k routing's
+#: discontinuity, not a tolerance: in fp32 (logits within 3.3e-7, margins
+#: >= 1.5e-3) every token takes the reference's experts.
+STEP_CASES = [("olmo-1b", "fp32"), ("olmo-1b", "bf16"),
+              ("olmoe-1b-7b", "fp32")]
+
+
 @pytest.mark.parametrize("microbatch", [1, 2])
-@pytest.mark.parametrize("dt", list(DTYPES))
-def test_train_step_matches_the_reference_over_three_steps(dt, microbatch):
-    rb, rp, b, p = _models("olmo-1b", dt)
+@pytest.mark.parametrize("arch,dt", STEP_CASES,
+                         ids=[dt if a == "olmo-1b" else f"{dt}-{a}"
+                              for a, dt in STEP_CASES])
+def test_train_step_matches_the_reference_over_three_steps(arch, dt,
+                                                           microbatch):
+    rb, rp, b, p = _models(arch, dt)
     key = jax.random.PRNGKey(0)
     r_state = ref_init_train_state(rp, key)
     r_step = jax.jit(ref_make_train_step(rb, microbatch=microbatch))
