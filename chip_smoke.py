@@ -1019,13 +1019,21 @@ def phase_gmm(torch, gmm_ops):
         limit = GMM_REL_TOL * float(ref.abs().max())
         check(bool(torch.isfinite(out).all()), f"{what} {name}: non-finite")
         check(err <= limit, f"{what} {name}: max abs err {err} > {limit}")
-        row = dict(shape=shape, max_abs_err=err, limit=limit,
-                   launch=dict(chunks=config[0], stages=config[1],
-                               shared_bytes=config[2], blocks=config[3]))
+        bwd = what != "grouped_matmul"
+        launch = dict(stages=config[1], shared_bytes=config[2],
+                      blocks=config[3])
+        if bwd:
+            launch.update(tile_rows=config[0], tile_cols=config[4],
+                          cluster=config[5])
+            shape_of = (f"tile {config[0]} x {config[4]}, cluster of "
+                        f"{config[5]}")
+        else:
+            launch.update(chunks=config[0])
+            shape_of = f"{config[0]} 16-row chunks"
+        row = dict(shape=shape, max_abs_err=err, limit=limit, launch=launch)
         msg = (f"kernel {what} {name}: E C D F {shape} max_abs_err="
-               f"{err:.3e} (limit {limit:.3e}) launch: {config[0]} "
-               f"{'F columns a tile' if what.endswith('_dw') else '16-row chunks'}"
-               f", {config[1]} stages, {config[2]} bytes of shared memory, "
+               f"{err:.3e} (limit {limit:.3e}) launch: {shape_of}, "
+               f"{config[1]} stages, {config[2]} bytes of shared memory, "
                f"{config[3]} blocks")
         if timed_fns is not None:
             raw, library, call, plain, big = timed_fns
@@ -1058,7 +1066,7 @@ def phase_gmm(torch, gmm_ops):
                         ).mul_(0.02).to(torch.bfloat16)
         out = gmm_ops.grouped_matmul(x, w)
         torch.cuda.synchronize()
-        config = launch_config(kernel, "repro_grouped_matmul_last_launch")
+        config = kernel.last_launch()
         ref = grouped_matmul_ref(x.float(), w.float())
         big = E * D * F >= 1e9
         rows[name] = report_row(
@@ -1092,8 +1100,7 @@ def phase_gmm(torch, gmm_ops):
             again = torch.empty_like(out_like)
             launch_fn(a, b, got)
             torch.cuda.synchronize()
-            config = launch_config(kernel,
-                                   "repro_grouped_matmul_last_launch")
+            config = kernel.last_launch()
             launch_fn(a, b, again)
             torch.cuda.synchronize()
             check(torch.equal(got, again),

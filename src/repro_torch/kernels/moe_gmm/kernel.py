@@ -1,9 +1,10 @@
 """Binding of the hand-written Hopper grouped matmul
 (``csrc/grouped_matmul.cu``), the port of the TPU kernel
-``repro/kernels/moe_gmm/kernel.py:grouped_matmul_kernel``, and of its two
-backward kernels in the same library: dx = dy @ w^T (the forward's kernel
-with w read K-major) and dw = x^T @ dy (a kernel of its own).  The
-reference has no backward kernel: ``jax.grad`` differentiates its einsum.
+``repro/kernels/moe_gmm/kernel.py:grouped_matmul_kernel``, and of its
+backward in the same library: dx = dy @ w^T and dw = x^T @ dy, two
+instantiations of one kernel (128 x 256 tiles, 2-block clusters that
+multicast a shared operand, a TMA-store epilogue).  The reference has no
+backward kernel: ``jax.grad`` differentiates its einsum.
 
 The CUDA source has a plain C interface; it is compiled at first use by
 ``kernels.build`` and loaded with ctypes (pointers and the stream as
@@ -68,6 +69,18 @@ def grouped_matmul_dw(x: torch.Tensor, dy: torch.Tensor,
     atomics); as ``grouped_matmul_dx`` otherwise."""
     E, C, D = x.shape
     _launch("repro_grouped_matmul_dw_bf16", x, dy, dw, E, C, D, dy.shape[2])
+
+
+def last_launch() -> list:
+    """The configuration of the library's last launch (6 ints): the
+    forward's 16-row chunks or the backward's tile rows, ring stages,
+    dynamic shared memory in bytes, blocks, tile columns, blocks a
+    cluster."""
+    fn = library().repro_grouped_matmul_last_launch
+    fn.argtypes, fn.restype = [_P], None
+    info = (_C * 6)()
+    fn(info)
+    return list(info)
 
 
 def _launch(fn: str, a, b, out, E, C, D, F) -> None:

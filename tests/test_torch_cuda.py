@@ -69,7 +69,10 @@ machine with the card, where there is no JAX:
 * the grouped matmul's dx and dw kernels against the fp32 plain backward
   at the forward's ragged shapes (1e-2 x max|plain|), empty capacity rows
   adding nothing, two launches with the same bits, and both launched from
-  a thread that has made no CUDA call yet;
+  a thread that has made no CUDA call yet; and at the edges of their
+  tiling (C 640, 129 and 200, a dx width that is not a multiple of the
+  256-column tile, E 1, tile counts that do not fill a 2-block cluster),
+  the second launch from a fresh thread;
 * the flash kernel at the static baseline's batched prefill shape (4, 16,
   512, 128) causal against its plain version (2e-2), and ``run_static``
   of the olmo-1b smoke config launching it once per layer per batch;
@@ -632,6 +635,58 @@ def test_grouped_matmul_backward_launches_from_a_fresh_thread(cuda):
     torch.cuda.synchronize()
     assert errors == []
     assert all(torch.equal(a, b) for a, b in zip(fresh, main))
+
+
+#: the edges of the backward's tiling (128 x 256 tiles, 2-block clusters
+#: that pair two M tiles of one N tile, or the last M tile's N tiles)
+GMM_BWD_EDGE_CASES = [  # E, C, D, F
+    (2, 640, 512, 264),     # C 640: five full M tiles of dx (the fifth
+                            # pairs its N tiles); ragged dw N tile
+    (2, 129, 256, 200),     # C 129: one row in dx's second M tile
+    (3, 200, 320, 72),      # C 200: a ragged second M tile; dx's width
+                            # 320 not a multiple of 256; dw's 3 M tiles
+    (1, 384, 1024, 512),    # E 1: three M tiles of dx, four N tiles
+    (1, 100, 600, 64),      # 3 dx tiles and 5 dw tiles: odd counts, the
+                            # last tile taken by both blocks of a cluster
+]
+
+
+@pytest.mark.parametrize("case", GMM_BWD_EDGE_CASES,
+                         ids=lambda c: "E%dC%dD%dF%d" % c)
+def test_grouped_matmul_backward_at_the_tile_edges(case, cuda):
+    """dx and dw at the shapes where the tiling has edges, against the fp32
+    plain backward (1e-2 x max|plain| elementwise), and a second launch of
+    each from a fresh thread (as autograd's) with the same bits."""
+    import threading
+    x, w = _gmm_inputs(case, cuda, seed=29)
+    E, C, D, F = case
+    dy = torch.from_numpy(np.random.default_rng(30).standard_normal(
+        (E, C, F), np.float32)).to(cuda, torch.bfloat16)
+    x[:, -5:] = 0
+    dy[:, -5:] = 0
+    dx, dw = _gmm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    again, errors = [], []
+
+    def launch():
+        try:
+            again.extend(_gmm_bwd(x, w, dy))
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            errors.append(e)
+
+    worker = threading.Thread(target=launch)
+    worker.start()
+    worker.join()
+    assert errors == []
+    want = grouped_matmul_bwd_ref(x.float(), w.float(), dy.float())
+    for got, ref, rep in zip((dx, dw), want, again):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        assert bool(torch.isfinite(got).all())
+        assert float((got.float() - ref).abs().max()) <= \
+            1e-2 * float(ref.abs().max())
+        assert torch.equal(got, rep)
+    assert not bool(dx[:, -5:].any())
 
 
 def test_grouped_matmul_row_bits_do_not_depend_on_where_the_row_sits(cuda):
