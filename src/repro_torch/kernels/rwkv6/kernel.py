@@ -1,5 +1,8 @@
 """Binding of the hand-written Hopper WKV-6 recurrence (``csrc/wkv6.cu``),
-the port of the TPU kernel ``repro/kernels/rwkv6/kernel.py:wkv6_kernel``.
+the port of the TPU kernel ``repro/kernels/rwkv6/kernel.py:wkv6_kernel``,
+and of its backward (``csrc/wkv6_bwd.cu``, a library of its own: the
+reference has no backward kernel, ``jax.grad`` differentiates its chunked
+form ``repro/models/rwkv.py:_wkv_chunked``).
 
 The CUDA source has a plain C interface; it is compiled at first use by
 ``kernels.build`` and loaded with ctypes (pointers and the stream as
@@ -27,8 +30,11 @@ _C = ctypes.c_int
 _P = ctypes.c_void_p
 _ARGTYPES = [_P] * 8 + [_C] * 4 + [_P]
 _CHUNKED_ARGTYPES = [_P] * 9 + [_C] * 4 + [_P]
+BWD_NAME = "wkv6_bwd"
+_BWD_ARGTYPES = [_P] * 15 + [_C] * 4 + [_P]
 
 _lib: Optional[ctypes.CDLL] = None
+_bwd_lib: Optional[ctypes.CDLL] = None
 
 
 def library() -> ctypes.CDLL:
@@ -75,3 +81,54 @@ def wkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.repro_wkv6_fwd(*ptrs, B, T, H, n, stream)
     if err != 0:
         raise RuntimeError(f"wkv6 kernel launch failed: cudaError_t {err}")
+
+
+def bwd_library() -> ctypes.CDLL:
+    """Build (first use only) and load the backward's library."""
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = build.load(BWD_NAME)
+        lib.repro_wkv6_bwd.argtypes = _BWD_ARGTYPES
+        lib.repro_wkv6_bwd.restype = ctypes.c_int
+        lib.repro_wkv6_bwd_last_launch.argtypes = [_P]
+        lib.repro_wkv6_bwd_last_launch.restype = None
+        _bwd_lib = lib
+    return _bwd_lib
+
+
+def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             logw: torch.Tensor, u: torch.Tensor, S0: Optional[torch.Tensor],
+             dy: torch.Tensor, dS: Optional[torch.Tensor], dr: torch.Tensor,
+             dk: torch.Tensor, dv: torch.Tensor, dlogw: torch.Tensor,
+             du: torch.Tensor, dS0: Optional[torch.Tensor]) -> None:
+    """Launch the backward on the current stream: r, k, v (B, T, H, n)
+    bf16, logw and dy (B, T, H, n) fp32, u (H, n) fp32, S0 and dS (B, H,
+    n, n) fp32 or None (zeros) -> dr, dk, dv (B, T, H, n) bf16, dlogw
+    (B, T, H, n) fp32, du (H, n) fp32 (summed over B) and dS0 (B, H, n, n)
+    fp32, or None when it is not wanted.  All contiguous, 16-byte aligned,
+    on one CUDA device — the dispatcher's backward (``ops.WKV6``) checks
+    that.  du's per-(b, h) parts (B x H x n fp32) come from
+    ``torch.empty`` on the same stream.  Raises if a launch is refused."""
+    B, T, H, n = r.shape
+    lib = bwd_library()
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    part = torch.empty((B, H, n), dtype=torch.float32, device=r.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = lib.repro_wkv6_bwd(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+        u.data_ptr(), ptr(S0), dy.data_ptr(), ptr(dS), dr.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), dlogw.data_ptr(), du.data_ptr(),
+        ptr(dS0), part.data_ptr(), B, T, H, n, stream)
+    if err != 0:
+        raise RuntimeError(f"wkv6 backward launch failed: cudaError_t {err}")
+
+
+def last_bwd_launch() -> list:
+    """The backward's last launch (4 ints): threads a block, steps a
+    stage, static shared memory in bytes, blocks."""
+    info = (ctypes.c_int * 4)()
+    bwd_library().repro_wkv6_bwd_last_launch(info)
+    return list(info)

@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the RWKV-6 WKV recurrence — the port of
 ``repro/kernels/rwkv6/ref.py`` (the step-by-step oracle) and of
 ``repro/models/rwkv.py:_wkv_chunked`` (the chunked closed form the
-reference model runs).  The CPU path runs them, and ``chip_smoke.py`` holds
-the CUDA kernel against them on the card.
+reference model runs) — and the oracle's backward (``wkv6_bwd_ref``,
+what ``csrc/wkv6_bwd.cu`` computes).  The CPU path runs the forwards, and
+``chip_smoke.py`` holds the CUDA kernels against them on the card.
 
 Per head, head size n, state S in R^{n x n} (key-major):
 
@@ -42,6 +43,64 @@ def wkv6_ref(r, k, v, logw, u, S0=None):
         ys.append(torch.einsum("bhij,bhi->bhj", S_plus, rf[:, t]))
         S = wf[:, t, :, :, None] * S + k_t[..., :, None] * v_t[..., None, :]
     return torch.stack(ys, 1), S
+
+
+def wkv6_bwd_ref(r, k, v, logw, u, S0, dy, dS=None):
+    """The plain backward of ``wkv6_ref``: the gradients of a loss whose
+    cotangents are ``dy`` (B, T, H, n) on y and ``dS`` (B, H, n, n) on the
+    final state (None: zero), from the state ``S0`` (None: zero), step by
+    step as ``csrc/wkv6_bwd.cu`` computes them.  Returns dr, dk, dv, dlogw
+    (B, T, H, n), du (H, n) summed over B, and dS0 (B, H, n, n), all
+    fp32.
+
+    With w_t = exp(logw_t), S_t the state after step t and dS_t its
+    gradient (dS_{T-1} = dS):
+
+    * forward sweep: dr0_t = S_{t-1} dy_t;
+    * reverse sweep: dk0_t = dS_t v_t, dv0_t = dS_t^T k_t, then
+      dS_{t-1} = diag(w_t) dS_t + r_t dy_t^T; dS0 = dS_{-1};
+    * the bonus, c_t = v_t . dy_t: dr_t = dr0_t + u k_t c_t, dk_t = dk0_t
+      + u r_t c_t, dv_t = dv0_t + (r_t . (u k_t)) dy_t, du = sum_{b,t}
+      r_t k_t c_t;
+    * the decay without a stored state: D_t = rowsum(dS_t * S_t) obeys
+      D_t = dlogw_t + k_t dk0_t and D_{t-1} = dlogw_t + r_t dr0_t, so from
+      D_{T-1} = rowsum(dS * S_{T-1}) (0 without dS) the reverse sweep
+      gives dlogw_t = D_t - k_t dk0_t, then D_{t-1} = dlogw_t + r_t dr0_t.
+    """
+    rf, kf, vf = r.float(), k.float(), v.float()
+    wf = torch.exp(logw.float())
+    uf = u.float()
+    dyf = dy.float()
+    T = r.shape[1]
+    S = _state0(r, S0)
+    dr0 = []
+    for t in range(T):                                    # forward sweep
+        dr0.append(torch.einsum("bhij,bhj->bhi", S, dyf[:, t]))
+        S = (wf[:, t, :, :, None] * S
+             + kf[:, t, :, :, None] * vf[:, t, :, None, :])
+    if dS is None:
+        G = torch.zeros_like(S)
+        D = torch.zeros_like(S[..., 0])
+    else:
+        G = dS.float()
+        D = (G * S).sum(-1)
+    dr, dk, dv, dlogw = ([None] * T for _ in range(4))
+    du = torch.zeros_like(D)
+    for t in reversed(range(T)):                          # reverse sweep
+        r_t, k_t, v_t, dy_t = rf[:, t], kf[:, t], vf[:, t], dyf[:, t]
+        dk0 = torch.einsum("bhij,bhj->bhi", G, v_t)
+        dv0 = torch.einsum("bhij,bhi->bhj", G, k_t)
+        G = wf[:, t, :, :, None] * G + r_t[..., :, None] * dy_t[..., None, :]
+        c = (v_t * dy_t).sum(-1, keepdim=True)
+        a = (r_t * (uf * k_t)).sum(-1, keepdim=True)
+        dr[t] = dr0[t] + uf * k_t * c
+        dk[t] = dk0 + uf * r_t * c
+        dv[t] = dv0 + a * dy_t
+        dlogw[t] = D - k_t * dk0
+        D = dlogw[t] + r_t * dr0[t]
+        du = du + r_t * k_t * c
+    return (torch.stack(dr, 1), torch.stack(dk, 1), torch.stack(dv, 1),
+            torch.stack(dlogw, 1), du.sum(0), G)
 
 
 def wkv6_chunked(r, k, v, logw, u, S0=None, *, chunk: int = 256):

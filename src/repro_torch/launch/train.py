@@ -11,18 +11,21 @@ the port of ``repro.launch.train`` (no mesh, one process).
         --global-batch 2 --seq 64 --pool "$TMPDIR/pool" --commit-every 2
 
 ``--device cuda`` (the default) runs on the card, where every attention
-forward and backward is the hand-written flash kernel and every expert
-product the grouped matmul's forward, dx and dw kernels, and raises
-without one.  The flash backward takes head dims 64 and 128, so on the
-card olmo-1b and olmoe-1b-7b train at their published widths, and the
-smoke configs (head dim 16) raise ``ValueError``; on the CPU everything
-runs the plain versions.  olmoe-1b-7b's full depth does not fit one
-80 GB card: its 6.9e9 params make a 69.2 GB state (bf16 params, fp32 mu
-and nu) that the out-of-place update holds twice, so ``--arch
-olmoe-1b-7b`` runs out of device memory here (``chip_smoke.py`` phase 17
-trains it cut to 2 of its 16 layers; a sharded state is ROADMAP A7's).
-rwkv6-7b and jamba do not train on the card yet: the WKV-6 and
-scan kernels have no backward (ROADMAP A2).  Weights are random,
+forward and backward is the hand-written flash kernel, every expert
+product the grouped matmul's forward, dx and dw kernels and every WKV the
+WKV-6 forward and backward kernels, and raises without one.  The flash
+backward takes head dims 64 and 128, so on the card olmo-1b and
+olmoe-1b-7b train at their published widths, and the smoke configs (head
+dim 16) raise ``ValueError``; on the CPU everything runs the plain
+versions.  olmoe-1b-7b's full depth does not fit one 80 GB card: its
+6.9e9 params make a 69.2 GB state (bf16 params, fp32 mu and nu) that the
+out-of-place update holds twice, so ``--arch olmoe-1b-7b`` runs out of
+device memory here (``chip_smoke.py`` phase 17 trains it cut to 1 of its
+16 layers; a sharded state is ROADMAP A7's).  rwkv6-7b trains on the card
+likewise, and its full 32 layers do not fit either: 7,575,044,096 params
+make a 75.8 GB state, held twice by the update (phase 18 trains it cut
+to 2 layers).  jamba does not train on the card yet: the scan kernel has
+no backward (ROADMAP B8) and raises.  Weights are random,
 from a ``torch.Generator`` seeded 0; the key data committed with them is
 the reference's ``PRNGKey(0)``.  The mesh flags, ``--compress`` and
 ``--distributed`` are not offered yet (ROADMAP A7).

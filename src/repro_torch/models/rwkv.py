@@ -8,10 +8,11 @@ Per head h with head size n, state S in R^{n x n}:
 
 The WKV goes through ``kernels.rwkv6.ops.wkv6``: on the card every WKV,
 prefill and decode alike, is one launch of the Hopper recurrence
-(``csrc/wkv6.cu``); on the CPU it is the reference model's own arithmetic
-(the chunked closed form for T > 1, the direct recurrence at T = 1).  Its
-y stays fp32 into the group norm, as in the reference model.  Token shift
-uses RWKV-6's data-dependent lerp (ddlerp).
+(``csrc/wkv6.cu``), and under autograd its gradient one launch of
+``csrc/wkv6_bwd.cu``; on the CPU it is the reference model's own
+arithmetic (the chunked closed form for T > 1, the direct recurrence at
+T = 1).  Its y stays fp32 into the group norm, as in the reference model.
+Token shift uses RWKV-6's data-dependent lerp (ddlerp).
 
 A given cache is updated IN PLACE: the WKV writes the new state over
 ``cache.S``; the caller (``lm.block_forward``) writes ``last_tm`` /

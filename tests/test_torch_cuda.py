@@ -63,9 +63,21 @@ machine with the card, where there is no JAX:
   and the gradients match the plain backward; the grouped-matmul
   dispatcher runs its forward kernel and then the dx and dw kernels (only
   the one whose input requires grad), each counted once, the gradients
-  matching ``grouped_matmul_bwd_ref``; the WKV-6 and scan dispatchers
-  raise before they launch (their kernels have no backward yet), and
-  launch the same call under ``torch.no_grad()``;
+  matching ``grouped_matmul_bwd_ref``; the WKV-6 dispatcher runs its
+  forward kernel and then ``csrc/wkv6_bwd.cu``, each counted once, every
+  input that requires grad getting a gradient within 1e-2 (dr, dk, dv:
+  one rounding to bf16) or 1e-3 (dlogw, du, dS0) x max|plain| of
+  ``wkv6_bwd_ref``, the same bits on a second run, no other input one, and
+  ``state_out`` under grad refused; the scan's dispatcher raises before it
+  launches (its kernel has no backward yet), and launches the same call
+  under ``torch.no_grad()``;
+* the WKV-6 backward kernel against ``wkv6_bwd_ref`` on the same
+  bf16-valued inputs at ``chip_smoke.py`` phase 3's backward shapes (the
+  rwkv6-7b training shape (8, 512, 64, 64), phase 18's (1, 64, 64, 64),
+  T 1, 37, 65 and 129, n 16 and 32, B 5 at T 300, strong decay at T 200,
+  weak decay at T 2048, S0 and the final state's cotangent given) within
+  the limits above, two launches bit-identical and a (b, h) row's
+  gradients bit-identical to a B = 1 call;
 * the grouped matmul's dx and dw kernels against the fp32 plain backward
   at the forward's ragged shapes (1e-2 x max|plain|), empty capacity rows
   adding nothing, two launches with the same bits, and both launched from
@@ -116,7 +128,7 @@ from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.kernels.moe_gmm.ref import (grouped_matmul_bwd_ref,
                                              grouped_matmul_ref)
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
-from repro_torch.kernels.rwkv6.ref import wkv6_ref
+from repro_torch.kernels.rwkv6.ref import wkv6_bwd_ref, wkv6_ref
 
 CASES = [
     # B, H, K, Sq, Sk, hd, hd_v, causal
@@ -970,6 +982,45 @@ def test_cuda_dispatchers_refuse_inputs_that_require_grad(name, cuda):
             assert float((got.grad.float() - ref).abs().max()) <= \
                 2e-2 * float(ref.abs().max())
         return
+    if name == "wkv6":
+        # WKV-6 has its backward: one forward and one backward launch; dr,
+        # dk, dv within 1e-2 x max|plain| (one rounding to bf16), dlogw, du
+        # and dS0 within 1e-3; the same bits on a second run
+        dy = torch.randn(inputs[0].shape, device=cuda)
+        dS = torch.randn(inputs[5].shape, device=cuda)
+        runs = []
+        for _ in range(2):
+            leaves = [t.clone().requires_grad_(True) for t in inputs]
+            before = (wkv_ops.LAUNCHES, wkv_ops.BWD_LAUNCHES)
+            y, S = call(*leaves)
+            ((y * dy).sum() + (S * dS).sum()).backward()
+            torch.cuda.synchronize()
+            assert (wkv_ops.LAUNCHES, wkv_ops.BWD_LAUNCHES) == \
+                (before[0] + 1, before[1] + 1)
+            runs.append([t.grad for t in leaves])
+        want = wkv6_bwd_ref(*inputs, dy, dS)
+        for got, t, ref, tol in zip(runs[0], inputs, want, WKV_BWD_TOL):
+            assert got.dtype == t.dtype and got.shape == t.shape
+            assert bool(torch.isfinite(got).all())
+            assert float((got.float() - ref).abs().max()) <= \
+                tol * float(ref.abs().max())
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+        # only the input that requires grad gets one; the loss never reads
+        # the final state (its cotangent is None)
+        k = inputs[1].clone().requires_grad_(True)
+        y, _ = call(inputs[0], k, *inputs[2:])
+        (y * dy).sum().backward()
+        torch.cuda.synchronize()
+        want = wkv6_bwd_ref(*inputs, dy, None)
+        assert float((k.grad.float() - want[1]).abs().max()) <= \
+            1e-2 * float(want[1].abs().max())
+        assert all(t.grad is None for t in inputs)
+        # an in-place state write cannot sit under autograd
+        before = wkv_ops.LAUNCHES
+        with pytest.raises(ValueError, match="state_out"):
+            call(inputs[0], k, *inputs[2:], state_out=inputs[5].clone())
+        assert wkv_ops.LAUNCHES == before
+        return
     inputs[0] = inputs[0].clone().requires_grad_(True)
     before = module.LAUNCHES
     with pytest.raises(RuntimeError, match="no backward"):
@@ -981,6 +1032,63 @@ def test_cuda_dispatchers_refuse_inputs_that_require_grad(name, cuda):
     assert module.LAUNCHES == before + 1
     outs = out if isinstance(out, tuple) else (out,)
     assert all(bool(torch.isfinite(o).all()) for o in outs)
+
+
+#: the backward's limits: dr, dk, dv are written in bf16 (one rounding),
+#: dlogw, du and dS0 in fp32 (sums in another order)
+WKV_BWD_TOL = (1e-2, 1e-2, 1e-2, 1e-3, 1e-3, 1e-3)
+WKV_BWD_CASES = [  # B, T, H, n, log decay, S0 and dS given
+    (8, 512, 64, 64, None, False),      # the rwkv6-7b training shape
+    (1, 64, 64, 64, None, False),       # chip_smoke.py phase 18 (a)
+    (2, 1, 4, 64, None, False), (2, 37, 4, 64, None, False),
+    (2, 65, 3, 32, None, False), (1, 129, 2, 16, None, False),
+    (2, 100, 2, 16, None, False), (2, 128, 2, 32, None, False),
+    (5, 300, 3, 32, None, False),
+    (2, 200, 4, 64, "strong", False), (1, 2048, 8, 64, "weak", False),
+    (2, 70, 4, 64, None, True),
+]
+
+
+def _wkv_bwd_id(case):
+    return _wkv_id(case[:5] if case[4] else case[:4]) + \
+        ("-state" if case[5] else "")
+
+
+@pytest.mark.parametrize("case", WKV_BWD_CASES, ids=_wkv_bwd_id)
+def test_wkv6_backward_matches_plain_version_bit_for_bit_twice(case, cuda):
+    from repro_torch.kernels.rwkv6 import kernel
+    r, k, v, logw, u, S0 = _wkv_inputs(case[:5] if case[4] else case[:4],
+                                       cuda, seed=19)
+    g = np.random.default_rng(20)
+    dy = torch.from_numpy(g.standard_normal(r.shape, np.float32)).to(cuda)
+    dS = torch.from_numpy(g.standard_normal(S0.shape, np.float32)).to(cuda)
+    if not case[5]:
+        S0 = dS = None
+
+    def launch(r, k, v, logw, S0, dy, dS):
+        out = [torch.empty_like(r), torch.empty_like(k), torch.empty_like(v),
+               torch.empty_like(logw), torch.empty_like(u),
+               torch.empty_like(S0) if S0 is not None else None]
+        kernel.wkv6_bwd(r, k, v, logw, u, S0, dy, dS, *out)
+        torch.cuda.synchronize()
+        return out
+
+    got = launch(r, k, v, logw, S0, dy, dS)
+    again = launch(r, k, v, logw, S0, dy, dS)
+    want = wkv6_bwd_ref(r, k, v, logw, u, S0, dy, dS)
+    for x, y, ref, tol in zip(got, again, want, WKV_BWD_TOL):
+        if x is None:
+            continue
+        assert torch.equal(x, y)
+        assert bool(torch.isfinite(x).all())
+        assert float((x.float() - ref).abs().max()) <= \
+            tol * float(ref.abs().max())
+    if r.shape[0] > 1:      # row 1's bits do not depend on B (du sums rows)
+        one = launch(*(t[1:2].contiguous() if t is not None else None
+                       for t in (r, k, v, logw, S0, dy, dS)))
+        for i in (0, 1, 2, 3, 5):
+            if got[i] is not None:
+                assert torch.equal(one[i], got[i][1:2])
 
 
 SCAN_CASES = [  # B, S, I, N

@@ -1,15 +1,16 @@
 """The guard that keeps the port's CUDA kernel paths from cutting autograd.
 
-Two CUDA kernels have no backward yet (WKV-6, the selective scan): a
-launch fills a fresh tensor with no ``grad_fn``.
-``repro_torch.kernels.refuse_grad`` raises before such a launch when grad
-mode is on and an input requires grad; both dispatchers call it first in
-their CUDA branch.  The flash kernel and the grouped matmul have their
-backwards (``kernels.attention.ops.FlashAttention``: the forward kernel
-writes the logsumexp, ``csrc/flash_attention_bwd.cu`` computes dq, dk,
-dv; ``kernels.moe_gmm.ops.GroupedMatmul``: the dx and dw kernels of
-``csrc/grouped_matmul.cu``), so their dispatchers run the kernels under
-autograd instead.  Here, on the CPU:
+One CUDA kernel has no backward yet (the selective scan): a launch fills a
+fresh tensor with no ``grad_fn``.  ``repro_torch.kernels.refuse_grad``
+raises before such a launch when grad mode is on and an input requires
+grad; the scan's dispatcher calls it first in its CUDA branch.  The flash
+kernel, the grouped matmul and WKV-6 have their backwards
+(``kernels.attention.ops.FlashAttention``: the forward kernel writes the
+logsumexp, ``csrc/flash_attention_bwd.cu`` computes dq, dk, dv;
+``kernels.moe_gmm.ops.GroupedMatmul``: the dx and dw kernels of
+``csrc/grouped_matmul.cu``; ``kernels.rwkv6.ops.WKV6``:
+``csrc/wkv6_bwd.cu``), so their dispatchers run the kernels under autograd
+instead.  Here, on the CPU:
 
 * ``refuse_grad`` raises for an input that requires grad under grad mode,
   and passes under ``torch.no_grad()``, for inputs that do not require
@@ -19,9 +20,9 @@ autograd instead.  Here, on the CPU:
   equal to autograd's through the plain version called directly.
 
 ``tests/test_torch_cuda.py`` checks the CUDA branches on the card: the
-flash and grouped-matmul dispatchers' gradients go through their kernels
-and match the plain backwards; WKV-6's and the scan's raise without
-launching, and launch under ``torch.no_grad()``.
+flash, grouped-matmul and WKV-6 dispatchers' gradients go through their
+kernels and match the plain backwards; the scan's raises without
+launching, and launches under ``torch.no_grad()``.
 """
 import numpy as np
 import pytest
@@ -36,8 +37,8 @@ from repro_torch.kernels.rwkv6 import ops as wkv_ops
 
 def test_refuse_grad_raises_for_an_input_that_requires_grad():
     x = torch.zeros(3, requires_grad=True)
-    with pytest.raises(RuntimeError, match="wkv6.*no backward"):
-        refuse_grad("wkv6", torch.zeros(3), x)
+    with pytest.raises(RuntimeError, match="selective_scan.*no backward"):
+        refuse_grad("selective_scan", torch.zeros(3), x)
 
 
 @pytest.mark.parametrize("case", ["no_grad", "plain_tensors", "none",

@@ -22,7 +22,8 @@ the same weights (the reference's params through ``from_reference``):
   0), microbatch 1 and 2: in fp32 the loss, grad norm and lr of
   each step and the params, mu and nu after it within 1e-5 x max|ref| per
   leaf (fp32 sums in another order; Adam divides by sqrt(nu)); in bf16
-  the same within 2e-2.
+  the same within 2e-2 (olmo-1b in both, olmoe-1b-7b and rwkv6-7b in
+  fp32; rwkv6-7b's ``gn_bias`` params within 2e-5: ``PARAMS_LEAF_TOL``).
 """
 import jax
 import jax.numpy as jnp
@@ -69,13 +70,18 @@ def _f32(x) -> np.ndarray:
     return np.asarray(x).astype(np.float32)
 
 
-def _assert_trees_close(ours, theirs, tol, what):
-    a, b = tree_leaves(ours), jax.tree_util.tree_leaves(theirs)
-    assert len(a) == len(b), what
-    for i, (x, y) in enumerate(zip(a, b)):
+def _assert_trees_close(ours, theirs, tol, what, leaf_tol=None):
+    """Leaf for leaf within ``tol`` x max|theirs|; ``leaf_tol`` maps the
+    dict key that holds a leaf to another bound for it."""
+    a = tree_leaves(ours)
+    flat = jax.tree_util.tree_flatten_with_path(theirs)[0]
+    assert len(a) == len(flat), what
+    for i, (x, (path, y)) in enumerate(zip(a, flat)):
         x, y = _f32(x), _f32(y)
         assert x.shape == y.shape, (what, i)
-        bound = tol * max(float(np.abs(y).max()), 1e-30)
+        key = getattr(path[-1], "key", None) if path else None
+        bound = (leaf_tol or {}).get(key, tol) * max(float(np.abs(y).max()),
+                                                     1e-30)
         err = float(np.abs(x - y).max())
         assert err <= bound, f"{what} leaf {i}: {err} > {bound}"
 
@@ -227,7 +233,20 @@ def test_remat_recomputes_the_same_values():
 #: discontinuity, not a tolerance: in fp32 (logits within 3.3e-7, margins
 #: >= 1.5e-3) every token takes the reference's experts.
 STEP_CASES = [("olmo-1b", "fp32"), ("olmo-1b", "bf16"),
-              ("olmoe-1b-7b", "fp32")]
+              ("olmoe-1b-7b", "fp32"), ("rwkv6-7b", "fp32")]
+#: rwkv6-7b's ``gn_bias`` after the second step (microbatch 1): that leaf
+#: starts at zero, and one of its elements has a gradient 400x below the
+#: leaf's max, whose fp32 rounding noise is 1.3e-4 of itself in both
+#: packages (each as far from an fp64 run of the port as the other, ~5e-7
+#: of each leaf's max).  Adam normalises that gradient to a full-size
+#: update, so the two steps' params differ by 1.15e-5 x max|ref| there,
+#: with every other leaf, the gradients and both moments within 1e-5.
+#: rwkv6-7b in bf16 is no case: its loss and grad norm hold (within 7e-4
+#: of the reference's over the three steps), but the moments of mu_ck and
+#: mu_cr, leaves of small gradients, differ by up to 4.3e-2 of their max
+#: after one step, and the zero-initialised biases' params by up to 0.16
+#: after two (Adam normalises their bf16-rounded gradients)
+PARAMS_LEAF_TOL = {("rwkv6-7b", "fp32"): {"gn_bias": 2e-5}}
 
 
 @pytest.mark.parametrize("microbatch", [1, 2])
@@ -258,7 +277,8 @@ def test_train_step_matches_the_reference_over_three_steps(arch, dt,
         for k in ("loss", "grad_norm", "nll"):
             assert abs(float(met[k]) - float(r_met[k])) <= \
                 tol * abs(float(r_met[k])), (i, k)
-        _assert_trees_close(state.params, r_state.params, tol, "params")
+        _assert_trees_close(state.params, r_state.params, tol, "params",
+                            PARAMS_LEAF_TOL.get((arch, dt)))
         _assert_trees_close(state.opt.mu, r_state.opt.mu, tol, "mu")
         _assert_trees_close(state.opt.nu, r_state.opt.nu, tol, "nu")
     assert float(r_met["lr"]) > 0          # the update was exercised
