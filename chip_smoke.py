@@ -9,7 +9,7 @@ layers), then the CXL0 model's tensor twin at a fuzzing run's batch, then
 olmo-1b's serving features (commit schedules, static baseline, prefix
 reuse) and a fleet of olmo-1b engines over one pool (live migration,
 the placement policy), both at full width with the depth cut to 2
-layers, then durable training of olmo-1b at full width (depth cut to 4
+layers, then durable training of olmo-1b at full width (depth cut to 2
 layers) through the flash forward and backward kernels, then serving of
 the other five decoder-only architectures at full width (internlm2-1.8b,
 phi3-medium-14b, yi-34b, chameleon-34b; deepseek-v2-236b's depth cut to 8
@@ -23,15 +23,18 @@ olmo-1b fleet at 2 layers grows and drains, the autoscaler's cell); durable
 training of olmoe-1b-7b at full width (depth cut to 1 layer) through the
 grouped matmul's forward and backward kernels, then of rwkv6-7b at full width
 (depth cut to 2 layers) through the WKV-6 forward and backward kernels,
-run right after olmo-1b's training (phases 17 and 18 below).  It prints
-one line per phase:
+then of jamba-1.5-large-398b at full width (depth cut to 1 layer) through
+the selective scan's forward and backward kernels, run right after
+olmo-1b's training (phases 17, 18 and 19 below).  It prints one line per
+phase:
 
 1. environment — the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions;
-2. build — compiles the six kernel libraries of the paths from
+2. build — compiles the seven kernel libraries of the paths from
    ``src/repro_torch/csrc`` (one ``nvcc`` each, started together: the four
    TPU kernels' counterparts, the grouped matmul's library holding its dx
-   and dw kernels too, the flash backward and the WKV-6 backward) and
+   and dw kernels too, the flash backward, the WKV-6 backward and the
+   scan's backward) and
    shows ptxas's register / spill / static shared-memory report for each
    kernel instantiation (template arguments kept); the dynamic shared
    memory, ring stages and blocks of each flash and grouped-matmul launch
@@ -141,6 +144,20 @@ one line per phase:
      the bytes (dA, dBu, C, h0 read once, y and h written once, fp32) at
      3.35 TB/s and 4 fp32 operations per (t, i, n) at 67 TFLOP/s; library:
      none, no one PyTorch call computes a selective scan;
+   * the selective scan's backward (``csrc/selective_scan_bwd.cu``: the
+     forward's split, a block a batch row and 32 channels at N 16; a
+     forward sweep parks h before each 8-step segment, a reverse sweep
+     recomputes a segment's h in registers and writes d(dA) and d(dBu);
+     dC summed a block at a time in channel order, then over the blocks
+     by a second launch; no atomics) at jamba-1.5-large's training chunk
+     (8, 256, 16384, 16) with h0 and the final h's cotangent given (timed),
+     its prefill chunk (1, 256, 16384, 16), ragged S (37, 100) and I
+     (1000), N 1, 4, 6, 8 and 64: d(dA) and d(dBu) within 1e-4 and dC and
+     dh0 within 1e-3 x max|plain| of ``selective_scan_bwd_ref`` on the same
+     fp32 inputs, two launches bit-identical; bound: the larger of the
+     bytes (dA, dBu, dy, C, h0 and dh read once, d(dA), d(dBu), dC and dh0
+     written once, fp32) at 3.35 TB/s and 8 fp32 operations per (t, i, n)
+     at 67 TFLOP/s; library: none, no one PyTorch call computes it;
 4. olmo-1b path — ``build_serve_engine("olmo-1b", smoke=False)`` with
    random weights from a torch.Generator seeded 0: 4 slots, 16 requests
    of 512 prompt tokens and budgets 4,8,16,32,48, a pool in a temp dir
@@ -269,24 +286,24 @@ one line per phase:
         printed; tokens and every count equal (a)'s under sync.
 
 11. durable training (``repro_torch.train``) of olmo-1b at full width
-    with its depth cut from 16 layers to 4 (for the time limit;
-    371,458,048 parameters, random weights from a torch.Generator seeded
+    with its depth cut from 16 layers to 2 (for the time limit;
+    237,240,320 parameters, random weights from a torch.Generator seeded
     0, deterministic algorithms on):
     (a) the loss and the global grad norm of one (1, 64) batch on the card
-        through the kernels (4 layers: 8 forward launches under remat,
-        4 backward) against the port on the CPU with the same weights in
+        through the kernels (2 layers: 4 forward launches under remat,
+        2 backward) against the port on the CPU with the same weights in
         fp32 and plain attention: within 2e-2 relative;
     (b) the clean run: 8 train steps at the reference launcher's global
         batch 8 x seq 512 on ``run_durable_loop``'s pipeline, with no
         commit: losses, ms a step, peak memory and the bf16 param elements
-        that moved printed; 64 forward and 32 backward flash launches;
+        that moved printed; 32 forward and 16 backward flash launches;
     (c) ``run_durable_loop`` on a pool in a temp dir (the free disk printed
         first: the phase fails below ~12 GB): 8 steps, a ``sync`` commit
         every 4, retention 2, a crash before the commit of step 6: 1 crash,
         recovered from the pool at step 3, steps 4-7 run again; params,
         mu, nu, the step, the key data and the pipeline state
         bit-identical to (b)'s, and the losses of steps 4-7 too; each
-        commit exactly 3,714,580,508 bytes (params bf16, mu and nu fp32,
+        commit exactly 2,372,403,228 bytes (params bf16, mu and nu fp32,
         28 bytes of counters and pipeline), the newest manifest step 7,
         two kept; host s a commit printed; 11 steps' flash launches.
     The phase's time is printed.
@@ -338,6 +355,31 @@ one line per phase:
         first: the phase fails below ~22 GB): recovered from the pool at
         step 1, bit-identical to (b), each commit exactly 9,768,878,108
         bytes (params bf16, mu and nu fp32, 28 bytes); 6 steps' launches.
+19. durable training of jamba-1.5-large-398b (right after phase 18) at
+    full width — d_model 8192, mamba inner 16384, d_state 16, vocab 65536,
+    bf16 params and moments — with its depth cut from 72 layers to 1
+    (``reduced``: 72 layers hold 398e9 params; layer 0 is a mamba mixer
+    and a dense MLP, 2,098,020,352 params counted and 2,098,077,696 held
+    with the norms and the conv and dt biases; layer 1 would add a
+    16-expert MoE, 12.18e9 params, whose state the card cannot hold
+    twice), random weights from a torch.Generator seeded 0, as phase 17
+    otherwise:
+    (a) one (1, 64) batch, with ``ssm_chunk`` 48 on both sides so its 64
+        tokens make 2 chunks (the second ragged), on the card through the
+        kernels against the port on the CPU in fp32 with the plain
+        versions: the loss, the grad norm and the grad norm of the leaves
+        that reach the loss only through the scan (``JAMBA_SCAN_LEAVES``:
+        A_log, dt_bias, dt_proj) within 2e-2 relative;
+        launches: the scan's forward 4 (each chunk's body runs under a
+        checkpoint: the forward, then the recompute), its backward 2,
+        every other kernel 0 (``jamba_step_launches``: a function of the
+        chunks, ceil(S / ssm_chunk));
+    (b) 4 clean steps of (8, 512), 2 chunks of 256 a step: finite losses,
+        launches 4 x 4 forward and 4 x 2 backward scans;
+    (c) ``run_durable_loop`` as phase 17's (c) (the free disk printed
+        first: the phase fails below ~29 GB): recovered from the pool at
+        step 1, bit-identical to (b), each commit exactly 12,588,466,204
+        bytes (params, mu and nu bf16, 28 bytes); 6 steps' launches.
 12. the other five decoder-only architectures — internlm2-1.8b,
     phi3-medium-14b, yi-34b, chameleon-34b at full width and depth
     (yi-34b's and chameleon-34b's stacked MLP leaves drawn a layer at a
@@ -388,11 +430,13 @@ one line per phase:
         orders are both within the bound, and each such step is printed);
         ms a prefill and a decode step printed; then the phase's time.
 
-14. crash scenarios (``repro_torch.scenarios``): the port's runner spawns
-    the killable workers as child processes on the card (they load the
-    libraries phase 2 built), after the parent has freed every earlier
-    model; for the time limit the independent chains run at once (the
-    serving reference, each serving kill and its restart, the training
+14. crash scenarios (``repro_torch.scenarios``), run beside phase 13
+    for the time limit (the parent trains whisper-small on the card while
+    this phase's orchestration waits on its children in a thread): the
+    port's runner spawns the killable workers as child processes on the
+    card (they load the libraries phase 2 built), after the parent has
+    freed every model before phase 13; the independent chains run at once
+    (the serving reference, each serving kill and its restart, the training
     reference, the training kill and its restart), the children of a chain
     one after another; a child that exits with anything but 0 or 17 fails
     the phase:
@@ -404,19 +448,22 @@ one line per phase:
         tick >= 6 and its restart: each restart resumes at the newest
         completed commit (ticks 3, 3, 6) and every session's tokens equal
         the uninterrupted run's bit for bit;
-    (b) training olmo-1b at full width cut to 4 layers: (8, 512) batches,
+    (b) training olmo-1b at full width cut to 2 layers: (8, 512) batches,
         ``sharded-async`` over 4 shards, 4 steps, a commit every 2, two
         manifests kept; an uninterrupted run, then a kill at
         ``mid_flush`` of step 3 and its restart, which resumes at step 1
         and ends with the uninterrupted run's params digest.
     Each child's flash launches (its own counters, from 0 at its start;
     the killed ones print theirs in their kill line) must equal 16 a
-    prefill (serving) or 8 forward and 4 backward a step (training), at
+    prefill (serving) or 4 forward and 2 backward a step (training), at
     the prefills and steps the CPU rehearsal of the phase predicts
     (``CRASH_SERVE_PREFILLS``, ``CRASH_TRAIN_STEPS``).  Printed for each
     child beside the card's name and power limit: wall s, ``recover_s``
     (from the process's start to the end of its first step or scheduler
     round) and the bytes it recovered into the card.
+    Every time, rate and peak that phases 13 and 14 print is taken with the
+    other phase running on the card and the host, and is marked so; the
+    card memory the parent holds is read before either starts.
 15. the rank cluster, the KV cache's tiers and legacy serving, after the
     parent has freed every earlier model:
     (a) three rank processes of ``scenarios.cluster_worker`` with
@@ -479,8 +526,8 @@ one line per phase:
         controller must beat every fixed fleet size with no session lost;
         its cost against the best fixed fleet's is printed.
 
-Each path and each run of phases 9, 10, 11, 12, 13, 15 (c), 16 (b), 17
-and 18 is
+Each path and each run of phases 9, 10, 11, 12, 13, 15 (c), 16 (b), 17,
+18 and 19 is
 driven with every launch count set to 0 just before it and read just
 after; the children of phase 14 start with theirs at 0.  Then a
 ``{"kernels": [...]}`` line, the card line again, and as the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -504,6 +551,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Any, Callable
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -520,6 +568,10 @@ WKV_REL_TOL = 1e-3
 WKV_BWD_REL_TOL = {"dr": 1e-2, "dk": 1e-2, "dv": 1e-2, "dlogw": 1e-3,
                    "du": 1e-3, "dS0": 1e-3}
 SCAN_REL_TOL = 1e-4
+#: the scan backward's limits (x max|plain|): d(dA) and d(dBu) elementwise
+#: fp32 (one fma in another order a step), dC and dh0 sums over I and S in
+#: another order
+SCAN_BWD_REL_TOL = {"ddA": 1e-4, "ddBu": 1e-4, "dC": 1e-3, "dh0": 1e-3}
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/attention/kernel.py:89"),
@@ -543,6 +595,10 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     # (repro/models/rwkv.py:_wkv_chunked) when it trains rwkv6-7b
     "wkv6_bwd": ("src/repro_torch/csrc/wkv6_bwd.cu",
                  "src/repro/models/rwkv.py:119"),
+    # no TPU kernel: jax.grad differentiates the reference's chunk solver
+    # (repro/models/mamba.py:_chunk_scan) when it trains jamba
+    "selective_scan_bwd": ("src/repro_torch/csrc/selective_scan_bwd.cu",
+                           "src/repro/models/mamba.py:94"),
 }
 #: the kernel libraries the rows above live in (one nvcc each)
 LIBRARIES = sorted({os.path.basename(src)[:-3] for src, _ in
@@ -552,7 +608,8 @@ ARCHS = ("olmo-1b", "olmoe-1b-7b", "rwkv6-7b", "jamba-1.5-large-398b")
 #: features, the fleet, the KV tiers and legacy serving, elastic
 #: scaling): 2 of its 16 layers, for the time limit (host-bound decode
 #: ticks and commits scale with the depth; the schedule and every check's
-#: form do not).  Phases 4 and 14 serve all 16
+#: form do not; 2 is the least depth where a layer-index fault can show).
+#: Phases 4 and 14 serve all 16
 OLMO_LAYERS = 2
 #: the depth each path runs at (the rest of each config as published):
 #: jamba-1.5-large-398b is 797 GB in bf16 at its 72 layers; 5 hold 48.1 GB
@@ -1492,6 +1549,103 @@ def phase_scan(torch, scan_ops):
     return rows
 
 
+def scan_bwd_bound_ms(B, S, I, N, state: bool) -> tuple:
+    """Least time for the backward's work: dA and dBu read once and d(dA)
+    and d(dBu) written once, dy, C read and dC written (fp32), with
+    ``state`` h0 and the final h's cotangent read and dh0 written, vs 8
+    fp32 operations per (t, i, n) (h's update, g's multiply-add, the
+    products for d(dA), the carry and dC)."""
+    nbytes = 4 * (4 * B * S * I * N + B * S * I + 2 * B * S * N)
+    if state:
+        nbytes += 4 * 3 * B * I * N
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 8 * B * S * I * N / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def phase_scan_bwd(torch, scan_ops):
+    """Phase 3: the selective scan's backward kernel against
+    ``selective_scan_bwd_ref`` on the card, timed at jamba-1.5-large's
+    training chunk (8, 256, 16384, 16), two launches bit-identical in
+    every case."""
+    from repro_torch.kernels.mamba import kernel
+    from repro_torch.kernels.mamba.ref import selective_scan_bwd_ref
+    cases = [  # (name, B, S, I, N, timed, h0 and dh given)
+        ("train", 8, 256, 16384, 16, True, True),
+        ("prefill", 1, 256, 16384, 16, False, False),
+        ("ragged_s37", 2, 37, 4096, 16, False, True),
+        ("ragged_s100", 1, 100, 2048, 16, False, False),
+        ("ragged_i1000", 2, 64, 1000, 16, False, True),
+        ("n4", 1, 64, 1024, 4, False, True),
+        ("n8", 1, 64, 1024, 8, False, False),
+        ("n6", 1, 20, 70, 6, False, True),
+        ("n64_s1", 1, 1, 33, 64, False, True),
+        ("n1", 3, 9, 5, 1, False, True),
+    ]
+    gen = torch.Generator("cuda").manual_seed(9876)
+    rows = {}
+    for name, B, S, I, N, timed, state in cases:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        dA = torch.sigmoid(randn(B, S, I, N))
+        dBu, C, dy = randn(B, S, I, N) * 0.3, randn(B, S, N), randn(B, S, I)
+        h0, dh = ((randn(B, I, N) * 0.1, randn(B, I, N)) if state
+                  else (None, None))
+
+        def outputs():
+            return [torch.empty_like(dA), torch.empty_like(dBu),
+                    torch.empty_like(C),
+                    torch.empty_like(h0) if state else None]
+
+        got, again = outputs(), outputs()
+        kernel.selective_scan_bwd(dA, dBu, C, h0, dy, dh, *got)
+        kernel.selective_scan_bwd(dA, dBu, C, h0, dy, dh, *again)
+        torch.cuda.synchronize()
+        want = selective_scan_bwd_ref(dA, dBu, C, h0, dy, dh)
+        errs = {}
+        for what, x, y, ref in zip(SCAN_BWD_REL_TOL, got, again, want):
+            if x is None:
+                continue
+            err = float((x - ref).abs().max())
+            limit = SCAN_BWD_REL_TOL[what] * float(ref.abs().max())
+            check(bool(torch.isfinite(x).all()),
+                  f"scan_bwd {name}: non-finite {what}")
+            check(err <= limit, f"scan_bwd {name}: {what} max abs err "
+                                f"{err} > {limit}")
+            check(torch.equal(x, y), f"scan_bwd {name}: {what} differs "
+                                     f"between two launches")
+            errs[what] = (err, limit)
+        row = dict(shape=[B, S, I, N], state=state,
+                   max_abs_err=max(e for e, _ in errs.values()),
+                   errs={w: list(e) for w, e in errs.items()})
+        msg = (f"kernel selective_scan_bwd {name}: B={B} S={S} I={I} N={N}"
+               f"{' with h0, dh' if state else ''}: " + ", ".join(
+                   f"{w} max_abs_err={e:.3e} (limit {lim:.3e})"
+                   for w, (e, lim) in errs.items())
+               + "; two launches bit-identical")
+        if timed:
+            kernel_ms = device_ms(lambda: kernel.selective_scan_bwd(
+                dA, dBu, C, h0, dy, dh, *got))
+            plain_ms = device_ms(lambda: selective_scan_bwd_ref(
+                dA, dBu, C, h0, dy, dh), reps=2, replays=5)
+            bound_ms, bound_by = scan_bwd_bound_ms(B, S, I, N, state)
+            config = kernel.last_bwd_launch()
+            row.update(kernel_ms=kernel_ms, plain_ms=plain_ms,
+                       library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                       kernel_over_bound=kernel_ms / bound_ms, launch=config)
+            msg += (f" kernel_ms={kernel_ms:.5f} plain_ms={plain_ms:.5f} "
+                    f"library_ms=none (no one PyTorch call) bound_ms="
+                    f"{bound_ms:.5f} ({bound_by}), kernel/bound "
+                    f"{kernel_ms / bound_ms:.2f}; launch: {config[0]} "
+                    f"threads, {config[1]} steps a segment, {config[2]} B "
+                    f"dynamic shared memory, {config[3]} blocks")
+        rows[name] = row
+        print(msg, flush=True)
+        del dA, dBu, C, dy, h0, dh, got, again, want
+    return rows
+
+
 def phase_profile(torch, engine, trace, ticks: int = 8) -> dict:
     """Where a serving window's device time goes: ``torch.profiler`` over
     ``ticks`` ticks of the path after the first admissions (prefills,
@@ -1632,9 +1786,10 @@ def phase_path(torch, cfg, trace, t_max, counters, *, profile=True,
               f"{arch}: wkv6 launches {launches['wkv6']} != {n_rwkv} rwkv "
               f"layers x ({res.prefills} prefills + {res.decode_ticks} "
               f"decode ticks)")
-        check(launches["wkv6_bwd"] == 0,
+        check(launches["wkv6_bwd"] == launches["selective_scan_bwd"] == 0,
               f"{arch}: serving launched the wkv6 backward "
-              f"{launches['wkv6_bwd']} times")
+              f"{launches['wkv6_bwd']} times, the scan's "
+              f"{launches['selective_scan_bwd']}")
         want_scan = n_mamba * (chunks * res.prefills + res.decode_ticks)
         check(launches["selective_scan"] == want_scan,
               f"{arch}: selective_scan launches "
@@ -2532,21 +2687,22 @@ def phase_fleet(torch, cfg, counters) -> dict:
 
 
 #: phase 11 trains olmo-1b at full width with its depth cut from 16 layers
-#: to 4, to keep the script within its time limit beside phase 14 (each
-#: full-depth commit of 11.8 GB took ~23 host s)
-TRAIN_LAYERS = 4
+#: to 2, to keep the script within its time limit beside phases 14 and 19
+#: (each full-depth commit of 11.8 GB took ~23 host s; at 4 layers the
+#: phase took 36.5 s)
+TRAIN_LAYERS = 2
 #: the cut model's parameters (``ModelConfig.param_count``; 1,176,764,416
-#: at 16 layers) and its committed bytes: params bf16 + mu and nu fp32 +
-#: 28 bytes of counters (int32 step, (2,) uint32 key data) and pipeline
-#: (two int64)
-TRAIN_PARAMS = 371_458_048
-TRAIN_CKPT_BYTES = 3_714_580_508
+#: at 16 layers, 371,458,048 at 4) and its committed bytes: params bf16 +
+#: mu and nu fp32 + 28 bytes of counters (int32 step, (2,) uint32 key
+#: data) and pipeline (two int64)
+TRAIN_PARAMS = 237_240_320
+TRAIN_CKPT_BYTES = 2_372_403_228
 #: phase 11's run: the reference launcher's batch and sequence
 #: (``repro/launch/train.py`` defaults), 8 steps, a sync commit every 4,
 #: two manifests kept
 TRAIN_BATCH, TRAIN_SEQ = 8, 512
 TRAIN_KW = dict(n_steps=8, commit_every=4, commit_mode="sync", retention=2)
-#: retention 2 keeps at most three ~3.7 GB commits on disk at once
+#: retention 2 keeps at most three ~2.4 GB commits on disk at once
 TRAIN_DISK_BYTES = 12e9
 
 
@@ -2619,7 +2775,7 @@ def phase_train(torch, cfg, counters) -> dict:
     print(f"train: free disk in {tmp}: {free / 1e9:.1f} GB", flush=True)
     check(free >= TRAIN_DISK_BYTES,
           f"train: the temp filesystem {tmp} holds {free / 1e9:.1f} GB free; "
-          f"phase 11 keeps up to three ~3.7 GB commits (retention 2) and "
+          f"phase 11 keeps up to three ~2.4 GB commits (retention 2) and "
           f"needs ~{TRAIN_DISK_BYTES / 1e9:.0f} GB")
     out = {}
     bundle = build(cfg, device="cuda")
@@ -2788,17 +2944,18 @@ MOE_TRAIN_CRASH = {3: "before_commit"}
 MOE_TRAIN_DISK_BYTES = 15e9
 
 
-def moe_step_launches(cfg) -> dict:
+def moe_step_launches(cfg, seq: int) -> dict:
     """Kernel launches of one olmoe train step (``with_remat``): the
     grouped matmul 3 times a MoE layer a forward pass and flash once an
     attention, each forward twice when the stacked group repeats (remat
-    recomputes it); dx, dw and the flash backward once each a backward."""
+    recomputes it); dx, dw and the flash backward once each a backward,
+    whatever the sequence length."""
     L = cfg.n_layers
     passes = 2 if L > 1 else 1
     return {"flash_attention": passes * L, "flash_attention_bwd": L,
             "grouped_matmul": 3 * passes * L, "grouped_matmul_dx": 3 * L,
             "grouped_matmul_dw": 3 * L, "wkv6": 0, "wkv6_bwd": 0,
-            "selective_scan": 0}
+            "selective_scan": 0, "selective_scan_bwd": 0}
 
 
 def phase_moe_train(torch, cfg, counters) -> dict:
@@ -2810,13 +2967,14 @@ def phase_moe_train(torch, cfg, counters) -> dict:
         params=MOE_TRAIN_PARAMS, ckpt_bytes=MOE_TRAIN_CKPT_BYTES,
         batch=MOE_TRAIN_BATCH, seq=MOE_TRAIN_SEQ, kw=MOE_TRAIN_KW,
         crash=MOE_TRAIN_CRASH, disk_bytes=MOE_TRAIN_DISK_BYTES,
-        per_step=moe_step_launches(cfg)))
+        per_step=moe_step_launches))
 
 
 #: phase 18 trains rwkv6-7b at full width with its depth cut from 32 layers
 #: to 2: 32 layers hold 7,577,018,368 params, a 75.8 GB state (bf16 params,
 #: fp32 mu and nu) that the out-of-place update holds twice.  Two layers are
 #: one stacked group of two repeats, so remat recomputes each WKV forward
+#: and the backward runs on the recompute's saved tensors
 RWKV_TRAIN_LAYERS = 2
 #: ``ModelConfig.param_count`` at 2 layers (the analytic count, equal to the
 #: reference's) and the params the bundle holds, which add the 131,072 it
@@ -2840,8 +2998,9 @@ RWKV_TRAIN_DISK_BYTES = 22e9
 #: near the group norm's eps (64e-5), the norm's gradient there is steep
 #: and set by a cancelling bf16 dot product, and every leaf below it moves
 #: with it: bf16 moves the reference's own grad norm 11.0% (CPU, seed 1),
-#: the port's plain versions on the CPU 17.5% at this phase's weights and
-#: the card 19.6% (PERF.md, ``tests/rwkv_bf16_witness.py``)
+#: the port's plain versions on the CPU 17.5% at this phase's weights
+#: (layer 1, head 45) and the card 19.6% (PERF.md,
+#: ``tests/rwkv_bf16_witness.py``)
 RWKV_GRAD_NORM_TOL = 0.25
 #: the decay's leaves reach the loss only through the WKV-6 backward's
 #: dlogw, and y_0 and y_1 do not depend on the decay, so (a) holds their
@@ -2849,16 +3008,17 @@ RWKV_GRAD_NORM_TOL = 0.25
 RWKV_DECAY_LEAVES = ("dec_w1", "dec_w2", "dec_bias")
 
 
-def rwkv_step_launches(cfg) -> dict:
+def rwkv_step_launches(cfg, seq: int) -> dict:
     """Kernel launches of one rwkv6-7b train step (``with_remat``): the
     WKV-6 forward once a layer a forward pass, twice when the stacked group
-    repeats (remat recomputes it), its backward once a layer."""
+    repeats (remat recomputes it), its backward once a layer, whatever the
+    sequence length (the kernel takes the whole sequence)."""
     L = cfg.n_layers
     passes = 2 if L > 1 else 1
     return {"flash_attention": 0, "flash_attention_bwd": 0,
             "grouped_matmul": 0, "grouped_matmul_dx": 0,
             "grouped_matmul_dw": 0, "wkv6": passes * L, "wkv6_bwd": L,
-            "selective_scan": 0}
+            "selective_scan": 0, "selective_scan_bwd": 0}
 
 
 def phase_rwkv_train(torch, cfg, counters) -> dict:
@@ -2869,16 +3029,80 @@ def phase_rwkv_train(torch, cfg, counters) -> dict:
         params=RWKV_TRAIN_PARAMS, ckpt_bytes=RWKV_TRAIN_CKPT_BYTES,
         batch=TRAIN_BATCH, seq=TRAIN_SEQ, kw=RWKV_TRAIN_KW,
         crash={3: "before_commit"}, disk_bytes=RWKV_TRAIN_DISK_BYTES,
-        per_step=rwkv_step_launches(cfg),
+        per_step=rwkv_step_launches,
         grad_norm_tol=RWKV_GRAD_NORM_TOL, held=RWKV_DECAY_LEAVES))
+
+
+#: phase 19 trains jamba-1.5-large-398b at full width with its depth cut
+#: from 72 layers to 1: one layer is a mamba mixer and a dense MLP, the
+#: scan's forward and backward its only kernels (layer 1 would add a
+#: 16-expert MoE, 12.18e9 params, whose state the card cannot hold twice)
+JAMBA_TRAIN_LAYERS = 1
+#: ``ModelConfig.param_count`` at 1 layer (the analytic count, equal to the
+#: reference's) and the params the bundle holds, which add the 57,344 it
+#: leaves out (the two block norms' and the final norm's scales, the conv
+#: and dt biases)
+JAMBA_TRAIN_PARAM_COUNT = 2_098_020_352
+JAMBA_TRAIN_PARAMS = 2_098_077_696
+#: the held params, mu and nu, all bf16 (the config keeps its moments in
+#: bf16), + 28 bytes of counters and pipeline
+JAMBA_TRAIN_CKPT_BYTES = 12_588_466_204
+JAMBA_TRAIN_STEPS = 4
+#: as phase 17's (c): sync commits every 2 steps, one manifest kept, a
+#: crash before the commit of step 3
+JAMBA_TRAIN_KW = dict(n_steps=JAMBA_TRAIN_STEPS, commit_every=2,
+                      commit_mode="sync", retention=1)
+#: retention 1 keeps one ~12.6 GB commit on disk and writes the next
+#: beside it
+JAMBA_TRAIN_DISK_BYTES = 29e9
+#: (a)'s chunk: its 64 tokens make 2 chunks (48 + a ragged 16), as the
+#: (8, 512) batch makes 2 of the config's 256, so the cotangent of h
+#: crosses a chunk boundary on the card in (a) too
+JAMBA_A_CHUNK = 48
+#: A_log, dt_bias and dt_proj reach the loss only through the scan (as dA
+#: and dBu's dt), so (a) holds their grad norm to the CPU's fp32 one within
+#: ``TOL``: the global norm is mostly the embeddings' (1.07e9 of the
+#: 2.1e9 params) and could hide a backward that drops the cotangent of h
+#: across chunks or dC
+JAMBA_SCAN_LEAVES = ("A_log", "dt_bias", "dt_proj")
+
+
+def jamba_step_launches(cfg, seq: int) -> dict:
+    """Kernel launches of one jamba-1.5-large train step at one layer (a
+    mamba mixer and a dense MLP; no stacked group, so remat recomputes
+    nothing): each chunk's body runs under a checkpoint, so the scan's
+    forward runs twice a chunk (the forward, then the recompute in the
+    backward) and its backward once; chunks = ceil(seq / ssm_chunk)."""
+    check(cfg.n_layers == 1, f"jamba_step_launches counts 1 layer, not "
+                             f"{cfg.n_layers}")
+    chunks = -(-seq // min(cfg.ssm_chunk, seq))
+    return {"flash_attention": 0, "flash_attention_bwd": 0,
+            "grouped_matmul": 0, "grouped_matmul_dx": 0,
+            "grouped_matmul_dw": 0, "wkv6": 0, "wkv6_bwd": 0,
+            "selective_scan": 2 * chunks, "selective_scan_bwd": chunks}
+
+
+def phase_jamba_train(torch, cfg, counters) -> dict:
+    """Phase 19: durable training of jamba-1.5-large-398b at full width
+    through the selective scan's forward and backward kernels (see the
+    module docstring)."""
+    return durable_train_cell(torch, cfg, counters, TrainCell(
+        label="jamba train", phase=19, param_count=JAMBA_TRAIN_PARAM_COUNT,
+        params=JAMBA_TRAIN_PARAMS, ckpt_bytes=JAMBA_TRAIN_CKPT_BYTES,
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, kw=JAMBA_TRAIN_KW,
+        crash={3: "before_commit"}, disk_bytes=JAMBA_TRAIN_DISK_BYTES,
+        per_step=jamba_step_launches, held=JAMBA_SCAN_LEAVES,
+        a_kw=dict(ssm_chunk=JAMBA_A_CHUNK)))
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainCell:
-    """What phases 17 and 18 check: the held and analytic parameter
+    """What phases 17, 18 and 19 check: the held and analytic parameter
     counts, the bytes a commit, the batch, the loop's arguments and crash
     (a sync commit every 2 steps, one kept, a crash before the commit of
-    step 3), the free disk needed and the kernel launches a step."""
+    step 3), the free disk needed and the kernel launches a step, a
+    function of the config and the batch's sequence length (the scan runs
+    once a chunk)."""
     label: str
     phase: int
     param_count: int
@@ -2889,12 +3113,14 @@ class TrainCell:
     kw: dict
     crash: dict
     disk_bytes: float
-    per_step: dict
+    per_step: Callable[[Any, int], dict]
     #: (a)'s bound on the grad norm against the CPU's fp32 one
     grad_norm_tol: float = TOL
     #: dict keys whose leaves' grad norm (a) also holds to the CPU's fp32
     #: one, within ``TOL``
     held: tuple = ()
+    #: config fields (a) changes on both sides
+    a_kw: dict = dataclasses.field(default_factory=dict)
 
 
 def durable_train_cell(torch, cfg, counters, cell: TrainCell) -> dict:
@@ -2902,7 +3128,10 @@ def durable_train_cell(torch, cfg, counters, cell: TrainCell) -> dict:
     (a) one (1, 64) batch through the kernels against the port on the CPU
     in fp32 with the plain versions; (b) the clean run on the loop's
     pipeline, no commit; (c) ``run_durable_loop`` with the cell's commits
-    and crash, held bit for bit to (b)."""
+    and crash, held bit for bit to (b).  The CPU's side of (a) runs in a
+    thread beside (a), (b) and (c) on the card; (b)'s and (c)'s times are
+    taken with it running."""
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.data.pipeline import DataPipeline, SyntheticLMSource
     from repro_torch.dsm.pool import DSMPool
     from repro_torch.models.registry import build
@@ -2911,7 +3140,7 @@ def durable_train_cell(torch, cfg, counters, cell: TrainCell) -> dict:
     from repro_torch.train.step import make_train_step
     from repro_torch.utils.tree import tree_leaves, tree_map
     t_phase = time.perf_counter()
-    tag, n_steps, per_step = cell.label, cell.kw["n_steps"], cell.per_step
+    tag, n_steps = cell.label, cell.kw["n_steps"]
     tmp = tempfile.gettempdir()
     free = shutil.disk_usage(tmp).free
     print(f"{tag}: free disk in {tmp}: {free / 1e9:.1f} GB", flush=True)
@@ -2928,36 +3157,35 @@ def durable_train_cell(torch, cfg, counters, cell: TrainCell) -> dict:
           f"{tag}: {cfg.arch_id} at {cfg.n_layers} layers counts "
           f"{cfg.param_count()} params and holds {n_params}, expected "
           f"{cell.param_count} and {cell.params}")
-    # (a) the kernel path against the plain path: one (1, 64) batch
+    # (a) the kernel path against the plain path: one (1, 64) batch.  The
+    # CPU's fp32 reference runs in a thread beside the card's (a), (b) and
+    # (c), and is compared after (c)
     tok = torch.randint(0, cfg.vocab_size, (1, 65),
                         generator=torch.Generator().manual_seed(0))
     batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+    a_cfg = cfg.with_(**cell.a_kw)
+    cpu_cfg = a_cfg.with_(param_dtype="float32", compute_dtype="float32")
+    cpu_params = tree_map(lambda x: x.float().cpu(), params)
+
+    def plain_fp32():
+        t0 = time.perf_counter()
+        got = _loss_and_grad_norm(torch, build(cpu_cfg, device="cpu"),
+                                  cpu_params, batch, cell.held)
+        return got, time.perf_counter() - t0
+
+    beside = ThreadPoolExecutor(1)
+    f_plain = beside.submit(plain_fp32)
+    beside.shutdown(wait=False)
+    per_step = cell.per_step(a_cfg, batch["tokens"].shape[1])
     reset_counts(counters)
-    card = _loss_and_grad_norm(torch, bundle, params,
-                               {k: v.cuda() for k, v in batch.items()},
-                               cell.held)
+    card = _loss_and_grad_norm(
+        torch, build(a_cfg, device="cuda") if cell.a_kw else bundle, params,
+        {k: v.cuda() for k, v in batch.items()}, cell.held)
     a_launches = read_counts(counters)
-    cpu_cfg = cfg.with_(param_dtype="float32", compute_dtype="float32")
-    t0 = time.perf_counter()
-    plain = _loss_and_grad_norm(torch, build(cpu_cfg, device="cpu"),
-                                tree_map(lambda x: x.float().cpu(), params),
-                                batch, cell.held)
-    cpu_s = time.perf_counter() - t0
-    rel = [abs(c - p) / abs(p) for c, p in zip(card, plain)]
-    tols = [TOL, cell.grad_norm_tol] + [TOL] * bool(cell.held)
-    out["kernel_vs_plain"] = dict(card=card, cpu_fp32=plain, rel=rel,
-                                  tol=tols, launches=a_launches,
-                                  cpu_s=cpu_s)
-    held = (f"; the grad norm of {'/'.join(cell.held)} {card[2]:.6f} vs "
-            f"{plain[2]:.6f}, rel {rel[2]:.2e} (tol {tols[2]})"
-            if cell.held else "")
     print(f"{tag} (a): {cfg.arch_id} (1, 64) loss {card[0]:.6f} grad norm "
           f"{card[1]:.6f} on the card (bf16, kernels; launches "
-          f"{a_launches}) vs {plain[0]:.6f} / {plain[1]:.6f} plain fp32 on "
-          f"the CPU ({cpu_s:.1f} s); rel {rel[0]:.2e} (tol {tols[0]}) / "
-          f"{rel[1]:.2e} (tol {tols[1]}){held}", flush=True)
-    check(all(r <= t for r, t in zip(rel, tols)),
-          f"{tag} (a): card vs plain rel {rel} > {tols}")
+          f"{a_launches}); the CPU's fp32 runs beside (b) and (c)",
+          flush=True)
     check(a_launches == per_step,
           f"{tag} (a): launches {a_launches}, expected {per_step}")
 
@@ -2969,6 +3197,7 @@ def durable_train_cell(torch, cfg, counters, cell: TrainCell) -> dict:
                             cell.batch, cell.seq)
 
     # (b) the clean run: the loop's steps on its pipeline, no commit
+    per_step = cell.per_step(cfg, cell.seq)
     reset_counts(counters)
     torch.cuda.reset_peak_memory_stats()
     rb_state, rb_pipe, losses_b, step_s, wall_b = clean_run(
@@ -3054,6 +3283,21 @@ def durable_train_cell(torch, cfg, counters, cell: TrainCell) -> dict:
     check(c_launches == {k: n_runs * n for k, n in per_step.items()},
           f"{tag} (c): launches {c_launches}, expected {n_runs} x "
           f"{per_step}")
+    plain, cpu_s = f_plain.result()
+    rel = [abs(c - p) / abs(p) for c, p in zip(card, plain)]
+    tols = [TOL, cell.grad_norm_tol] + [TOL] * bool(cell.held)
+    out["kernel_vs_plain"] = dict(card=card, cpu_fp32=plain, rel=rel,
+                                  tol=tols, launches=a_launches,
+                                  cpu_s=cpu_s)
+    held = (f"; the grad norm of {'/'.join(cell.held)} {card[2]:.6f} vs "
+            f"{plain[2]:.6f}, rel {rel[2]:.2e} (tol {tols[2]})"
+            if cell.held else "")
+    print(f"{tag} (a): loss {card[0]:.6f} / grad norm {card[1]:.6f} on "
+          f"the card vs {plain[0]:.6f} / {plain[1]:.6f} plain fp32 on the "
+          f"CPU ({cpu_s:.1f} s, beside (b) and (c)); rel {rel[0]:.2e} (tol "
+          f"{tols[0]}) / {rel[1]:.2e} (tol {tols[1]}){held}", flush=True)
+    check(all(r <= t for r, t in zip(rel, tols)),
+          f"{tag} (a): card vs plain rel {rel} > {tols}")
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"{tag}: phase {cell.phase} took {out['phase_s']:.1f} s",
           flush=True)
@@ -3368,7 +3612,8 @@ def phase_whisper(torch, cfg, counters) -> dict:
           f"whisper (b): logits against the full forward: errs {errs}, "
           f"argmax flips {flips}")
     out["phase_s"] = time.perf_counter() - t_phase
-    print(f"whisper: phase 13 took {out['phase_s']:.1f} s", flush=True)
+    print(f"whisper: phase 13 took {out['phase_s']:.1f} s (beside phase "
+          f"14)", flush=True)
     out["launches"] = {"whisper train (a)": b_launches,
                        "whisper train (a) crash": c_launches,
                        "whisper decode (b)": inf_launches}
@@ -3380,15 +3625,15 @@ def phase_whisper(torch, cfg, counters) -> dict:
 #: Serving: olmo-1b at full width and depth, 10 requests of 128 prompt
 #: tokens, budgets 4,8,16,24, 4 slots, a sync session commit every 3
 #: ticks; each kill at the first hook of its point at tick >= 6.
-#: Training: olmo-1b at full width cut to 4 layers, (8, 512) batches,
-#: sharded-async over 4 shards, 4 steps, a commit every 2, two manifests
-#: kept; killed at mid_flush of step 3 (the second commit; a 4-step run
-#: commits no step >= 4)
+#: Training: olmo-1b at full width cut to 2 layers (for the time limit),
+#: (8, 512) batches, sharded-async over 4 shards, 4 steps, a commit every
+#: 2, two manifests kept; killed at mid_flush of step 3 (the second
+#: commit; a 4-step run commits no step >= 4)
 CRASH_SERVE_KW = dict(requests=10, slots=4, commit_every=3, prompt_len=128,
                       new_tokens="4,8,16,24", commit_mode="sync", full=True)
 CRASH_SERVE_KILL_STEP = 6
 CRASH_TRAIN_KW = dict(steps=4, commit_every=2, mode="sharded-async",
-                      shards=4, retention=2, model="full", layers=4)
+                      shards=4, retention=2, model="full", layers=2)
 CRASH_TRAIN_KILL = ("mid_flush", 3)
 #: the CPU rehearsal of this phase (the same trace, kill points and
 #: schedules on olmo-1b's smoke config, ``--device cpu``): prefills of each
@@ -3434,9 +3679,6 @@ def phase_crash(torch, card: str) -> dict:
                                               serve_reference_run)
     from repro_torch.scenarios.worker import KILL_EXIT
     t_phase = time.perf_counter()
-    held = torch.cuda.memory_allocated()
-    print(f"crash: the parent holds {held / 1e9:.3f} GB of the card before "
-          f"spawning its children", flush=True)
     tmp = tempfile.gettempdir()
     free = shutil.disk_usage(tmp).free
     check(free >= CRASH_DISK_BYTES,
@@ -3571,7 +3813,8 @@ def phase_crash(torch, card: str) -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - t_phase
-    print(f"crash: phase 14 took {out['phase_s']:.1f} s [{card}]", flush=True)
+    print(f"crash: phase 14 took {out['phase_s']:.1f} s (beside phase 13) "
+          f"[{card}]", flush=True)
     return out
 
 
@@ -4152,7 +4395,8 @@ def main(argv=None) -> int:
                 "grouped_matmul_dw": (gmm_ops, "DW_LAUNCHES"),
                 "wkv6": (wkv_ops, "LAUNCHES"),
                 "wkv6_bwd": (wkv_ops, "BWD_LAUNCHES"),
-                "selective_scan": (scan_ops, "LAUNCHES")}
+                "selective_scan": (scan_ops, "LAUNCHES"),
+                "selective_scan_bwd": (scan_ops, "BWD_LAUNCHES")}
 
     report = {"clock": {}}
     t_start = time.perf_counter()
@@ -4201,6 +4445,7 @@ def main(argv=None) -> int:
     report["wkv_cases"] = phase_wkv(torch, wkv_ops)
     report["wkv_bwd_cases"] = phase_wkv_bwd(torch, wkv_ops)
     report["scan_cases"] = phase_scan(torch, scan_ops)
+    report["scan_bwd_cases"] = phase_scan_bwd(torch, scan_ops)
 
     # -- 4. to 7. the four serving paths ------------------------------------
     clock("phase 4-7")
@@ -4304,22 +4549,34 @@ def main(argv=None) -> int:
     report["rwkv_train"] = phase_rwkv_train(
         torch, get_config("rwkv6-7b").with_(n_layers=RWKV_TRAIN_LAYERS),
         counters)
+    # -- 19. durable training of jamba-1.5-large-398b ----------------------
+    clock("phase 19")
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["jamba_train"] = phase_jamba_train(
+        torch, get_config("jamba-1.5-large-398b").with_(
+            n_layers=JAMBA_TRAIN_LAYERS), counters)
     # -- 12. the other five decoder-only architectures ----------------------
     clock("phase 12")
     gc.collect()
     torch.cuda.empty_cache()
     report["archs"] = phase_archs(torch, trace, t_max, counters)
-    # -- 13. whisper-small: durable training, prefill and decode -----------
-    clock("phase 13")
+    # -- 13. whisper-small: durable training, prefill and decode, and ----
+    # -- 14. crash scenarios: real process kills of the workers, at once:
+    # phase 14's children are processes of their own (their launches count
+    # there), and whisper-small (10.2 GB) leaves the card room for them
+    clock("phases 13 and 14")
     gc.collect()
     torch.cuda.empty_cache()
-    report["whisper"] = phase_whisper(torch, get_config("whisper-small"),
-                                      counters)
-    # -- 14. crash scenarios: real process kills of the workers ------------
-    clock("phase 14")
-    gc.collect()
-    torch.cuda.empty_cache()
-    report["crash"] = phase_crash(torch, card)
+    print(f"crash: the parent holds {torch.cuda.memory_allocated() / 1e9:.3f}"
+          f" GB of the card before phase 14 spawns its children; phases 13 "
+          f"and 14 run at once, so every time, rate and peak either prints "
+          f"is taken beside the other", flush=True)
+    with ThreadPoolExecutor(1) as beside:
+        f_crash = beside.submit(phase_crash, torch, card)
+        report["whisper"] = phase_whisper(torch, get_config("whisper-small"),
+                                          counters)
+        report["crash"] = f_crash.result()
     # -- 15. the rank cluster, whole-lane tiers, legacy serving -----------
     clock("phase 15")
     gc.collect()
@@ -4345,6 +4602,8 @@ def main(argv=None) -> int:
                    for r, n in report["moe_train"]["launches"].items()})
     by_run.update({f"rwkv6-7b {r}": n
                    for r, n in report["rwkv_train"]["launches"].items()})
+    by_run.update({f"jamba-1.5-large-398b {r}": n
+                   for r, n in report["jamba_train"]["launches"].items()})
     by_run.update(report["archs"]["launches"])
     by_run.update(report["whisper"]["launches"])
     # the children of phase 14 count in their own processes and report
@@ -4360,14 +4619,16 @@ def main(argv=None) -> int:
              "flash_attention_bwd": report["bwd_cases"]["train_b8_s512"],
              "grouped_matmul_dx": report["gmm_dx_cases"]["train_up"],
              "grouped_matmul_dw": report["gmm_dw_cases"]["train_up"],
-             "wkv6_bwd": report["wkv_bwd_cases"]["train"]}
+             "wkv6_bwd": report["wkv_bwd_cases"]["train"],
+             "selective_scan_bwd": report["scan_bwd_cases"]["train"]}
     timed = {"flash_attention": report["kernel_cases"],
              "grouped_matmul": report["gmm_cases"],
              "wkv6": report["wkv_cases"], "selective_scan": report["scan_cases"],
              "flash_attention_bwd": report["bwd_cases"],
              "grouped_matmul_dx": report["gmm_dx_cases"],
              "grouped_matmul_dw": report["gmm_dw_cases"],
-             "wkv6_bwd": report["wkv_bwd_cases"]}
+             "wkv6_bwd": report["wkv_bwd_cases"],
+             "selective_scan_bwd": report["scan_bwd_cases"]}
     kernels = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
         row = mains[name]

@@ -5,8 +5,11 @@ CUDA tensors, the plain version for CPU tensors — the port of
 The choice follows the DEVICE of the tensors it is given and nothing else:
 a CPU tensor runs the plain step recurrence (``ref.selective_scan_ref``),
 a CUDA tensor launches ``csrc/selective_scan.cu`` or raises.  There is no
-fallback from the kernel to the plain version.  ``LAUNCHES`` counts kernel
-launches, so a run can show that its path went through the kernel.
+fallback from the kernel to the plain version.  Under grad mode, with an
+input that requires grad, the CUDA branch runs ``SelectiveScan``: the
+forward kernel, then in the backward ``csrc/selective_scan_bwd.cu``.
+``LAUNCHES`` counts forward launches and ``BWD_LAUNCHES`` backward ones, so
+a run can show that its path went through the kernels.
 """
 from __future__ import annotations
 
@@ -14,12 +17,15 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import cotangent
 from repro_torch.kernels.mamba import kernel
 from repro_torch.kernels.mamba.ref import selective_scan_ref
 
-#: kernel launches since the last reset (the plain CPU path does not count)
+#: forward kernel launches since the last reset (the plain CPU path does
+#: not count)
 LAUNCHES = 0
+#: backward kernel launches (one a backward call)
+BWD_LAUNCHES = 0
 MAX_STATE = 64
 
 
@@ -65,25 +71,68 @@ def _check_cuda(dA, dBu, C, h0, h_out):
             raise ValueError("h_out overlaps h0 without being h0")
 
 
+def _forward(dA, dBu, C, h0, h_out):
+    """One forward launch (checked inputs)."""
+    global LAUNCHES
+    B, S, I, N = dA.shape
+    if h0 is None:
+        h0 = torch.zeros((B, I, N), dtype=torch.float32, device=dA.device)
+    h = h_out if h_out is not None else torch.empty_like(h0)
+    y = torch.empty((B, S, I), dtype=torch.float32, device=dA.device)
+    kernel.selective_scan_fwd(dA, dBu, C, h0, y, h)
+    LAUNCHES += 1
+    return y, h
+
+
+class SelectiveScan(torch.autograd.Function):
+    """The forward kernel under autograd; the backward launches
+    ``csrc/selective_scan_bwd.cu`` once for all four gradients.  ``h0``
+    None is a zero state (no gradient).  The cotangent of the final h may
+    be None (a chunk whose h nothing reads): then the kernel takes it as
+    zero."""
+
+    @staticmethod
+    def forward(ctx, dA, dBu, C, h0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(dA, dBu, C, h0)
+        return _forward(dA, dBu, C, h0, None)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        global BWD_LAUNCHES
+        dA, dBu, C, h0 = ctx.saved_tensors
+        B, S, I, _ = dA.shape
+        dy = cotangent(dy)
+        if dy is None:
+            dy = torch.zeros((B, S, I), dtype=torch.float32, device=dA.device)
+        dh = cotangent(dh)
+        ddA, ddBu, dC = (torch.empty_like(t) for t in (dA, dBu, C))
+        dh0 = (torch.empty_like(h0) if h0 is not None
+               and ctx.needs_input_grad[3] else None)
+        kernel.selective_scan_bwd(dA, dBu, C, h0, dy, dh, ddA, ddBu, dC, dh0)
+        BWD_LAUNCHES += 1
+        need = ctx.needs_input_grad
+        return tuple(g if need[i] else None
+                     for i, g in enumerate((ddA, ddBu, dC, dh0)))
+
+
 def selective_scan(dA, dBu, C, h0: Optional[torch.Tensor] = None, *,
                    h_out: Optional[torch.Tensor] = None):
     """S6 scan.  dA, dBu: (B, S, I, N); C: (B, S, N); h0: (B, I, N) or None
     (zeros).  Returns y (B, S, I) fp32 and the final h (B, I, N) fp32.
     ``h_out``, if given, receives h and is returned; it may be ``h0``
-    itself (the serving cache, updated in place)."""
-    global LAUNCHES
+    itself (the serving cache, updated in place); under grad, on the card,
+    it raises ``ValueError``."""
     if dA.device.type == "cuda":
-        refuse_grad("selective_scan", dA, dBu, C, h0)
         _check_cuda(dA, dBu, C, h0, h_out)
-        B, S, I, N = dA.shape
-        if h0 is None:
-            h0 = torch.zeros((B, I, N), dtype=torch.float32,
-                             device=dA.device)
-        h = h_out if h_out is not None else torch.empty_like(h0)
-        y = torch.empty((B, S, I), dtype=torch.float32, device=dA.device)
-        kernel.selective_scan_fwd(dA, dBu, C, h0, y, h)
-        LAUNCHES += 1
-        return y, h
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (dA, dBu, C, h0)):
+            if h_out is not None:
+                raise ValueError("selective_scan: h_out writes h in place, "
+                                 "which autograd cannot see; pass no h_out "
+                                 "under grad")
+            return SelectiveScan.apply(dA, dBu, C, h0)
+        return _forward(dA, dBu, C, h0, h_out)
     for name, t in (("dBu", dBu), ("C", C), ("h0", h0), ("h_out", h_out)):
         if t is not None and t.device != dA.device:
             raise ValueError(f"selective_scan: {name} on {t.device}, dA on "

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import cotangent
 from repro_torch.kernels.moe_gmm import kernel
 from repro_torch.kernels.moe_gmm.ref import grouped_matmul_ref
 
@@ -78,9 +79,7 @@ class GroupedMatmul(torch.autograd.Function):
     def backward(ctx, dy):
         global BWD_LAUNCHES, DX_LAUNCHES, DW_LAUNCHES
         x, w = ctx.saved_tensors
-        dy = dy.contiguous()
-        if dy.data_ptr() % 16:
-            dy = dy.clone()
+        dy = cotangent(dy)
         want = (x.shape[0], x.shape[1], w.shape[2])
         if dy.dtype != x.dtype or tuple(dy.shape) != want:
             raise ValueError(f"grouped_matmul backward: dy {dy.dtype}"

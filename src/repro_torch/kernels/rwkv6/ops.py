@@ -22,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import cotangent
 from repro_torch.kernels.rwkv6 import kernel
 from repro_torch.kernels.rwkv6.ref import wkv6_chunked, wkv6_ref
 
@@ -96,15 +97,6 @@ def _forward(r, k, v, logw, u, S0, state_out):
     return y, S
 
 
-def _cotangent(g):
-    """A cotangent (fp32, as the outputs are) as the backward kernel takes
-    it: contiguous and 16-byte aligned (``None`` stays ``None``)."""
-    if g is None:
-        return None
-    g = g.contiguous()
-    return g.clone() if g.data_ptr() % 16 else g
-
-
 class WKV6(torch.autograd.Function):
     """The forward kernel under autograd; the backward launches
     ``csrc/wkv6_bwd.cu`` once for all six gradients.  ``S0`` None is a
@@ -121,10 +113,10 @@ class WKV6(torch.autograd.Function):
     def backward(ctx, dy, dS):
         global BWD_LAUNCHES
         r, k, v, logw, u, S0 = ctx.saved_tensors
-        dy = _cotangent(dy)
+        dy = cotangent(dy)
         if dy is None:
             dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
-        dS = _cotangent(dS)
+        dS = cotangent(dS)
         dr, dk, dv = (torch.empty_like(t) for t in (r, k, v))
         dlogw = torch.empty_like(logw)
         du = torch.empty_like(u)

@@ -12,8 +12,9 @@ the port of ``repro.launch.train`` (no mesh, one process).
 
 ``--device cuda`` (the default) runs on the card, where every attention
 forward and backward is the hand-written flash kernel, every expert
-product the grouped matmul's forward, dx and dw kernels and every WKV the
-WKV-6 forward and backward kernels, and raises without one.  The flash
+product the grouped matmul's forward, dx and dw kernels, every WKV the
+WKV-6 forward and backward kernels and every selective scan the scan's
+forward and backward kernels, and raises without one.  The flash
 backward takes head dims 64 and 128, so on the card olmo-1b and
 olmoe-1b-7b train at their published widths, and the smoke configs (head
 dim 16) raise ``ValueError``; on the CPU everything runs the plain
@@ -24,8 +25,15 @@ device memory here (``chip_smoke.py`` phase 17 trains it cut to 1 of its
 16 layers; a sharded state is ROADMAP A7's).  rwkv6-7b trains on the card
 likewise, and its full 32 layers do not fit either: 7,575,044,096 params
 make a 75.8 GB state, held twice by the update (phase 18 trains it cut
-to 2 layers).  jamba does not train on the card yet: the scan kernel has
-no backward (ROADMAP B8) and raises.  Weights are random,
+to 2 layers).  jamba-1.5-large-398b trains on the card through the
+scan's kernels (each 256-token chunk under a checkpoint: the scan's
+forward twice a chunk, its backward once), but its 72 layers (398e9
+params, 797 GB in bf16) fit no card: one layer (a mamba mixer and a dense
+MLP, 2,098,020,352 params, a 12.6 GB state with its bf16 moments) is what
+one card trains durably (phase 19; a second layer adds a 16-expert MoE,
+12.18e9 params, whose state the update cannot hold twice), and the
+launcher offers no depth cut (a sharded state is ROADMAP A7's).  Weights
+are random,
 from a ``torch.Generator`` seeded 0; the key data committed with them is
 the reference's ``PRNGKey(0)``.  The mesh flags, ``--compress`` and
 ``--distributed`` are not offered yet (ROADMAP A7).

@@ -17,6 +17,13 @@ in fp32, so both carry the same h, and the padded y is discarded.
 
 A given cache is updated IN PLACE: the scan writes its final h over
 ``cache.ssm``, and the conv window over ``cache.conv``.
+
+Under grad (grad mode on and an input or param that requires grad) each
+chunk's h is a new tensor, and each chunk's body (``_ssm_inputs`` and the
+scan) runs under ``torch.utils.checkpoint``, as the reference checkpoints
+its scan body with ``nothing_saveable``: a chunk's (B, Q, I, N) tensors
+live only while that chunk runs, in the forward and again in the
+backward.  On the card the scan's backward is ``csrc/selective_scan_bwd.cu``.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mamba import ops
@@ -120,6 +128,13 @@ def _gate_out(p, y: torch.Tensor, u: torch.Tensor, z: torch.Tensor,
     return y.to(dtype) @ p["out_proj"]
 
 
+def _chunk(cfg: ModelConfig, p, u_c: torch.Tensor, h):
+    """One chunk's body under grad: its dA, dBu, C and the scan from h
+    (None: zeros) -> (y_c, the chunk's last h)."""
+    dA, dBu, C_ = _ssm_inputs(cfg, p, u_c)
+    return ops.selective_scan(dA, dBu, C_, h)
+
+
 def mamba_forward(cfg: ModelConfig, p, x: torch.Tensor, *,
                   initial: MambaCache = None):
     """x: (B, S, D) -> (out (B, S, D), cache).  Full sequence (prefill).
@@ -136,16 +151,28 @@ def mamba_forward(cfg: ModelConfig, p, x: torch.Tensor, *,
 
     Q = min(cfg.ssm_chunk, S)
     h = initial.ssm if initial is not None else None
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, *p.values(), *(initial or ())))
+    if grad and h is not None:
+        h = h.clone()        # the cache is written at the end, in place
     ys = []
     for c0 in range(0, S, Q):
-        dA, dBu, C_ = _ssm_inputs(cfg, p, u[:, c0:c0 + Q])
-        y_c, h = ops.selective_scan(dA, dBu, C_, h, h_out=h)
-        del dA, dBu
+        u_c = u[:, c0:c0 + Q]
+        if grad:
+            # a new h a chunk, and the chunk's (B, Q, I, N) tensors
+            # recomputed in the backward (the reference's nothing_saveable)
+            y_c, h = checkpoint(_chunk, cfg, p, u_c, h, use_reentrant=False)
+        else:
+            dA, dBu, C_ = _ssm_inputs(cfg, p, u_c)
+            y_c, h = ops.selective_scan(dA, dBu, C_, h, h_out=h)
+            del dA, dBu
         ys.append(y_c)
     y = ys[0] if len(ys) == 1 else torch.cat(ys, 1)
     out = _gate_out(p, y, u, z, x.dtype)
     if initial is None:
         return out, MambaCache(conv=conv.contiguous(), ssm=h)
+    if grad:
+        initial.ssm.copy_(h)
     initial.conv.copy_(conv)
     return out, initial
 

@@ -68,9 +68,17 @@ machine with the card, where there is no JAX:
   input that requires grad getting a gradient within 1e-2 (dr, dk, dv:
   one rounding to bf16) or 1e-3 (dlogw, du, dS0) x max|plain| of
   ``wkv6_bwd_ref``, the same bits on a second run, no other input one, and
-  ``state_out`` under grad refused; the scan's dispatcher raises before it
-  launches (its kernel has no backward yet), and launches the same call
-  under ``torch.no_grad()``;
+  ``state_out`` under grad refused; the scan's dispatcher runs its forward
+  kernel and then ``csrc/selective_scan_bwd.cu``, each counted once,
+  d(dA) and d(dBu) within 1e-4 and dC and dh0 within 1e-3 x max|plain| of
+  ``selective_scan_bwd_ref``, the same bits on a second run, no other
+  input a gradient, and ``h_out`` under grad refused;
+* the scan's backward kernel against ``selective_scan_bwd_ref`` at
+  ``chip_smoke.py`` phase 3's backward shapes (jamba-1.5-large's training
+  chunk (8, 256, 16384, 16) and its prefill chunk, ragged S and I, N 1, 4,
+  6, 8, 16 and 64, h0 and the final h's cotangent given and absent)
+  within the limits above, two launches bit-identical and a (b, i) row's
+  d(dA), d(dBu) and dh0 bit-identical to a B = 1 call;
 * the WKV-6 backward kernel against ``wkv6_bwd_ref`` on the same
   bf16-valued inputs at ``chip_smoke.py`` phase 3's backward shapes (the
   rwkv6-7b training shape (8, 512, 64, 64), phase 18's (1, 64, 64, 64),
@@ -123,7 +131,8 @@ import torch
 from repro_torch.core import semantics_torch as cxl0
 from repro_torch.kernels.attention import ops
 from repro_torch.kernels.mamba import ops as scan_ops
-from repro_torch.kernels.mamba.ref import selective_scan_ref
+from repro_torch.kernels.mamba.ref import (selective_scan_bwd_ref,
+                                           selective_scan_ref)
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.kernels.moe_gmm.ref import (grouped_matmul_bwd_ref,
                                              grouped_matmul_ref)
@@ -1021,17 +1030,97 @@ def test_cuda_dispatchers_refuse_inputs_that_require_grad(name, cuda):
             call(inputs[0], k, *inputs[2:], state_out=inputs[5].clone())
         assert wkv_ops.LAUNCHES == before
         return
-    inputs[0] = inputs[0].clone().requires_grad_(True)
-    before = module.LAUNCHES
-    with pytest.raises(RuntimeError, match="no backward"):
-        call(*inputs)
-    assert module.LAUNCHES == before                # refused before launch
-    with torch.no_grad():
-        out = call(*inputs)
+    # the selective scan has its backward: one forward and one backward
+    # launch; d(dA) and d(dBu) within 1e-4 x max|plain|, dC and dh0 within
+    # 1e-3; the same bits on a second run
+    dy = torch.randn(inputs[0].shape[:3], device=cuda)
+    dh = torch.randn(inputs[3].shape, device=cuda)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for t in inputs]
+        before = (module.LAUNCHES, module.BWD_LAUNCHES)
+        y, h = call(*leaves)
+        ((y * dy).sum() + (h * dh).sum()).backward()
+        torch.cuda.synchronize()
+        assert (module.LAUNCHES, module.BWD_LAUNCHES) == \
+            (before[0] + 1, before[1] + 1)
+        runs.append([t.grad for t in leaves])
+    want = selective_scan_bwd_ref(*inputs, dy, dh)
+    for got, t, ref, tol in zip(runs[0], inputs, want, SCAN_BWD_TOL):
+        assert got.dtype == t.dtype and got.shape == t.shape
+        assert bool(torch.isfinite(got).all())
+        assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    # only the input that requires grad gets one; the loss never reads the
+    # final h (its cotangent is None)
+    C = inputs[2].clone().requires_grad_(True)
+    y, _ = call(inputs[0], inputs[1], C, inputs[3])
+    (y * dy).sum().backward()
     torch.cuda.synchronize()
-    assert module.LAUNCHES == before + 1
-    outs = out if isinstance(out, tuple) else (out,)
-    assert all(bool(torch.isfinite(o).all()) for o in outs)
+    want = selective_scan_bwd_ref(*inputs, dy, None)
+    assert float((C.grad - want[2]).abs().max()) <= \
+        1e-3 * float(want[2].abs().max())
+    assert all(t.grad is None for t in inputs)
+    # an in-place h write cannot sit under autograd
+    before = module.LAUNCHES
+    with pytest.raises(ValueError, match="h_out"):
+        call(inputs[0], inputs[1], C, inputs[3], h_out=inputs[3].clone())
+    assert module.LAUNCHES == before
+
+
+#: the scan backward's limits: d(dA) and d(dBu) elementwise fp32, dC and
+#: dh0 sums over I and S in another order
+SCAN_BWD_TOL = (1e-4, 1e-4, 1e-3, 1e-3)
+SCAN_BWD_CASES = [  # B, S, I, N, h0 and dh given
+    (8, 256, 16384, 16, True),          # jamba-1.5-large's training chunk
+    (1, 256, 16384, 16, False),         # its prefill chunk
+    (2, 37, 4096, 16, True), (1, 100, 2048, 16, False),
+    (2, 64, 1000, 16, True), (1, 64, 1024, 4, True),
+    (1, 64, 1024, 8, False), (1, 20, 70, 6, True),
+    (1, 1, 33, 64, True), (3, 9, 5, 1, True),
+]
+
+
+@pytest.mark.parametrize("case", SCAN_BWD_CASES,
+                         ids=lambda c: "B%dS%dI%dN%d" % c[:4]
+                         + ("-state" if c[4] else ""))
+def test_selective_scan_backward_matches_plain_version_bit_for_bit_twice(
+        case, cuda):
+    from repro_torch.kernels.mamba import kernel
+    dA, dBu, C, h0 = _scan_inputs(case[:4], cuda, seed=23)
+    g = np.random.default_rng(24)
+    dy = torch.from_numpy(g.standard_normal(dA.shape[:3], np.float32)).to(
+        cuda)
+    dh = torch.from_numpy(g.standard_normal(h0.shape, np.float32)).to(cuda)
+    if not case[4]:
+        h0 = dh = None
+
+    def launch(dA, dBu, C, h0, dy, dh):
+        out = [torch.empty_like(dA), torch.empty_like(dBu),
+               torch.empty_like(C),
+               None if h0 is None else torch.empty_like(h0)]
+        kernel.selective_scan_bwd(dA, dBu, C, h0, dy, dh, *out)
+        return out
+
+    got, again = launch(dA, dBu, C, h0, dy, dh), \
+        launch(dA, dBu, C, h0, dy, dh)
+    torch.cuda.synchronize()
+    want = selective_scan_bwd_ref(dA, dBu, C, h0, dy, dh)
+    for x, y, ref, tol in zip(got, again, want, SCAN_BWD_TOL):
+        if ref is None:
+            assert x is None
+            continue
+        assert bool(torch.isfinite(x).all())
+        assert float((x - ref).abs().max()) <= tol * float(ref.abs().max())
+        assert torch.equal(x, y)
+    # a (b, i) row's d(dA), d(dBu) and dh0 do not depend on B
+    b = dA.shape[0] - 1
+    one = launch(*(None if t is None else t[b:b + 1].contiguous()
+                   for t in (dA, dBu, C, h0, dy, dh)))
+    torch.cuda.synchronize()
+    for k in (0, 1, 3):
+        if got[k] is not None:
+            assert torch.equal(one[k][0], got[k][b])
 
 
 #: the backward's limits: dr, dk, dv are written in bf16 (one rounding),

@@ -1,60 +1,29 @@
-"""The guard that keeps the port's CUDA kernel paths from cutting autograd.
+"""The port's kernel dispatchers under autograd, on the CPU.
 
-One CUDA kernel has no backward yet (the selective scan): a launch fills a
-fresh tensor with no ``grad_fn``.  ``repro_torch.kernels.refuse_grad``
-raises before such a launch when grad mode is on and an input requires
-grad; the scan's dispatcher calls it first in its CUDA branch.  The flash
-kernel, the grouped matmul and WKV-6 have their backwards
+Every CUDA kernel of the port has its backward: the flash kernel
 (``kernels.attention.ops.FlashAttention``: the forward kernel writes the
-logsumexp, ``csrc/flash_attention_bwd.cu`` computes dq, dk, dv;
-``kernels.moe_gmm.ops.GroupedMatmul``: the dx and dw kernels of
-``csrc/grouped_matmul.cu``; ``kernels.rwkv6.ops.WKV6``:
-``csrc/wkv6_bwd.cu``), so their dispatchers run the kernels under autograd
-instead.  Here, on the CPU:
+logsumexp, ``csrc/flash_attention_bwd.cu`` computes dq, dk, dv), the
+grouped matmul (``kernels.moe_gmm.ops.GroupedMatmul``: the dx and dw
+kernels of ``csrc/grouped_matmul.cu``), WKV-6 (``kernels.rwkv6.ops.WKV6``:
+``csrc/wkv6_bwd.cu``) and the selective scan
+(``kernels.mamba.ops.SelectiveScan``: ``csrc/selective_scan_bwd.cu``), so
+each dispatcher's CUDA branch runs its kernels under autograd.  Here, on
+the CPU, the four dispatchers' CPU branches (the plain versions) stay
+differentiable: the same inputs that require grad give finite gradients
+equal to autograd's through the plain version called directly.
 
-* ``refuse_grad`` raises for an input that requires grad under grad mode,
-  and passes under ``torch.no_grad()``, for inputs that do not require
-  grad, and for ``None`` entries;
-* the four dispatchers' CPU branches (the plain versions) stay
-  differentiable: the same inputs that require grad give finite gradients
-  equal to autograd's through the plain version called directly.
-
-``tests/test_torch_cuda.py`` checks the CUDA branches on the card: the
-flash, grouped-matmul and WKV-6 dispatchers' gradients go through their
-kernels and match the plain backwards; the scan's raises without
-launching, and launches under ``torch.no_grad()``.
+``tests/test_torch_cuda.py`` checks the CUDA branches on the card: each
+dispatcher's gradients go through its kernels and match its plain
+backward.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.attention import ops as flash_ops
 from repro_torch.kernels.mamba import ops as scan_ops
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
-
-
-def test_refuse_grad_raises_for_an_input_that_requires_grad():
-    x = torch.zeros(3, requires_grad=True)
-    with pytest.raises(RuntimeError, match="selective_scan.*no backward"):
-        refuse_grad("selective_scan", torch.zeros(3), x)
-
-
-@pytest.mark.parametrize("case", ["no_grad", "plain_tensors", "none",
-                                  "inference_mode"])
-def test_refuse_grad_passes_where_no_gradient_is_asked(case):
-    x = torch.zeros(3, requires_grad=True)
-    if case == "no_grad":
-        with torch.no_grad():
-            refuse_grad("k", x)
-    elif case == "inference_mode":
-        with torch.inference_mode():
-            refuse_grad("k", x)
-    elif case == "plain_tensors":
-        refuse_grad("k", torch.zeros(3), torch.ones(2, 2))
-    else:
-        refuse_grad("k", None, torch.zeros(3), None)
 
 
 def _inputs(name, seed=0):
