@@ -121,20 +121,23 @@ phase:
      the chunked closed form at Q = 16 (its products at the 495 TFLOP/s
      TF32 tensor-core peak, its decays at 67 TFLOP/s); library: none, no
      one PyTorch call computes WKV-6;
-   * the WKV-6 backward (``csrc/wkv6_bwd.cu``: one block of 4n threads a
-     (b, h), a forward sweep that rebuilds the state for dr, a reverse
-     sweep over two copies of its gradient for dk and dv, the decay's
-     gradient from two reverse sums, no atomics) at the rwkv6-7b training
-     shape (8, 512, 64, 64) and phase 18 (a)'s (1, 64, 64, 64) (both
-     timed), at T 1, 37, 65 and 129, at n 16 and 32, at B 5 with T 300,
-     with strong decay at T 200 and weak decay at T 2048, and with S0 and
-     the final state's cotangent given: dr, dk, dv within 1e-2 and dlogw,
-     du, dS0 within 1e-3 x max|plain| of ``wkv6_bwd_ref`` on the same
-     bf16-valued inputs (one rounding to bf16; fp32 sums in another
-     order), two launches bit-identical; plain: ``wkv6_bwd_ref``; bound:
-     the larger of the bytes (r, k, v, dr, dk, dv bf16, logw, dy, dlogw
-     fp32) at 3.35 TB/s and 10 n^2 fp32 operations a step and head at 67
-     TFLOP/s; library: none;
+   * the WKV-6 backward (``csrc/wkv6_bwd.cu``: the chunked form on the
+     TF32 tensor cores, every 64-step chunk of every head in parallel
+     but for a short scan of the chunk states and their gradients,
+     split operands where dr, dk and dlogw need them, no atomics) at the
+     rwkv6-7b training shape (8, 512, 64, 64) and phase 18 (a)'s (1, 64,
+     64, 64) (both timed), at T 1, 37, 64, 65, 128 and 129 (chunk seams),
+     at n 16 and 32, at B 5 with T 300, with strong decay at T 200 and
+     weak decay at T 2048, and with S0 and the final state's cotangent
+     given: dr, dk, dv within 1e-2 and dlogw, du, dS0 within 1e-3 x
+     max|plain| of ``wkv6_bwd_ref`` on the same bf16-valued inputs (one
+     rounding to bf16; TF32 products, fp32 sums in another order), two
+     launches bit-identical; the main pass's configuration printed;
+     plain: ``wkv6_bwd_ref``; bound: the larger of the bytes (r, k, v,
+     dr, dk, dv bf16, logw, dy, dlogw fp32) at 3.35 TB/s and the chunked
+     form's operations at Q = 16 (products at the 495 TFLOP/s TF32 peak,
+     decays at 67 TFLOP/s), with the step form's bound (10 n^2 fp32
+     operations a step and head) beside it; library: none;
    * the selective scan at the jamba-1.5-large path's two shapes (prefill
      chunk (1, 256, 16384, 16), decode (4, 1, 16384, 16)), at ragged S (37,
      100) and I (1000), at N 4, 8 and 6 (not a multiple of 4) and at the
@@ -1360,21 +1363,42 @@ def phase_wkv(torch, wkv_ops):
     return rows
 
 
-def wkv_bwd_bound_ms(B, T, H, n, state: bool) -> tuple:
-    """Least time for the backward's work: r, k, v (bf16), logw, dy (fp32)
-    and u read once, dr, dk, dv (bf16), dlogw (fp32) and du written once,
-    and with ``state`` S0 and the final state's cotangent read and dS0
-    written, vs the step form's fp32 operations, 10 n^2 a step and head
-    (2 n^2 each: S's update and dr0 = S dy in the forward sweep, dS's
-    update, dk0 = dS v and dv0 = dS^T k in the reverse one) at 67 TFLOP/s
-    outside the tensor cores."""
+def wkv_bwd_bytes(B, T, H, n, state: bool) -> int:
+    """The backward's bytes: r, k, v (bf16), logw, dy (fp32) and u read
+    once, dr, dk, dv (bf16), dlogw (fp32) and du written once, and with
+    ``state`` S0 and the final state's cotangent read and dS0 written."""
     nbytes = (3 * 2 + 2 * 4 + 3 * 2 + 4) * B * T * H * n + 2 * 4 * H * n
     if state:
         nbytes += 3 * 4 * B * H * n * n
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 10 * n * n * B * T * H / FP32_FLOPS * 1e3
+    return nbytes
+
+
+def wkv_bwd_bound_ms(B, T, H, n, state: bool, Q=16) -> tuple:
+    """Least time for the backward's work: its bytes (``wkv_bwd_bytes``)
+    at 3.35 TB/s vs the operations of the chunked form, the form with the
+    least work, stated as the forward's bound is (``wkv_bound_ms``).  Per
+    step and head, a chunk of Q steps does 10 n^2 + 5 Q n flops of
+    products on the TF32 tensor cores (the chunk's state and state
+    gradient increments, dy S^T, v G^T and k~ G, each 2 n^2; the (Q, Q)
+    scores and their cotangents dy v^T, and the three products with
+    them, each Q n) and 2 n^2 / Q + Q n decays in fp32 (the two scans
+    over the chunks, the masked (Q, Q, n) weights).  Q = 16 is the least
+    row count of a TF32 tensor-core product."""
+    t_bytes = wkv_bwd_bytes(B, T, H, n, state) / HBM_BYTES_PER_S * 1e3
+    steps = B * T * H
+    t_ops = (steps * (10 * n * n + 5 * Q * n) / TF32_FLOPS
+             + steps * (2 * n * n / Q + Q * n) / FP32_FLOPS) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+def wkv_bwd_step_bound_ms(B, T, H, n, state: bool) -> float:
+    """The bound the step form would have: the same bytes vs its fp32
+    operations, 10 n^2 a step and head (S's update and dr0 = S dy, dS's
+    update, dk0 = dS v and dv0 = dS^T k) at 67 TFLOP/s outside the tensor
+    cores; printed beside the chunked form's for the record."""
+    t_bytes = wkv_bwd_bytes(B, T, H, n, state) / HBM_BYTES_PER_S * 1e3
+    return max(t_bytes, 10 * n * n * B * T * H / FP32_FLOPS * 1e3)
 
 
 def phase_wkv_bwd(torch, wkv_ops):
@@ -1389,6 +1413,9 @@ def phase_wkv_bwd(torch, wkv_ops):
         ("train_a", 1, 64, 64, 64, True, None, False),
         ("ragged_t1", 2, 1, 4, 64, False, None, False),
         ("ragged_t37", 2, 37, 4, 64, False, None, False),
+        # exact chunk seams: one and two whole 64-step chunks
+        ("chunk_t64", 1, 64, 4, 64, False, None, False),
+        ("chunks_t128", 2, 128, 4, 64, False, None, False),
         ("ragged_t65_n32", 2, 65, 3, 32, False, None, False),
         ("ragged_t129_n16", 1, 129, 2, 16, False, None, False),
         ("n16", 2, 100, 2, 16, False, None, False),
@@ -1453,16 +1480,18 @@ def phase_wkv_bwd(torch, wkv_ops):
             plain_ms = device_ms(lambda: wkv6_bwd_ref(
                 r, k, v, logw, u, S0, dy, dS), reps=2, replays=5)
             bound_ms, bound_by = wkv_bwd_bound_ms(B, T, H, n, state)
+            step_bound = wkv_bwd_step_bound_ms(B, T, H, n, state)
             config = kernel.last_bwd_launch()
             row.update(kernel_ms=kernel_ms, plain_ms=plain_ms,
                        library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
-                       kernel_over_bound=kernel_ms / bound_ms, launch=config)
+                       kernel_over_bound=kernel_ms / bound_ms, launch=config,
+                       step_form_bound_ms=step_bound)
             msg += (f" kernel_ms={kernel_ms:.5f} plain_ms={plain_ms:.5f} "
                     f"library_ms=none bound_ms={bound_ms:.5f} ({bound_by}),"
-                    f" kernel/bound {kernel_ms / bound_ms:.2f}; launch: "
-                    f"{config[0]} threads, {config[1]} steps a stage, "
-                    f"{config[2]} B static shared memory, {config[3]} "
-                    f"blocks")
+                    f" kernel/bound {kernel_ms / bound_ms:.2f} (the step "
+                    f"form's bound {step_bound:.5f}); main pass: "
+                    f"{config[0]} threads, chunk {config[1]}, {config[2]} B "
+                    f"dynamic shared memory, {config[3]} blocks")
         rows[name] = row
         print(msg, flush=True)
         del r, k, v, logw, u, dy, S0, dS, got, again, want
@@ -4655,7 +4684,9 @@ def main(argv=None) -> int:
             "kernel_over_library": (row["kernel_ms"] / row["library_ms"]
                                     if row["library_ms"] is not None
                                     else None),
-            "timed_cases": cases})
+            "timed_cases": cases,
+            **{k: row[k] for k in ("launch", "step_form_bound_ms")
+               if k in row}})
     report.update(kernels)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),

@@ -155,7 +155,14 @@ def _forward(other: ctypes.CDLL) -> None:
 STEP_LAYERS, STEP_BATCH, STEP_SEQ = 2, 8, 512
 
 
-def _step_profile(top: int = 12) -> None:
+def step_profile(arch: str, layers: int, kernels: str, what: str,
+                 batch: int = STEP_BATCH, seq: int = STEP_SEQ,
+                 top: int = 12) -> None:
+    """Profile one training step of ``arch`` cut to ``layers`` layers at
+    (``batch``, ``seq``) after two warm-up steps, with the CUDA profiler:
+    print the step's device time, the share of the kernels whose names
+    match the regex ``kernels`` (called ``what``) and the ``top``
+    operations by device time."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataPipeline, SyntheticLMSource
     from repro_torch.launch.serve import set_determinism
@@ -163,22 +170,21 @@ def _step_profile(top: int = 12) -> None:
     from repro_torch.train.state import init_train_state
     from repro_torch.train.step import make_train_step
     set_determinism()
-    cfg = get_config("olmoe-1b-7b").with_(n_layers=STEP_LAYERS)
+    cfg = get_config(arch).with_(n_layers=layers)
     bundle = build_model(cfg, device="cuda")
     state = init_train_state(
         bundle.init_params(torch.Generator("cuda").manual_seed(0)), 0,
         cfg.moment_dtype)
     step = make_train_step(bundle)
-    pipe = DataPipeline(SyntheticLMSource(cfg.vocab_size), STEP_BATCH,
-                        STEP_SEQ)
+    pipe = DataPipeline(SyntheticLMSource(cfg.vocab_size), batch, seq)
 
-    def batch():
+    def next_batch():
         return {k: torch.from_numpy(np.asarray(v)).cuda()
                 for k, v in pipe.next_global().items()}
 
     for _ in range(2):
-        state, _ = step(state, batch())
-    b = batch()
+        state, _ = step(state, next_batch())
+    b = next_batch()
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -190,13 +196,12 @@ def _step_profile(top: int = 12) -> None:
                    if e.self_device_time_total > 0),
                   key=lambda e: -e.self_device_time_total)
     total = sum(e.self_device_time_total for e in rows) / 1e3
-    gmm = sum(e.self_device_time_total for e in rows
-              if re.search(r"gmm_(bf16|bwd)_kernel", e.key)) / 1e3
-    print(f"olmoe-1b-7b train step ({STEP_LAYERS} layers, ({STEP_BATCH}, "
-          f"{STEP_SEQ})), profiled: loss {float(metrics['loss']):.6f}; "
-          f"device {total:.3f} ms over {host_ms:.3f} host ms; grouped "
-          f"matmul kernels {gmm:.3f} ms ({100 * gmm / total:.1f}%)",
-          flush=True)
+    mine = sum(e.self_device_time_total for e in rows
+               if re.search(kernels, e.key)) / 1e3
+    print(f"{arch} train step ({layers} layers, ({batch}, {seq})), "
+          f"profiled: loss {float(metrics['loss']):.6f}; device "
+          f"{total:.3f} ms over {host_ms:.3f} host ms; {what} {mine:.3f} "
+          f"ms ({100 * mine / total:.1f}%)", flush=True)
     for e in rows[:top]:
         name = re.sub(r"^void |at::native::|\(anonymous namespace\)::", "",
                       e.key)[:120]
@@ -224,7 +229,8 @@ def main(argv=None) -> int:
         _backward(other, args.against)
         _forward(other)
     if args.step:
-        _step_profile()
+        step_profile("olmoe-1b-7b", STEP_LAYERS, r"gmm_(bf16|bwd)_kernel",
+                     "grouped matmul kernels")
     return 0
 
 

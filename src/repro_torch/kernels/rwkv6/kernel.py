@@ -90,6 +90,8 @@ def bwd_library() -> ctypes.CDLL:
         lib = build.load(BWD_NAME)
         lib.repro_wkv6_bwd.argtypes = _BWD_ARGTYPES
         lib.repro_wkv6_bwd.restype = ctypes.c_int
+        lib.repro_wkv6_bwd_scratch_bytes.argtypes = [_C] * 4
+        lib.repro_wkv6_bwd_scratch_bytes.restype = ctypes.c_longlong
         lib.repro_wkv6_bwd_last_launch.argtypes = [_P]
         lib.repro_wkv6_bwd_last_launch.restype = None
         _bwd_lib = lib
@@ -107,12 +109,15 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, T, H, n) fp32, du (H, n) fp32 (summed over B) and dS0 (B, H, n, n)
     fp32, or None when it is not wanted.  All contiguous, 16-byte aligned,
     on one CUDA device — the dispatcher's backward (``ops.WKV6``) checks
-    that.  du's per-(b, h) parts (B x H x n fp32) come from
+    that.  The scratch (per (b, h) and 64-step chunk the chunk's start
+    state and its end state's gradient, n x n fp32 each, its decay and
+    du's part: B x H x ceil(T / 64) x (2 n^2 + 2 n) fp32) comes from
     ``torch.empty`` on the same stream.  Raises if a launch is refused."""
     B, T, H, n = r.shape
     lib = bwd_library()
     stream = torch.cuda.current_stream(r.device).cuda_stream
-    part = torch.empty((B, H, n), dtype=torch.float32, device=r.device)
+    scratch = torch.empty(lib.repro_wkv6_bwd_scratch_bytes(B, T, H, n),
+                          dtype=torch.uint8, device=r.device)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -121,14 +126,14 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
         u.data_ptr(), ptr(S0), dy.data_ptr(), ptr(dS), dr.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), dlogw.data_ptr(), du.data_ptr(),
-        ptr(dS0), part.data_ptr(), B, T, H, n, stream)
+        ptr(dS0), scratch.data_ptr(), B, T, H, n, stream)
     if err != 0:
         raise RuntimeError(f"wkv6 backward launch failed: cudaError_t {err}")
 
 
 def last_bwd_launch() -> list:
-    """The backward's last launch (4 ints): threads a block, steps a
-    stage, static shared memory in bytes, blocks."""
+    """The backward's last main pass (4 ints): threads a block, the chunk
+    length, dynamic shared memory in bytes, blocks."""
     info = (ctypes.c_int * 4)()
     bwd_library().repro_wkv6_bwd_last_launch(info)
     return list(info)

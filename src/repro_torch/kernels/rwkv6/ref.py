@@ -49,7 +49,7 @@ def wkv6_bwd_ref(r, k, v, logw, u, S0, dy, dS=None):
     """The plain backward of ``wkv6_ref``: the gradients of a loss whose
     cotangents are ``dy`` (B, T, H, n) on y and ``dS`` (B, H, n, n) on the
     final state (None: zero), from the state ``S0`` (None: zero), step by
-    step as ``csrc/wkv6_bwd.cu`` computes them.  Returns dr, dk, dv, dlogw
+    step; ``csrc/wkv6_bwd.cu`` is held to it.  Returns dr, dk, dv, dlogw
     (B, T, H, n), du (H, n) summed over B, and dS0 (B, H, n, n), all
     fp32.
 
@@ -174,6 +174,20 @@ def _mm(a, b, operands: Optional[str], split: bool):
     return out
 
 
+def _diag_scores(r_c, k_c, w, uf, i, L):
+    """Scores inside the sub-block at ``i`` (s < t), in fp32 with the decay
+    as the running product of w over s < m < t, and the bonus r_t . (u
+    k_t) on the diagonal; (B, H, L, L), zero above the diagonal."""
+    sb = slice(i, i + L)
+    A = torch.diag_embed((r_c[:, :, sb] * uf * k_c[:, :, sb]).sum(-1))
+    W = torch.ones_like(k_c[:, :, sb])              # over s: prod_{s<m<t} w_m
+    for t in range(1, L):
+        A[:, :, t, :t] = (r_c[:, :, i + t, None] * k_c[:, :, i:i + t]
+                          * W[:, :, :t]).sum(-1)
+        W[:, :, :t] = W[:, :, :t] * w[:, :, i + t, None]
+    return A
+
+
 def wkv6_subblocks(r, k, v, logw, u, S0=None, *, chunk: int = 64,
                    sub: int = 16, operands: Optional[str] = None,
                    split: bool = False):
@@ -230,16 +244,143 @@ def wkv6_subblocks(r, k, v, logw, u, S0=None, *, chunk: int = 64,
                 A[:, :, ti, sj] = mm(r_c[:, :, ti] * torch.exp(logPm1[:, :, ti] - e),
                                      (k_c[:, :, sj] * torch.exp(e - logP[:, :, sj]))
                                      .transpose(2, 3))
-            # inside the sub-block: running products of w, fp32
-            for s in range(i, i + L):
-                A[:, :, s, s] = (r_c[:, :, s] * uf[:, :, 0] * k_c[:, :, s]).sum(-1)
-                W = torch.ones_like(k_c[:, :, s])
-                for t in range(s + 1, i + L):
-                    A[:, :, t, s] = (r_c[:, :, t] * k_c[:, :, s] * W).sum(-1)
-                    W = W * w[:, :, t]
+            A[:, :, ti, ti] = _diag_scores(r_c, k_c, w, uf, i, L)
         y = y + mm(A, v_c)
         k_tilde = k_c * torch.exp(logP[:, :, -1:] - logP)
         S = torch.exp(logP[:, :, -1])[..., None] * S + mm(k_tilde.transpose(2, 3),
                                                           v_c)
         ys.append(y)
     return torch.cat(ys, 2)[:, :, :T].transpose(1, 2), S
+
+
+def wkv6_bwd_subblocks(r, k, v, logw, u, S0, dy, dS=None, *, chunk: int = 64,
+                       sub: int = 16, operands: Optional[str] = None,
+                       split: bool = False):
+    """The decomposition ``csrc/wkv6_bwd.cu`` computes, in plain torch, for
+    the tests: the backward of the chunked closed form (``wkv6_subblocks``)
+    over chunks of ``chunk`` steps and sub-blocks of ``sub``, every
+    exponent <= 0.  Arguments and results as ``wkv6_bwd_ref``'s.
+
+    Per (b, h), with logP the inclusive cumulative log decay from a chunk's
+    start (logP_{-1} = 0), r~_t = r_t exp(logP_{t-1}), k~_s = k_s
+    exp(logP_{Q-1} - logP_s), a_c = exp(logP_{Q-1}):
+
+    * chunk start states S_c as the forward's: S_{c+1} = a_c S_c + k~^T V;
+    * the state gradient across chunks, G_c that of the state at chunk c's
+      end: G_{C-1} = dS (or 0), G_{c-1} = a_c G_c + r~^T dY, dS0 = G_{-1};
+    * per chunk, with dA[t][s] = dy_t . v_s (a product, s <= t; its
+      diagonal is c_t = v_t . dy_t) and the forward's scores A (each
+      sub-block's lower-left 8 x 8 quarter a product split at its 8th
+      step):
+      dr0 = (dY S_c^T) exp(logP_{t-1}) + intra, dk0 = (V G_c^T)
+      exp(logP_{Q-1} - logP_s) + intra, dv = k~ G_c + A^T dY (A's diagonal
+      holds the bonus r_t . (u k_t));
+    * the intra-chunk terms of dr0 for t in sub-block i against every
+      earlier sub-block at once, split at p, the last step before i:
+      exp(logP_{t-1} - logP_p) (dA (k_s exp(logP_p - logP_s))); those of dk0
+      for s in sub-block j against every later one, split at e, j's last
+      step: exp(logP_e - logP_s) (dA^T (r_t exp(logP_{t-1} - logP_e)));
+      inside a sub-block in fp32, the decay a running product of w;
+    * the bonus: dr = dr0 + u k_t c_t, dk = dk0 + u r_t c_t, du = sum r k c;
+    * dlogw_t = D_c + sum_{t' > t in the chunk} (r dr0 - k dk0)_{t'} - k_t
+      dk0_t: ``wkv6_bwd_ref``'s reverse sums, restarted at every chunk's end
+      from D_c = rowsum(G_c * S_{c+1}) = a_c rowsum(G_c * S_c) + sum_s k_s
+      (V G_c^T)[s] exp(logP_{Q-1} - logP_s), the decay gradient's value at
+      the chunk's last step, so no sum runs longer than a chunk.
+
+    ``operands`` rounds every product's operands as ``wkv6_subblocks``'s
+    does; ``split`` adds the remainders' products to every product but
+    those only dv reads (the pair scores, k~ G_c and A^T dY), which take
+    one rounding as on the card: dv's limit is 1e-2 and it is written in
+    bf16.  A ragged tail reads as logw = 0 and r = k = v = dy = 0."""
+    B, T, H, n = r.shape
+    Q, L = chunk, sub
+    assert Q % L == 0
+    pad = -T % Q
+    rf, kf, vf, lw, dyf = (a.float().transpose(1, 2)
+                           for a in (r, k, v, logw, dy))     # (B, H, T, n)
+    if pad:
+        rf, kf, vf, lw, dyf = (torch.nn.functional.pad(a, (0, 0, 0, pad))
+                               for a in (rf, kf, vf, lw, dyf))
+    uf = u.float()[None, :, None, :]
+    mm = lambda a, b: _mm(a, b, operands, split)           # noqa: E731
+    mm1 = lambda a, b: _mm(a, b, operands, False)          # noqa: E731
+    tr = lambda a: a.transpose(2, 3)                       # noqa: E731
+    NC = rf.shape[2] // Q
+    sl = [slice(c * Q, (c + 1) * Q) for c in range(NC)]
+    logP = [torch.cumsum(lw[:, :, s], 2) for s in sl]
+    logPm1 = [torch.nn.functional.pad(p, (0, 0, 1, 0))[:, :, :Q] for p in logP]
+    S = _state0(r, S0).clone()
+    starts = []
+    for c in range(NC):                                    # the forward's states
+        starts.append(S)
+        kt = kf[:, :, sl[c]] * torch.exp(logP[c][:, :, -1:] - logP[c])
+        S = torch.exp(logP[c][:, :, -1])[..., None] * S + mm(tr(kt), vf[:, :, sl[c]])
+    starts.append(S)
+    G = torch.zeros_like(S) if dS is None else dS.float().clone()
+    Gs = [None] * NC
+    for c in reversed(range(NC)):                          # the state gradient
+        Gs[c] = G
+        rt = rf[:, :, sl[c]] * torch.exp(logPm1[c])
+        G = torch.exp(logP[c][:, :, -1])[..., None] * G + mm(tr(rt), dyf[:, :, sl[c]])
+    outs = {name: [] for name in ("dr", "dk", "dv", "dlogw")}
+    du = torch.zeros_like(S[..., 0])
+    for c in range(NC):
+        r_c, k_c, v_c, dy_c = (a[:, :, sl[c]] for a in (rf, kf, vf, dyf))
+        lp, lpm1, S_c, G_c = logP[c], logPm1[c], starts[c], Gs[c]
+        w = torch.exp(lw[:, :, sl[c]])
+        A = r_c.new_zeros((B, H, Q, Q))
+        dA = r_c.new_zeros((B, H, Q, Q))
+        for i in range(0, Q, L):
+            ti = slice(i, i + L)
+            for j in range(0, i + L, L):
+                sj = slice(j, j + L)
+                dA[:, :, ti, sj] = mm(dy_c[:, :, ti], tr(v_c[:, :, sj]))
+                if j < i:
+                    e = lp[:, :, j + L - 1:j + L]
+                    A[:, :, ti, sj] = mm1(r_c[:, :, ti] * torch.exp(lpm1[:, :, ti] - e),
+                                          tr(k_c[:, :, sj] * torch.exp(e - lp[:, :, sj])))
+            A[:, :, ti, ti] = _diag_scores(r_c, k_c, w, uf, i, L)
+            # the sub-block's lower-left quarter as a product, split at its
+            # 8th step
+            h = i + L // 2
+            lo, hi, e = slice(i, h), slice(h, i + L), lp[:, :, h - 1:h]
+            A[:, :, hi, lo] = mm1(r_c[:, :, hi] * torch.exp(lpm1[:, :, hi] - e),
+                                  tr(k_c[:, :, lo] * torch.exp(e - lp[:, :, lo])))
+        cc = torch.diagonal(dA, dim1=2, dim2=3)[..., None]   # v_t . dy_t
+        last = lp[:, :, -1:]
+        dr0 = torch.exp(lpm1) * mm(dy_c, tr(S_c))
+        dk0 = torch.exp(last - lp) * mm(v_c, tr(G_c))
+        # D_c = rowsum(G_c * S_{c+1}) = a_c rowsum(G_c * S_c) + rowsum(G_c *
+        # k~^T V), the last sum_s k_s dk0's inter part
+        D_c = (torch.exp(last[:, :, 0]) * (G_c * S_c).sum(-1)
+               + (k_c * dk0).sum(2))
+        dv = mm1(k_c * torch.exp(last - lp), G_c)
+        for i in range(0, Q, L):
+            ti, rest = slice(i, i + L), slice(i, Q)
+            if i:
+                p = lp[:, :, i - 1:i]
+                dr0[:, :, ti] += torch.exp(lpm1[:, :, ti] - p) * mm(
+                    dA[:, :, ti, :i], k_c[:, :, :i] * torch.exp(p - lp[:, :, :i]))
+            if i + L < Q:
+                e, later = lp[:, :, i + L - 1:i + L], slice(i + L, Q)
+                dk0[:, :, ti] += torch.exp(e - lp[:, :, ti]) * mm(
+                    tr(dA[:, :, later, ti]),
+                    r_c[:, :, later] * torch.exp(lpm1[:, :, later] - e))
+            dv[:, :, ti] += mm1(tr(A[:, :, rest, ti]), dy_c[:, :, rest])
+            W = torch.ones_like(k_c[:, :, ti])           # inside the sub-block
+            for t in range(1, L):
+                dA_t = dA[:, :, i + t, i:i + t, None]        # over s < t
+                dr0[:, :, i + t] += (dA_t * k_c[:, :, i:i + t] * W[:, :, :t]).sum(2)
+                dk0[:, :, i:i + t] += dA_t * r_c[:, :, i + t, None] * W[:, :, :t]
+                W[:, :, :t] = W[:, :, :t] * w[:, :, i + t, None]
+        x = r_c * dr0 - k_c * dk0
+        later_sum = torch.flip(torch.cumsum(torch.flip(x, (2,)), 2), (2,)) - x
+        outs["dlogw"].append(D_c[:, :, None] + later_sum - k_c * dk0)
+        outs["dr"].append(dr0 + uf * k_c * cc)
+        outs["dk"].append(dk0 + uf * r_c * cc)
+        outs["dv"].append(dv)
+        du = du + (r_c * k_c * cc).sum(2)
+    dr, dk, dv, dlogw = (torch.cat(outs[name], 2)[:, :, :T].transpose(1, 2)
+                         for name in ("dr", "dk", "dv", "dlogw"))
+    return dr, dk, dv, dlogw, du.sum(0), G

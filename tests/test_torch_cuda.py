@@ -82,10 +82,10 @@ machine with the card, where there is no JAX:
 * the WKV-6 backward kernel against ``wkv6_bwd_ref`` on the same
   bf16-valued inputs at ``chip_smoke.py`` phase 3's backward shapes (the
   rwkv6-7b training shape (8, 512, 64, 64), phase 18's (1, 64, 64, 64),
-  T 1, 37, 65 and 129, n 16 and 32, B 5 at T 300, strong decay at T 200,
-  weak decay at T 2048, S0 and the final state's cotangent given) within
-  the limits above, two launches bit-identical and a (b, h) row's
-  gradients bit-identical to a B = 1 call;
+  T 1, 37, 64, 65, 128 and 129, n 16 and 32, B 5 at T 300, strong decay
+  at T 200, weak decay at T 2048, S0 and the final state's cotangent
+  given) within the limits above, two launches bit-identical and a (b, h)
+  row's gradients bit-identical to a B = 1 call;
 * the grouped matmul's dx and dw kernels against the fp32 plain backward
   at the forward's ragged shapes (1e-2 x max|plain|), empty capacity rows
   adding nothing, two launches with the same bits, and both launched from
@@ -1130,6 +1130,7 @@ WKV_BWD_CASES = [  # B, T, H, n, log decay, S0 and dS given
     (8, 512, 64, 64, None, False),      # the rwkv6-7b training shape
     (1, 64, 64, 64, None, False),       # chip_smoke.py phase 18 (a)
     (2, 1, 4, 64, None, False), (2, 37, 4, 64, None, False),
+    (1, 64, 4, 64, None, False), (2, 128, 4, 64, None, False),  # seams
     (2, 65, 3, 32, None, False), (1, 129, 2, 16, None, False),
     (2, 100, 2, 16, None, False), (2, 128, 2, 32, None, False),
     (5, 300, 3, 32, None, False),

@@ -14,6 +14,17 @@ state, go through:
 * torch autograd through the port's dispatcher on the CPU (``ops.wkv6``,
   its plain branch: no kernel launch counted).
 
+``kernels.rwkv6.ref.wkv6_bwd_subblocks`` is the plain-torch mirror of the
+kernel's decomposition (64-step chunks, 16-step sub-blocks, the state
+gradient's scan over the chunks, the decay gradient's reverse sums
+restarted at every chunk's end).  In fp32 it is held to both of JAX's
+vjps and to ``wkv6_bwd_ref`` within 1e-5 x max|ref| (T 37, 65 and 130, n
+16, S0 and dS given, strong and weak decay); with its products' operands
+rounded to TF32 as the card's tensor cores take them, split where the
+kernel splits them, it stays within the card's limits (1e-2 x max|plain|
+for dr, dk and dv, written in bf16; 1e-3 for dlogw, du and dS0) at the
+training length T 512 with n 64.
+
 All six gradients (dr, dk, dv, dlogw, du, dS0) within 1e-5 x max|ref| in
 fp32 (the same sums in another order; dlogw comes from the two reverse
 sums of the decay identity instead of the state, which holds the same
@@ -34,7 +45,8 @@ import torch
 from repro.kernels.rwkv6.ref import wkv6_ref as jax_wkv6_ref
 from repro.models.rwkv import _wkv_chunked as jax_wkv_chunked
 from repro_torch.kernels.rwkv6 import ops
-from repro_torch.kernels.rwkv6.ref import wkv6_bwd_ref, wkv6_ref
+from repro_torch.kernels.rwkv6.ref import (wkv6_bwd_ref, wkv6_bwd_subblocks,
+                                           wkv6_ref)
 
 CASES = [  # B, T, H, n, S0 given, decay
     (2, 1, 2, 16, True, None),
@@ -191,3 +203,61 @@ def test_decay_identity_holds_in_fp32_at_the_training_length():
     ((y * torch.from_numpy(dy)).sum()
      + (S * torch.from_numpy(dS)).sum()).backward()
     _close(got, leaves[3].grad.numpy(), 1e-5, "dlogw")
+
+
+SUBBLOCK_CASES = [  # B, T, H, n, S0 and dS given, decay: 1, 2 and 3 chunks
+    (2, 37, 2, 16, True, None),
+    (2, 65, 2, 16, True, None),
+    (2, 65, 2, 16, True, "strong"),
+    (2, 130, 2, 16, False, "weak"),
+]
+
+
+@pytest.mark.parametrize("case", SUBBLOCK_CASES, ids=_id)
+def test_subblock_mirror_matches_jax_vjp_and_the_plain_backward(case):
+    """The kernel's decomposition in fp32 against jax.vjp of the
+    reference's chunked form and of its step oracle, and against
+    ``wkv6_bwd_ref``: within 1e-5 x max|ref| (the same sums in another
+    order).  dlogw is a difference of sums of r * dr0 and k * dk0, which
+    under strong decay reach 40 x max|dlogw|: its bound is 1e-5 x the
+    larger of max|dlogw| and max|r * dr|."""
+    a = _inputs(case, seed=4)
+    if not case[4]:
+        a["dS"] = np.zeros_like(a["dS"])
+    wants = {"jax.vjp(_wkv_chunked)": _jax_grads(VJP_CHUNKED, a),
+             "jax.vjp(wkv6_ref)": _jax_grads(VJP_STEP, a)}
+    t = {name: torch.from_numpy(x) for name, x in a.items()}
+    S0, dS = (t["S0"], t["dS"]) if case[4] else (None, None)
+    args = [t[name] for name in ("r", "k", "v", "logw", "u")]
+    got = wkv6_bwd_subblocks(*args, S0, t["dy"], dS)
+    wants["wkv6_bwd_ref"] = [x.numpy() for x in wkv6_bwd_ref(*args, S0,
+                                                             t["dy"], dS)]
+    terms = float(np.max(np.abs(a["r"] * wants["wkv6_bwd_ref"][0])))
+    for what, want in wants.items():
+        for name, g, w in zip(NAMES, got, want):
+            scale = float(np.max(np.abs(w)))
+            if name == "dlogw":
+                scale = max(scale, terms)
+            err = float(np.max(np.abs(g.numpy() - w)))
+            assert err <= 1e-5 * scale, (f"{name} vs {what}", err, scale)
+
+
+@pytest.mark.parametrize("decay", [None, "strong"], ids=["decay", "strong"])
+def test_subblock_mirror_at_tf32_stays_within_the_card_limits(decay):
+    """The card's arithmetic on the CPU: at the training length (T 512, n
+    64) with S0 and dS given, every product's operands rounded to TF32,
+    split into hi + lo where the kernel splits them, and dr, dk, dv rounded
+    to bf16 as the kernel writes them, against the fp32 ``wkv6_bwd_ref``
+    within ``chip_smoke.py``'s limits."""
+    a = _inputs((1, 512, 1, 64, True, decay), seed=5)
+    t = {name: torch.from_numpy(x) for name, x in a.items()}
+    for name in "rkv":
+        t[name] = t[name].bfloat16()
+    args = [t[name] for name in ("r", "k", "v", "logw", "u", "S0", "dy",
+                                 "dS")]
+    want = wkv6_bwd_ref(*args)
+    got = list(wkv6_bwd_subblocks(*args, operands="tf32", split=True))
+    got[:3] = [g.bfloat16() for g in got[:3]]
+    for name, g, w, tol in zip(NAMES, got, want,
+                               (1e-2, 1e-2, 1e-2, 1e-3, 1e-3, 1e-3)):
+        _close(g, w.numpy(), tol, name)
