@@ -24,9 +24,12 @@ training of olmoe-1b-7b at full width (depth cut to 1 layer) through the
 grouped matmul's forward and backward kernels, then of rwkv6-7b at full width
 (depth cut to 2 layers) through the WKV-6 forward and backward kernels,
 then of jamba-1.5-large-398b at full width (depth cut to 1 layer) through
-the selective scan's forward and backward kernels, run right after
-olmo-1b's training (phases 17, 18 and 19 below).  It prints one line per
-phase:
+the selective scan's forward and backward kernels, then of
+deepseek-v2-236b at full width (depth cut to 1 layer) through the flash
+forward and backward at MLA's widths, run right after olmo-1b's training
+(phases 17 to 20 below; the rank processes of phases 15 (a) and 16 (a)
+run beside phase 20 and the in-process parts of 15 and 16, which follow
+it).  It prints one line per phase:
 
 1. environment — the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions;
@@ -48,14 +51,17 @@ phase:
    kernel/bound; speed is printed, never checked:
    * the flash backward (``csrc/flash_attention_bwd.cu``: dQ a q tile a
      block, with delta, then dK / dV a kv tile a block walking its G q
-     heads; TMA rings and wgmma, no atomics) at the training shape (8, 16,
-     512, 128) causal, the serving shape (1, 16, 512, 128), GQA (2, 32
-     over 8, 200, 128) and (1, 8 over 2, 512, 128), ragged S = T = 77 at
-     hd 64 and S = T = 300, hd 64 at 512, causal Sq 100 < Sk 300 (its dk,
-     dv rows past the last q row exactly 0) and non-causal (2, 16, 300,
-     700, 128) and whisper-small's three training shapes (see the
-     forward's cases below): the forward's logsumexp within 1e-4 abs of
-     the plain
+     heads, in two warpgroups at MLA's widths; TMA rings and wgmma, no
+     atomics) at the training shape (8, 16, 512, 128) causal, the serving
+     shape (1, 16, 512, 128), GQA (2, 32 over 8, 200, 128) and (1, 8 over
+     2, 512, 128), ragged S = T = 77 at hd 64 and S = T = 300, hd 64 at
+     512, causal Sq 100 < Sk 300 (its dk, dv rows past the last q row
+     exactly 0) and non-causal (2, 16, 300, 700, 128), whisper-small's
+     three training shapes (see the forward's cases below), and at MLA's
+     widths (hd 192, hd_v 128): deepseek-v2's training step (8, 128 over
+     128, 512), one sequence (1, 128, 512), ragged S = T = 77 and
+     non-causal Sq 100 < Sk 300 (2, 4 heads): the forward's logsumexp
+     within 1e-4 abs of the plain
      ``logsumexp``; dq, dk, dv against the fp32 plain backward on the same
      bf16 inputs (the kernel's own output and logsumexp), elementwise
      within 2e-2 x max|plain| (bf16 P and dS operands and outputs, fp32
@@ -66,7 +72,8 @@ phase:
      SDPA forward + backward (with deterministic algorithms, and backward
      and forward + backward without them) and the bound (bytes of q, k, v,
      o, dO, lse in and dq, dk, dv out at 3.35 TB/s vs the five products
-     at 989 TFLOP/s) printed.  The forward's time at the serving shape is
+     at 989 TFLOP/s) printed, with the SDPA backend PyTorch picked for
+     each (at hd_v != hd the one that takes those widths).  The forward's time at the serving shape is
      printed beside its time before it gained the logsumexp;
    * flash attention (one block a 64-row q tile, its kv tiles split
      between two warpgroups while q tiles are fewer than SMs; K / V by TMA
@@ -383,6 +390,33 @@ phase:
         first: the phase fails below ~29 GB): recovered from the pool at
         step 1, bit-identical to (b), each commit exactly 12,588,466,204
         bytes (params, mu and nu bf16, 28 bytes); 6 steps' launches.
+20. durable training of deepseek-v2-236b (right after phase 19) at full
+    width — d_model 5120, 128 MLA heads (q / k nope 128 + rope 64, v 128,
+    q_lora 1536, kv_lora 512), dense d_ff 12288, vocab 102400, bf16
+    params and moments — with its depth cut from 60 layers to 1
+    (``reduced``: layer 0 is MLA and the config's dense first MLP,
+    1,386,545,152 params counted and 1,386,562,560 held with the norms;
+    layer 1 would add 160 routed and 2 shared experts, 5.36e9 params,
+    whose state the card cannot hold twice), random weights from a
+    torch.Generator seeded 0, as phase 17 otherwise:
+    (a) one (1, 64) batch on the card through the kernels against the
+        port on the CPU in fp32 with the plain versions: the loss, the
+        grad norm and the grad norm of the leaves that reach the loss
+        only through the attention (``DEEPSEEK_MLA_LEAVES``: w_uq, w_uk,
+        w_uv, w_dkv; w_dkv's rope columns take their gradient only from
+        dk's rope columns) within 2e-2 relative; launches a step: flash
+        1 and its backward 1, every other kernel 0
+        (``deepseek_step_launches``);
+    (b) 4 clean steps of (8, 512): finite losses, launches 4 x (a)'s;
+    (c) ``run_durable_loop`` as phase 17's (c) (the free disk printed
+        first: the phase fails below ~20 GB): recovered from the pool at
+        step 1, bit-identical to (b), each commit exactly 8,319,375,388
+        bytes (params, mu and nu bf16, 28 bytes); 6 steps' launches.
+    Phase 15 (a)'s rank processes, then phase 16 (a)'s, run in a thread
+    beside it and beside phases 15 (b, c) and 16 (b, c), which follow it
+    (the card's free memory checked first, ``PHASE_20_FREE_BYTES``):
+    every time, rate and peak those print is taken beside the rank
+    processes, and is marked so.  Phase 12 follows.
 12. the other five decoder-only architectures — internlm2-1.8b,
     phi3-medium-14b, yi-34b, chameleon-34b at full width and depth
     (yi-34b's and chameleon-34b's stacked MLP leaves drawn a layer at a
@@ -467,8 +501,8 @@ phase:
     Every time, rate and peak that phases 13 and 14 print is taken with the
     other phase running on the card and the host, and is marked so; the
     card memory the parent holds is read before either starts.
-15. the rank cluster, the KV cache's tiers and legacy serving, after the
-    parent has freed every earlier model:
+15. the rank cluster (beside phase 20), then the KV cache's tiers and
+    legacy serving, after phase 20 (phases 12, 13 and 14 run after 16):
     (a) three rank processes of ``scenarios.cluster_worker`` with
         ``--device cuda`` share the card (``reduced``: dim 2048 x 12
         tensors, 603,979,776 bytes of p / mu / nu, 201,326,592 a rank, cut
@@ -500,8 +534,9 @@ phase:
         crash after 10 ticks resumes at tick 8 from the whole lanes with
         every token equal.  Commits, D2H bytes and host s in commit
         printed against the paged run's.
-16. elastic scaling (``repro_torch.scenarios.scale``):
-    (a) the grow cells at phase 15 (a)'s size (``reduced`` as there):
+16. elastic scaling (``repro_torch.scenarios.scale``), after phase 15:
+    (a) (beside phases 20, 15 (b, c) and 16 (b, c), right after 15 (a))
+        the grow cells at phase 15 (a)'s size (``reduced`` as there):
         three rank processes and a joiner (rank 3, ``--joiner --join-at
         4``) with ``--device cuda``, 8 steps, a commit every 2; no kill,
         and the joiner killed (``os._exit(17)``) at each of
@@ -530,7 +565,7 @@ phase:
         its cost against the best fixed fleet's is printed.
 
 Each path and each run of phases 9, 10, 11, 12, 13, 15 (c), 16 (b), 17,
-18 and 19 is
+18, 19 and 20 is
 driven with every launch count set to 0 just before it and read just
 after; the children of phase 14 start with theirs at 0.  Then a
 ``{"kernels": [...]}`` line, the card line again, and as the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -887,16 +922,17 @@ def phase_kernel(torch, ops):
 FLASH_SERVE_MS_BEFORE = 0.01065
 
 
-def attention_bwd_bound_ms(B, H, K, Sq, Sk, hd, causal) -> tuple:
+def attention_bwd_bound_ms(B, H, K, Sq, Sk, hd, hd_v, causal) -> tuple:
     """Least time for the backward: q, k, v, o, dO read once and dq, dk,
-    dv written once (bf16; the fp32 lse rows read once too), vs
-    the five products over the unmasked (q, kv) pairs (q·k, dO·v, P·dO,
-    dS·k, dS·q: 2 hd multiply-adds each)."""
-    nbytes = (2 * (3 * B * H * Sq * hd + 4 * B * K * Sk * hd
-                   + B * H * Sq * hd) + 4 * B * H * Sq)
+    dv written once (bf16; q, k, dq, dk hd wide, v, o, dO, dv hd_v; the
+    fp32 lse rows read once too), vs the five products over the unmasked
+    (q, kv) pairs (q·k, dS·k, dS·q: 2 hd multiply-adds each; dO·v, P·dO:
+    2 hd_v)."""
+    nbytes = (2 * (2 * B * H * Sq * (hd + hd_v) + 2 * B * K * Sk * (hd + hd_v))
+              + 4 * B * H * Sq)
     pairs = (sum(min(i + 1, Sk) for i in range(Sq)) if causal
              else Sq * Sk)
-    flops = 5 * 2 * hd * pairs * B * H
+    flops = 2 * (3 * hd + 2 * hd_v) * pairs * B * H
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -924,36 +960,61 @@ def sdpa_call_ms(fn) -> float:
     return call_ms(fn, iters=10, warmup=2)
 
 
+#: SDPA's backends by the aten op each runs
+SDPA_OPS = (("flash", "_scaled_dot_product_flash_attention"),
+            ("efficient", "_scaled_dot_product_efficient_attention"),
+            ("cudnn", "_scaled_dot_product_cudnn_attention"),
+            ("math", "_scaled_dot_product_attention_math"))
+
+
+def sdpa_backend(torch, fn) -> str:
+    """The SDPA backend PyTorch picks for ``fn`` under the settings in
+    force, read off the aten ops of one call (profiler, host side)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    names = [e.key for e in prof.key_averages()]
+    return next((b for b, op in SDPA_OPS if any(op in n for n in names)),
+                "unknown")
+
+
 def phase_flash_bwd(torch, ops):
     """Phase 3, the backward: the forward's logsumexp and the backward
     kernel against their plain versions, two launches bit for bit, and
     times beside SDPA's and the bound."""
     from repro_torch.kernels.attention import kernel
-    cases = [  # (name, B, H, K, Sq, Sk, hd, causal)
-        ("train_b8_s512", 8, 16, 16, 512, 512, 128, True),
-        ("path_s512", 1, 16, 16, 512, 512, 128, True),
-        ("gqa_h32_k8_s200", 2, 32, 8, 200, 200, 128, True),
-        ("ragged_s77_hd64", 1, 16, 16, 77, 77, 64, True),
-        ("noncausal_sq300_sk700", 2, 16, 16, 300, 700, 128, False),
-        ("gqa_h8_k2_s512", 1, 8, 2, 512, 512, 128, True),
-        ("ragged_s300", 1, 4, 4, 300, 300, 128, True),
-        ("hd64_s512", 1, 8, 8, 512, 512, 64, True),
-        ("causal_sq100_sk300", 1, 4, 2, 100, 300, 128, True),
+    cases = [  # (name, B, H, K, Sq, Sk, hd, hd_v, causal)
+        ("train_b8_s512", 8, 16, 16, 512, 512, 128, 128, True),
+        ("path_s512", 1, 16, 16, 512, 512, 128, 128, True),
+        ("gqa_h32_k8_s200", 2, 32, 8, 200, 200, 128, 128, True),
+        ("ragged_s77_hd64", 1, 16, 16, 77, 77, 64, 64, True),
+        ("noncausal_sq300_sk700", 2, 16, 16, 300, 700, 128, 128, False),
+        ("gqa_h8_k2_s512", 1, 8, 2, 512, 512, 128, 128, True),
+        ("ragged_s300", 1, 4, 4, 300, 300, 128, 128, True),
+        ("hd64_s512", 1, 8, 8, 512, 512, 64, 64, True),
+        ("causal_sq100_sk300", 1, 4, 2, 100, 300, 128, 128, True),
         # phase 13's whisper-small training shapes (see phase_kernel)
-        ("whisper_enc_b8_s1500", 8, 12, 12, 1500, 1500, 64, False),
-        ("whisper_cross_b8_sq448_sk1500", 8, 12, 12, 448, 1500, 64, False),
-        ("whisper_dec_b8_s448", 8, 12, 12, 448, 448, 64, True),
+        ("whisper_enc_b8_s1500", 8, 12, 12, 1500, 1500, 64, 64, False),
+        ("whisper_cross_b8_sq448_sk1500", 8, 12, 12, 448, 1500, 64, 64,
+         False),
+        ("whisper_dec_b8_s448", 8, 12, 12, 448, 448, 64, 64, True),
+        # MLA (deepseek-v2: q / k nope 128 + rope 64, v 128): phase 20's
+        # training step, one sequence, a ragged and a non-causal Sq < Sk
+        ("mla_train_b8_h128_s512", 8, 128, 128, 512, 512, 192, 128, True),
+        ("mla_s512", 1, 128, 128, 512, 512, 192, 128, True),
+        ("mla_ragged_s77", 1, 4, 4, 77, 77, 192, 128, True),
+        ("mla_noncausal_sq100_sk300", 2, 4, 4, 100, 300, 192, 128, False),
     ]
     gen = torch.Generator("cuda").manual_seed(4321)
     rows = {}
-    for name, B, H, K, Sq, Sk, hd, causal in cases:
+    for name, B, H, K, Sq, Sk, hd, hd_v, causal in cases:
         G = H // K
         scale = hd ** -0.5
         rn = lambda *shape: torch.randn(shape, generator=gen, device="cuda"
                                         ).to(torch.bfloat16)
-        q, k, v = rn(B, Sq, K, G, hd), rn(B, Sk, K, hd), rn(B, Sk, K, hd)
-        dout = rn(B, Sq, K, G, hd)
-        out = torch.empty_like(q)
+        q, k, v = rn(B, Sq, K, G, hd), rn(B, Sk, K, hd), rn(B, Sk, K, hd_v)
+        dout = rn(B, Sq, K, G, hd_v)
+        out = torch.empty_like(dout)
         lse = torch.empty((B, H, Sq), dtype=torch.float32, device="cuda")
         kernel.flash_attention_fwd(q, k, v, out, causal=causal, scale=scale,
                                    lse=lse)
@@ -1001,16 +1062,18 @@ def phase_flash_bwd(torch, ops):
         qh = q.reshape(B, Sq, H, hd).transpose(1, 2).contiguous()
         kh = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
         vh = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
-        doh = dout.reshape(B, Sq, H, hd).transpose(1, 2).contiguous()
+        doh = dout.reshape(B, Sq, H, hd_v).transpose(1, 2).contiguous()
         torch.use_deterministic_algorithms(False)
         try:
-            fast_fb, fast_bwd = map(sdpa_call_ms, sdpa_calls(
-                torch, qh, kh, vh, doh, causal))
+            fast_calls = sdpa_calls(torch, qh, kh, vh, doh, causal)
+            fast_backend = sdpa_backend(torch, fast_calls[0])
+            fast_fb, fast_bwd = map(sdpa_call_ms, fast_calls)
         finally:
             torch.use_deterministic_algorithms(True)
         try:      # a yardstick only: SDPA may refuse a deterministic bwd
             lib_fb_fn, lib_bwd_fn = sdpa_calls(torch, qh, kh, vh, doh,
                                                causal)
+            backend = sdpa_backend(torch, lib_fb_fn)
             lib_fb = sdpa_call_ms(lib_fb_fn)
             kernel_ms, lib_bwd, k_runs, l_runs = paired_ms(
                 bwd, lib_bwd_fn, timer=sdpa_call_ms)
@@ -1018,11 +1081,11 @@ def phase_flash_bwd(torch, ops):
             print(f"kernel flash_attention_bwd {name}: SDPA backward under "
                   f"deterministic algorithms not available ({e}); library "
                   f"times below are without them", flush=True)
-            lib_fb, lib_bwd = fast_fb, fast_bwd
+            lib_fb, lib_bwd, backend = fast_fb, fast_bwd, fast_backend
             kernel_ms, k_runs, l_runs = sdpa_call_ms(bwd), [], []
         bound_ms, bound_by = attention_bwd_bound_ms(B, H, K, Sq, Sk, hd,
-                                                    causal)
-        rows[name] = dict(shape=[B, H, K, Sq, Sk, hd, hd], causal=causal,
+                                                    hd_v, causal)
+        rows[name] = dict(shape=[B, H, K, Sq, Sk, hd, hd_v], causal=causal,
                           max_abs_err=max(errs.values()), errs=errs,
                           lse_err=lse_err, kernel_ms=kernel_ms,
                           device_ms=graph_ms, kernel_runs=k_runs,
@@ -1031,19 +1094,23 @@ def phase_flash_bwd(torch, ops):
                           library_ms=lib_bwd, library_fwd_bwd_ms=lib_fb,
                           library_nondeterministic_ms=fast_bwd,
                           library_nondeterministic_fwd_bwd_ms=fast_fb,
+                          library_backend=backend,
+                          library_nondeterministic_backend=fast_backend,
                           bound_ms=bound_ms, bound_by=bound_by,
                           kernel_over_bound=kernel_ms / bound_ms,
                           kernel_over_library=kernel_ms / lib_bwd)
         print(f"kernel flash_attention_bwd {name}: B={B} H={H} K={K} "
-              f"Sq={Sq} Sk={Sk} hd={hd} causal={causal} err/max|plain| dq "
+              f"Sq={Sq} Sk={Sk} hd={hd} hd_v={hd_v} causal={causal} "
+              f"err/max|plain| dq "
               f"{errs['dq']:.3e} dk {errs['dk']:.3e} dv {errs['dv']:.3e} "
               f"(tol {TOL}) lse_err={lse_err:.3e} (tol 1e-4) two launches "
               f"bit-identical; kernel_ms={kernel_ms:.5f} (eager, in turns "
               f"with SDPA; device_ms {graph_ms:.5f} from a CUDA graph; "
               f"fwd+bwd {fwd_bwd_ms:.5f}) plain_ms={plain_ms:.5f} "
-              f"library_ms(sdpa bwd)={lib_bwd:.5f} (fwd+bwd {lib_fb:.5f}) "
-              f"[deterministic algorithms off: bwd {fast_bwd:.5f}, fwd+bwd "
-              f"{fast_fb:.5f}] bound_ms={bound_ms:.5f} ({bound_by}) "
+              f"library_ms(sdpa bwd)={lib_bwd:.5f} (fwd+bwd {lib_fb:.5f}; "
+              f"backend {backend}) [deterministic algorithms off: bwd "
+              f"{fast_bwd:.5f}, fwd+bwd {fast_fb:.5f}; backend "
+              f"{fast_backend}] bound_ms={bound_ms:.5f} ({bound_by}) "
               f"kernel/bound={kernel_ms / bound_ms:.2f} "
               f"kernel/library={kernel_ms / lib_bwd:.3f}", flush=True)
     return rows
@@ -3124,9 +3191,74 @@ def phase_jamba_train(torch, cfg, counters) -> dict:
         a_kw=dict(ssm_chunk=JAMBA_A_CHUNK)))
 
 
+#: phase 20 trains deepseek-v2-236b at full width with its depth cut from
+#: 60 layers to 1: one layer is MLA and the config's dense first MLP (d_ff
+#: 12288), flash's forward and backward at hd 192 / hd_v 128 its only
+#: kernels (a second layer adds 160 routed experts and 2 shared ones,
+#: 5.36e9 params, whose bf16 params and moments, held twice by the
+#: out-of-place update, do not fit one card)
+DEEPSEEK_TRAIN_LAYERS = 1
+#: ``ModelConfig.param_count`` at 1 layer (the analytic count, equal to the
+#: reference's) and the params the bundle holds, which add the 17,408 it
+#: leaves out (the two block norms' and the final norm's scales, MLA's q
+#: and kv norms)
+DEEPSEEK_TRAIN_PARAM_COUNT = 1_386_545_152
+DEEPSEEK_TRAIN_PARAMS = 1_386_562_560
+#: the held params, mu and nu, all bf16 (the config keeps its moments in
+#: bf16), + 28 bytes of counters and pipeline
+DEEPSEEK_TRAIN_CKPT_BYTES = 8_319_375_388
+DEEPSEEK_TRAIN_STEPS = 4
+#: as phase 17's (c): sync commits every 2 steps, one manifest kept, a
+#: crash before the commit of step 3
+DEEPSEEK_TRAIN_KW = dict(n_steps=DEEPSEEK_TRAIN_STEPS, commit_every=2,
+                         commit_mode="sync", retention=1)
+#: retention 1 keeps one ~8.3 GB commit on disk and writes the next beside
+#: it
+DEEPSEEK_TRAIN_DISK_BYTES = 20e9
+#: the leaves that reach the loss only through the attention: (a) holds
+#: their grad norm to the CPU's fp32 one within ``TOL``.  The global norm
+#: is mostly the two 524M-param embeddings', and w_dkv's last 64 columns
+#: take their gradient only from dk's rope columns (128-191) summed over
+#: the 128 heads, so a backward that dropped them would show here
+DEEPSEEK_MLA_LEAVES = ("w_uq", "w_uk", "w_uv", "w_dkv")
+#: the card's free memory phase 20 and the rank processes beside it need
+#: at once: phase 20's durable run peaks near 51 GB (PERF.md), and up to
+#: sixteen rank processes (16 (a)) hold a CUDA context and a partition of
+#: 2048 x 2048 x 12 fp32 tensors each on the card
+PHASE_20_FREE_BYTES = 70e9
+
+
+def deepseek_step_launches(cfg, seq: int) -> dict:
+    """Kernel launches of one deepseek-v2 train step at one layer: MLA's
+    flash forward once and its backward once (a singleton layer is no
+    stacked group, so remat recomputes nothing; layer 0 is dense, so no
+    grouped matmul), whatever the sequence length."""
+    check(cfg.n_layers == 1 and cfg.moe.first_dense == 1,
+          f"deepseek_step_launches counts 1 dense layer, not "
+          f"{cfg.n_layers} (first_dense {cfg.moe.first_dense})")
+    return {"flash_attention": 1, "flash_attention_bwd": 1,
+            "grouped_matmul": 0, "grouped_matmul_dx": 0,
+            "grouped_matmul_dw": 0, "wkv6": 0, "wkv6_bwd": 0,
+            "selective_scan": 0, "selective_scan_bwd": 0}
+
+
+def phase_deepseek_train(torch, cfg, counters, note: str = "") -> dict:
+    """Phase 20: durable training of deepseek-v2-236b at full width through
+    the flash forward and backward kernels at MLA's widths (see the module
+    docstring)."""
+    return durable_train_cell(torch, cfg, counters, TrainCell(
+        label="deepseek train", phase=20,
+        param_count=DEEPSEEK_TRAIN_PARAM_COUNT, params=DEEPSEEK_TRAIN_PARAMS,
+        ckpt_bytes=DEEPSEEK_TRAIN_CKPT_BYTES, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, kw=DEEPSEEK_TRAIN_KW, crash={3: "before_commit"},
+        disk_bytes=DEEPSEEK_TRAIN_DISK_BYTES,
+        per_step=deepseek_step_launches, held=DEEPSEEK_MLA_LEAVES,
+        note=note))
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainCell:
-    """What phases 17, 18 and 19 check: the held and analytic parameter
+    """What phases 17 to 20 check: the held and analytic parameter
     counts, the bytes a commit, the batch, the loop's arguments and crash
     (a sync commit every 2 steps, one kept, a crash before the commit of
     step 3), the free disk needed and the kernel launches a step, a
@@ -3150,6 +3282,9 @@ class TrainCell:
     held: tuple = ()
     #: config fields (a) changes on both sides
     a_kw: dict = dataclasses.field(default_factory=dict)
+    #: what runs beside (b) and (c) besides the CPU's side of (a), printed
+    #: with their times
+    note: str = ""
 
 
 def durable_train_cell(torch, cfg, counters, cell: TrainCell) -> dict:
@@ -3241,7 +3376,7 @@ def durable_train_cell(torch, cfg, counters, cell: TrainCell) -> dict:
           f"{[round(x, 6) for x in losses_b]}; {step_ms:.1f} ms a step "
           f"(compute, steps 1-{n_steps - 1}; step 0 "
           f"{step_s[0] * 1e3:.1f} ms), wall {wall_b:.1f} s; launches "
-          f"{b_launches}; peak {peak_b:.2f} GB", flush=True)
+          f"{b_launches}; peak {peak_b:.2f} GB{cell.note}", flush=True)
     check(all(math.isfinite(x) for x in losses_b),
           f"{tag} (b): losses {losses_b}")
     check(b_launches == {k: n_steps * n for k, n in per_step.items()},
@@ -3290,9 +3425,10 @@ def durable_train_cell(torch, cfg, counters, cell: TrainCell) -> dict:
           f"run (0-3, then 2-3 again from the commit of step 1); losses "
           f"{[round(x, 6) for x in rc.losses]}; {step_ms_c:.1f} ms a step "
           f"(compute), {commit_s:.3f} host s a commit ({n_commits} timed), "
-          f"wall {wall_c:.1f} s; ckpt_bytes_per_commit {nbytes}; manifests "
-          f"kept {n_manifests}; launches {c_launches}; peak {peak_c:.2f} "
-          f"GB; bit-identical to (b): {same}", flush=True)
+          f"wall {wall_c:.1f} s; ckpt_bytes_per_commit {nbytes} "
+          f"({nbytes / 1e9:.2f} GB); manifests kept {n_manifests}; launches "
+          f"{c_launches}; peak {peak_c:.2f} GB; bit-identical to (b): "
+          f"{same}{cell.note}", flush=True)
     check(rc.crashes == 1 and rc.recoveries == ["pool"],
           f"{tag} (c): {rc.crashes} crashes, recoveries "
           f"{rc.recoveries}")
@@ -3328,8 +3464,8 @@ def durable_train_cell(torch, cfg, counters, cell: TrainCell) -> dict:
     check(all(r <= t for r, t in zip(rel, tols)),
           f"{tag} (a): card vs plain rel {rel} > {tols}")
     out["phase_s"] = time.perf_counter() - t_phase
-    print(f"{tag}: phase {cell.phase} took {out['phase_s']:.1f} s",
-          flush=True)
+    print(f"{tag}: phase {cell.phase} took {out['phase_s']:.1f} s"
+          f"{cell.note}", flush=True)
     out["launches"] = {f"{tag} (a)": a_launches,
                        f"{tag} (b)": b_launches,
                        f"{tag} (c)": c_launches}
@@ -4195,13 +4331,11 @@ def phase_legacy_serving(torch, cfg, trace, t_max, counters,
 
 
 def phase_cluster(torch, cfg, trace, t_max, counters, card: str) -> dict:
-    """Phase 15: (a) the rank cluster, (b) whole-lane tiers, (c) legacy
-    serving (see the module docstring)."""
+    """Phase 15 (b) whole-lane tiers, (c) legacy serving (see the module
+    docstring); (a), the rank cluster, is ``phase_cluster_ranks``, run
+    beside phase 20."""
     t_phase = time.perf_counter()
     out = {}
-    t0 = time.perf_counter()
-    out["ranks"] = phase_cluster_ranks(torch, card)
-    out["ranks_s"] = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4215,9 +4349,9 @@ def phase_cluster(torch, cfg, trace, t_max, counters, card: str) -> dict:
     out["legacy_s"] = time.perf_counter() - t0
     out["launches"] = out["legacy"]["launches"]
     out["phase_s"] = time.perf_counter() - t_phase
-    print(f"cluster: phase 15 took {out['phase_s']:.1f} s ((a) "
-          f"{out['ranks_s']:.1f}, (b) {out['tiers_s']:.1f}, (c) "
-          f"{out['legacy_s']:.1f}) [{card}]", flush=True)
+    print(f"cluster: phase 15 (b) and (c) took {out['phase_s']:.1f} s ((b) "
+          f"{out['tiers_s']:.1f}, (c) {out['legacy_s']:.1f}) [{card}]",
+          flush=True)
     return out
 
 
@@ -4235,24 +4369,18 @@ SCALE_FLEET_REQUESTS = 8
 SCALE_FLEET_PREFILLS = {"grown": 2, "fixed": 2}
 
 
-def phase_scale(torch, cfg, planned: dict, counters, card: str) -> dict:
-    """Phase 16: (a) the grow cells, (b) the fleet grow-and-drain cell,
-    (c) the autoscale cell (see the module docstring).  ``planned`` maps
-    "cuda" / "cpu" to phase 15's planned-shrink digests."""
+def phase_grow_cells(planned: dict, card: str) -> dict:
+    """16 (a): the grow cells, all four at once (sixteen rank processes on
+    the card; see the module docstring).  ``planned`` maps "cuda" / "cpu"
+    to phase 15's planned-shrink digests."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.dsm.faults import JOIN_POINTS
-    from repro_torch.models.registry import build
-    from repro_torch.scenarios.scale import (run_autoscale_cell,
-                                             run_fleet_scale_cell,
-                                             run_grow_scenario)
+    from repro_torch.scenarios.scale import run_grow_scenario
     from repro_torch.scenarios.worker import KILL_EXIT
-    from repro_torch.serve.trace import synthetic_trace, trace_t_max
-    t_phase = time.perf_counter()
-    out = {"cells": {}, "launches": {}, "reduced": CLUSTER_REDUCED}
-    work = tempfile.mkdtemp(prefix="chip_smoke_scale_")
+    out = {"cells": {}, "reduced": CLUSTER_REDUCED}
+    work = tempfile.mkdtemp(prefix="chip_smoke_grow_")
     dim, n_tensors = GROW_KW["dim"], GROW_KW["tensors"]
     try:
-        # -- (a) the grow cells, all four at once (sixteen processes) ------
         def cell(point):
             t0 = time.perf_counter()
             r = run_grow_scenario(point, work, join_at=GROW_JOIN_AT,
@@ -4318,7 +4446,23 @@ def phase_scale(torch, cfg, planned: dict, counters, card: str) -> dict:
                   f"{sorted(set(map(str, r.sources)))}, merged digests "
                   f"equal the planned shrink's on the card and on the CPU; "
                   f"{wall:.2f} s [{card}]", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
 
+
+def phase_scale(torch, cfg, counters, card: str) -> dict:
+    """Phase 16 (b) the fleet grow-and-drain cell, (c) the autoscale cell
+    (see the module docstring); (a), the grow cells, is
+    ``phase_grow_cells``, run beside phases 20, 15 (b, c) and these."""
+    from repro_torch.models.registry import build
+    from repro_torch.scenarios.scale import (run_autoscale_cell,
+                                             run_fleet_scale_cell)
+    from repro_torch.serve.trace import synthetic_trace, trace_t_max
+    t_phase = time.perf_counter()
+    out = {"launches": {}}
+    work = tempfile.mkdtemp(prefix="chip_smoke_scale_")
+    try:
         # -- (b) the fleet grows and drains, against a fixed fleet ----------
         gc.collect()
         torch.cuda.empty_cache()
@@ -4385,9 +4529,9 @@ def phase_scale(torch, cfg, planned: dict, counters, card: str) -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - t_phase
-    print(f"scale: phase 16 took {out['phase_s']:.1f} s ((a) "
-          f"{out['grow_s']:.1f}, (b) {out['fleet_s']:.1f}, (c) "
-          f"{out['autoscale_s']:.1f}) [{card}]", flush=True)
+    print(f"scale: phase 16 (b) and (c) took {out['phase_s']:.1f} s ((b) "
+          f"{out['fleet_s']:.1f}, (c) {out['autoscale_s']:.1f}) [{card}]",
+          flush=True)
     return out
 
 
@@ -4585,6 +4729,56 @@ def main(argv=None) -> int:
     report["jamba_train"] = phase_jamba_train(
         torch, get_config("jamba-1.5-large-398b").with_(
             n_layers=JAMBA_TRAIN_LAYERS), counters)
+    # -- 20. durable training of deepseek-v2-236b, then 15 (b, c) and 16
+    # (b, c); beside them, in a thread, 15 (a) and then 16 (a): rank
+    # processes only (their launches count in their own processes), so
+    # every time, rate and peak these print is taken beside the other work
+    # and is marked so.  The card holds phase 20 and the ranks at once
+    clock("phases 20, 15 and 16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    print(f"deepseek train: the card has {free / 1e9:.1f} GB free before "
+          f"phase 20 and the rank processes of phases 15 (a) and 16 (a) "
+          f"start; they run at once", flush=True)
+    check(free >= PHASE_20_FREE_BYTES,
+          f"phases 20, 15 (a) and 16 (a): {free / 1e9:.1f} GB free on the "
+          f"card, {PHASE_20_FREE_BYTES / 1e9:.0f} GB needed")
+
+    def rank_cells():
+        """15 (a), then 16 (a) on its planned digests, each timed."""
+        tag = f"{card}; beside phases 20, 15 (b, c) and 16 (b, c)"
+        t0 = time.perf_counter()
+        ranks = phase_cluster_ranks(torch, tag)
+        ranks_s = time.perf_counter() - t0
+        grow = phase_grow_cells(ranks["planned_digests"], tag)
+        return dict(ranks=ranks, ranks_s=ranks_s), grow
+
+    beside_note = " (beside phases 15 (a) and 16 (a))"
+    with ThreadPoolExecutor(1) as beside:
+        f_ranks = beside.submit(rank_cells)
+        report["deepseek_train"] = phase_deepseek_train(
+            torch, get_config("deepseek-v2-236b").with_(
+                n_layers=DEEPSEEK_TRAIN_LAYERS), counters, note=beside_note)
+        # -- 15. whole-lane tiers, legacy serving -------------------------
+        clock("phase 15 (b, c)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        report["cluster"] = phase_cluster(torch, olmo_cfg, trace, t_max,
+                                          counters, card + beside_note)
+        # -- 16. elastic scaling: the fleet, the autoscaler ---------------
+        clock("phase 16 (b, c)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        report["scale"] = phase_scale(torch, olmo_cfg, counters,
+                                      card + beside_note)
+        clock("the end of phases 15 (a) and 16 (a)")
+        ranks, grow = f_ranks.result()
+    report["cluster"].update(ranks)
+    report["scale"].update(grow)
+    print(f"cluster: phase 15 (a) took {ranks['ranks_s']:.1f} s, then 16 (a) "
+          f"{grow['grow_s']:.1f} s, beside phases 20, 15 (b, c) and 16 (b, "
+          f"c) [{card}]", flush=True)
     # -- 12. the other five decoder-only architectures ----------------------
     clock("phase 12")
     gc.collect()
@@ -4606,19 +4800,6 @@ def main(argv=None) -> int:
         report["whisper"] = phase_whisper(torch, get_config("whisper-small"),
                                           counters)
         report["crash"] = f_crash.result()
-    # -- 15. the rank cluster, whole-lane tiers, legacy serving -----------
-    clock("phase 15")
-    gc.collect()
-    torch.cuda.empty_cache()
-    report["cluster"] = phase_cluster(torch, olmo_cfg, trace, t_max,
-                                      counters, card)
-    # -- 16. elastic scaling: grow cells, the fleet, the autoscaler -------
-    clock("phase 16")
-    gc.collect()
-    torch.cuda.empty_cache()
-    report["scale"] = phase_scale(
-        torch, olmo_cfg, report["cluster"]["ranks"]["planned_digests"],
-        counters, card)
     clock("the kernels line")
     by_run = {a: p["launches"] for a, p in paths.items()}
     by_run.update({f"olmo-1b {r}": n
@@ -4633,6 +4814,8 @@ def main(argv=None) -> int:
                    for r, n in report["rwkv_train"]["launches"].items()})
     by_run.update({f"jamba-1.5-large-398b {r}": n
                    for r, n in report["jamba_train"]["launches"].items()})
+    by_run.update({f"deepseek-v2-236b {r}": n
+                   for r, n in report["deepseek_train"]["launches"].items()})
     by_run.update(report["archs"]["launches"])
     by_run.update(report["whisper"]["launches"])
     # the children of phase 14 count in their own processes and report

@@ -170,9 +170,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
 // ---- TMA -------------------------------------------------------------------
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1, int c2) {

@@ -27,7 +27,7 @@ _L = ctypes.c_longlong
 _P = ctypes.c_void_p
 _ARGTYPES = ([_P] * 5 + [_C] * 7 + [_L] * 12
              + [ctypes.c_float, _C, _P])
-_BWD_ARGTYPES = [_P] * 10 + [_C] * 6 + [_L] * 6 + [ctypes.c_float, _C, _P]
+_BWD_ARGTYPES = [_P] * 10 + [_C] * 7 + [_L] * 12 + [ctypes.c_float, _C, _P]
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -99,18 +99,26 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float) -> None:
     """Launch the backward's two kernels on the current stream: dq (which
     also writes each q row's delta = rowsum(dout * out) and lse in the log2
-    domain into an fp32 scratch), then dk / dv.  q, out, dout, dq
-    (B,S,K,G,hd) and k, v, dk, dv (B,T,K,hd): bf16, contiguous, hd 64 or
-    128; lse fp32 (B, K*G, S) from the forward — ``ops.FlashAttention``
-    checks all of that.  Raises if a launch is refused."""
+    domain into an fp32 scratch), then dk / dv.  q, dq (B,S,K,G,hd), out,
+    dout (B,S,K,G,hd_v), k, dk (B,T,K,hd) and v, dv (B,T,K,hd_v): bf16,
+    contiguous, (hd, hd_v) one of ``ops.BWD_HEAD_DIMS``; lse fp32 (B, K*G,
+    S) from the forward — ``ops.FlashAttention`` checks all of that.  Each
+    gradient takes the strides of its tensor.  Raises if a launch is
+    refused."""
     B, S, K, G, hd = q.shape
-    T = k.shape[1]
+    T, hd_v = k.shape[1], v.shape[-1]
+    for g, t in ((dq, q), (dk, k), (dv, v), (dout, out)):
+        if g.shape != t.shape or g.stride() != t.stride():
+            raise ValueError(f"flash_attention_bwd: {tuple(g.shape)} "
+                             f"strides {g.stride()} beside "
+                             f"{tuple(t.shape)} strides {t.stride()}")
     rows = torch.empty(bwd_scratch_floats(B, K * G, S), dtype=torch.float32,
                        device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = bwd_library().repro_flash_attention_bwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), rows.data_ptr(), B, K * G, K, S, T, hd,
-        *_bhs(q), *_bhs(k), float(scale), int(causal), stream)
+        dv.data_ptr(), rows.data_ptr(), B, K * G, K, S, T, hd, hd_v,
+        *_bhs(q), *_bhs(k), *_bhs(v), *_bhs(out), float(scale),
+        int(causal), stream)
     _check(err, "flash_attention_bwd")

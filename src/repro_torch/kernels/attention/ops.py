@@ -28,8 +28,9 @@ from repro_torch.kernels.attention.ref import (attention_bwd_ref,
 LAUNCHES = 0
 #: backward launches (one per backward: its two kernels, one C call)
 BWD_LAUNCHES = 0
-#: head dims the backward kernel takes (hd == hd_v)
-BWD_HEAD_DIMS = (64, 128)
+#: the (hd, hd_v) pairs the backward kernel takes: hd == hd_v at 64 and
+#: 128, and MLA's (deepseek-v2: q / k nope 128 + rope 64, v 128)
+BWD_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
 
 
 def _check_cuda(q, k, v):
@@ -75,11 +76,10 @@ def _forward(q, k, v, *, causal: bool, scale: float, with_lse: bool):
 
 def _check_bwd(q, k, v):
     hd, hd_v = q.shape[-1], v.shape[-1]
-    if hd != hd_v or hd not in BWD_HEAD_DIMS:
+    if (hd, hd_v) not in BWD_HEAD_DIMS:
         raise ValueError(
-            f"flash_attention backward kernel takes hd == hd_v in "
-            f"{BWD_HEAD_DIMS}, got hd {hd}, hd_v {hd_v} (hd_v != hd and hd "
-            f"256 are ROADMAP B3 items)")
+            f"flash_attention backward kernel takes (hd, hd_v) in "
+            f"{BWD_HEAD_DIMS}, got ({hd}, {hd_v})")
 
 
 class FlashAttention(torch.autograd.Function):

@@ -19,13 +19,17 @@ and every sample.
 * Forward (the default): the serving shape (1, 16, 512, 128) causal, the
   logsumexp pointer null (an earlier version's entry has none), and
   whether the two outputs are bit-identical.
-* ``--bwd``: the training shape (8, 16, 512, 128) causal, on the
+* ``--bwd``: olmo-1b's training shape (8, 16, 512, 128) causal, then
+  deepseek-v2's (8, 128 over 128, 512, hd 192, hd_v 128), on the
   checkout's forward output and logsumexp; each version's dq, dk, dv
   against the fp32 plain backward (max abs error over max|plain|, limit
   2e-2) — the two need not agree bit for bit, as the order of the sums
   differs — and each version's launches by name with their device times
-  (CUDA profiler, the mean of 20 calls).  The scratch handed to both is
-  large enough for either version's.
+  (CUDA profiler, the mean of 20 calls).  A version whose entry takes no
+  hd_v (before the MLA widths) is called with its own arguments and
+  timed at the first shape only; the checkout is timed alone at the
+  second.  The scratch handed to both is large enough for either
+  version's.
 """
 from __future__ import annotations
 
@@ -42,7 +46,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.attention import kernel, ops
 
 SHAPE = (1, 16, 512, 128)        # B, H, S, hd: olmo-1b's prefill
-BWD_SHAPE = (8, 16, 512, 128)    # olmo-1b's training step, (8, 512)
+BWD_SHAPE = (8, 16, 512, 128, 128)  # B, H, S, hd, hd_v: olmo-1b's training
+MLA_BWD_SHAPE = (8, 128, 512, 192, 128)  # deepseek-v2's step, (8, 512)
 TOL = 2e-2
 
 
@@ -150,44 +155,63 @@ def _forward(against: Path) -> None:
           f"{same}; samples {times}", flush=True)
 
 
-def _backward(against: Path) -> None:
-    other = _build_other(against, "libfa_bwd_other.so") \
+def _bwd_entry(path: Path):
+    """Another version's backward entry, and whether it takes hd_v and the
+    four stride triples (since the MLA widths) or hd and two."""
+    fn = _build_other(path, "libfa_bwd_other.so") \
         .repro_flash_attention_bwd_bf16
-    other.argtypes = kernel._BWD_ARGTYPES
-    other.restype = ctypes.c_int
-    mine = kernel.bwd_library().repro_flash_attention_bwd_bf16
-    B, H, S, hd = BWD_SHAPE
+    sig = re.search(r"repro_flash_attention_bwd_bf16\((.*?)\)",
+                    path.read_text(), re.S).group(1)
+    new_sig = "hd_v" in sig
+    fn.argtypes = (kernel._BWD_ARGTYPES if new_sig else
+                   [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 6
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn, new_sig
+
+
+def _bwd_at(shape, other, other_new_sig: bool, against: Path) -> None:
+    """One backward shape (B, H over H, S, hd, hd_v, causal): each
+    version's errors, the two in turns where the other takes the widths
+    (else the checkout alone, six graph timings), and each one's launches
+    by name."""
+    B, H, S, hd, hd_v = shape
     scale = hd ** -0.5
     g = torch.Generator("cuda").manual_seed(0)
-    q, k, v, dout = (torch.randn(shape, generator=g, device="cuda").bfloat16()
-                     for shape in ((B, S, H, 1, hd), (B, S, H, hd),
-                                   (B, S, H, hd), (B, S, H, 1, hd)))
-    out = torch.empty_like(q)
+    q, k, v, dout = (torch.randn(s, generator=g, device="cuda").bfloat16()
+                     for s in ((B, S, H, 1, hd), (B, S, H, hd),
+                               (B, S, H, hd_v), (B, S, H, 1, hd_v)))
+    out = torch.empty_like(dout)
     lse = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
     kernel.flash_attention_fwd(q, k, v, out, causal=True, scale=scale,
                                lse=lse)
     # large enough for either version (the mma.sync one took B*H*S floats)
     rows = torch.empty(max(kernel.bwd_scratch_floats(B, H, S), B * H * S),
                        dtype=torch.float32, device="cuda")
-    grads = {n: [torch.empty_like(t) for t in (q, k, v)]
-             for n in ("other", "checkout")}
-
-    def call(fn, bufs):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), dout.data_ptr(),
-                 *(t.data_ptr() for t in bufs), rows.data_ptr(), B, H, H, S,
-                 S, hd, *kernel._bhs(q), *kernel._bhs(k), scale, 1,
-                 torch.cuda.current_stream().cuda_stream)
-        assert err == 0, err
+    with_other = other_new_sig or hd == hd_v
+    names = ("other", "checkout") if with_other else ("checkout",)
+    grads = {n: [torch.empty_like(t) for t in (q, k, v)] for n in names}
+    ptrs = lambda bufs: ([t.data_ptr() for t in (q, k, v, out, lse, dout)]
+                         + [t.data_ptr() for t in bufs] + [rows.data_ptr()])
+    stream = lambda: torch.cuda.current_stream().cuda_stream
 
     def run_other():
-        call(other, grads["other"])
+        widths = [hd, hd_v] if other_new_sig else [hd]
+        strides = kernel._bhs(q) + kernel._bhs(k) + (
+            kernel._bhs(v) + kernel._bhs(out) if other_new_sig else [])
+        err = other(*ptrs(grads["other"]), B, H, H, S, S, *widths,
+                    *strides, scale, 1, stream())
+        assert err == 0, err
 
     def run_checkout():
-        call(mine, grads["checkout"])
+        kernel.flash_attention_bwd(q, k, v, out, lse, dout,
+                                   *grads["checkout"], causal=True,
+                                   scale=scale)
 
-    run_other()
-    run_checkout()
+    runs = {"other": run_other, "checkout": run_checkout}
+    for n in names:
+        runs[n]()
     torch.cuda.synchronize()
     want = ops.plain_attention_bwd(q, k, v, out, lse, dout, causal=True)
     errs = {}
@@ -195,20 +219,34 @@ def _backward(against: Path) -> None:
         errs[name] = {n: float((a.float() - w).abs().max() / w.abs().max())
                       for n, a, w in zip(("dq", "dk", "dv"), got, want)}
         assert all(e <= TOL for e in errs[name].values()), (name, errs)
-    same = all(torch.equal(a, b) for a, b in zip(*grads.values()))
-    med, times = _in_turns(run_other, run_checkout)
-    print(f"flash backward at {BWD_SHAPE} causal: checkout "
-          f"{med['checkout']:.5f} ms, {against} {med['other']:.5f} ms "
-          f"(medians of 6 in turns; checkout/other "
-          f"{med['checkout'] / med['other']:.3f}); err/max|plain| checkout "
-          f"{errs['checkout']}, other {errs['other']} (limit {TOL}); "
-          f"bit-identical to each other: {same}; samples {times}",
-          flush=True)
-    for name, fn in (("checkout", run_checkout), ("other", run_other)):
-        per = launch_ms(fn)
-        print(f"flash backward {name} launches (device ms each, profiler): "
-              + ", ".join(f"{k} {ms:.5f}" for k, ms in per.items())
+    label = f"flash backward at {shape} causal"
+    if with_other:
+        same = all(torch.equal(a, b) for a, b in zip(*grads.values()))
+        med, times = _in_turns(run_other, run_checkout)
+        print(f"{label}: checkout {med['checkout']:.5f} ms, {against} "
+              f"{med['other']:.5f} ms (medians of 6 in turns; "
+              f"checkout/other {med['checkout'] / med['other']:.3f}); "
+              f"err/max|plain| checkout {errs['checkout']}, other "
+              f"{errs['other']} (limit {TOL}); bit-identical to each "
+              f"other: {same}; samples {times}", flush=True)
+    else:
+        times = [_graph_ms(run_checkout) for _ in range(6)]
+        print(f"{label}: checkout {statistics.median(times):.5f} ms "
+              f"(median of 6; {against} does not take hd_v {hd_v} under hd "
+              f"{hd}); err/max|plain| {errs['checkout']} (limit {TOL}); "
+              f"samples {times}", flush=True)
+    for name in names:
+        per = launch_ms(runs[name])
+        print(f"flash backward {name} at {shape} launches (device ms each, "
+              f"profiler): " + ", ".join(f"{k} {ms:.5f}"
+                                         for k, ms in per.items())
               + f"; sum {sum(per.values()):.5f}", flush=True)
+
+
+def _backward(against: Path) -> None:
+    other, new_sig = _bwd_entry(against)
+    for shape in (BWD_SHAPE, MLA_BWD_SHAPE):
+        _bwd_at(shape, other, new_sig, against)
 
 
 def main(argv=None) -> int:

@@ -53,9 +53,15 @@ machine with the card, where there is no JAX:
   matmul 3 times per MoE layer per forward;
 * the flash backward kernel against the fp32 plain backward at ragged,
   GQA (G 2 and G 4 at 512), non-causal, Sq > Sk and Sq < Sk causal, S 300
-  and hd 64 at 512 shapes (2e-2 x max|plain|), the forward's
-  logsumexp (1e-4), two launches with the same bits, the dispatcher's
-  refusal of head dims the backward does not take, and both flash kernels
+  and hd 64 at 512 shapes, and at MLA's widths (hd 192, hd_v 128: ragged,
+  non-causal, Sq < Sk and Sq > Sk causal, S 300) (2e-2 x max|plain|), the
+  forward's logsumexp (1e-4), two launches with the same bits; the
+  dispatcher under autograd at MLA's widths against autograd through the
+  plain version; one bf16 train step of deepseek-v2 cut to one dense
+  layer, 2 heads and d_model 64 at MLA's published head widths against
+  the CPU's fp32 step (loss and grad norm, 2e-2); the dispatcher's
+  refusal of the head dims the backward does not take ((256, 256), (128,
+  64), (32, 32)), and both flash kernels
   launched from a thread that has made no CUDA call yet (the tensor maps
   need the tensors' context current there) with the main thread's bits;
 * the flash dispatcher, given inputs that require grad under grad mode,
@@ -225,31 +231,39 @@ def test_kernel_edges_match_plain_version_bit_for_bit_twice(case, cuda):
 
 
 BWD_CASES = [
-    # B, H, K, Sq, Sk, hd, causal
-    (1, 2, 2, 37, 37, 64, True),            # ragged, one partial tile
-    (2, 4, 2, 130, 130, 128, True),         # GQA, three tiles
-    (1, 2, 1, 77, 200, 64, False),          # non-causal, Sq != Sk
-    (1, 2, 2, 200, 77, 128, True),          # causal, Sq > Sk
-    (1, 8, 2, 512, 512, 128, True),         # G 4: the GQA sum over every ring stage
-    (1, 4, 4, 300, 300, 128, True),         # S not a multiple of 64 or 128
-    (1, 8, 8, 512, 512, 64, True),          # hd 64 at 512
-    (1, 4, 2, 100, 300, 128, True),         # causal, Sq < Sk: kv tiles past
+    # B, H, K, Sq, Sk, hd, hd_v, causal
+    (1, 2, 2, 37, 37, 64, 64, True),        # ragged, one partial tile
+    (2, 4, 2, 130, 130, 128, 128, True),    # GQA, three tiles
+    (1, 2, 1, 77, 200, 64, 64, False),      # non-causal, Sq != Sk
+    (1, 2, 2, 200, 77, 128, 128, True),     # causal, Sq > Sk
+    (1, 8, 2, 512, 512, 128, 128, True),    # G 4: the GQA sum over every ring stage
+    (1, 4, 4, 300, 300, 128, 128, True),    # S not a multiple of 64 or 128
+    (1, 8, 8, 512, 512, 64, 64, True),      # hd 64 at 512
+    (1, 4, 2, 100, 300, 128, 128, True),    # causal, Sq < Sk: kv tiles past
                                             # the last q row write zeros
-    (2, 12, 12, 100, 300, 64, False),       # whisper's cross-attention:
+    (2, 12, 12, 100, 300, 64, 64, False),   # whisper's cross-attention:
                                             # every q tile for each kv tile
+    # MLA's widths (q / k 192, v 128): pass 2 in two warpgroups
+    (1, 2, 2, 37, 37, 192, 128, True),      # ragged, one partial tile
+    (1, 2, 1, 77, 200, 192, 128, False),    # non-causal, Sq != Sk, G 2
+    (1, 4, 2, 100, 300, 192, 128, True),    # causal, Sq < Sk: zeros past Sq
+    (1, 2, 2, 200, 77, 192, 128, True),     # causal, Sq > Sk
+    (1, 4, 4, 300, 300, 192, 128, True),    # several ring turns a kv tile
 ]
 
 
 @pytest.mark.parametrize("case", BWD_CASES, ids=[
-    f"B{c[0]}H{c[1]}K{c[2]}S{c[3]}x{c[4]}hd{c[5]}{'c' if c[6] else 'f'}"
+    f"B{c[0]}H{c[1]}K{c[2]}S{c[3]}x{c[4]}hd{c[5]}"
+    f"{'' if c[6] == c[5] else f'v{c[6]}'}{'c' if c[7] else 'f'}"
     for c in BWD_CASES])
 def test_flash_backward_matches_plain_version_bit_for_bit_twice(case, cuda):
     """dq, dk, dv of the backward kernel against the fp32 plain backward on
     the same bf16 inputs (2e-2 x max|plain|), the forward's logsumexp
     within 1e-4, and two backward launches with the same bits."""
-    B, H, K, Sq, Sk, hd, causal = case
-    q, k, v = _inputs((B, H, K, Sq, Sk, hd, hd, causal), cuda, 41)
-    dout = torch.randn(q.shape, device=cuda).to(torch.bfloat16)
+    B, H, K, Sq, Sk, hd, hd_v, causal = case
+    q, k, v = _inputs((B, H, K, Sq, Sk, hd, hd_v, causal), cuda, 41)
+    dout = torch.randn(q.shape[:-1] + (hd_v,),
+                       device=cuda).to(torch.bfloat16)
     runs = []
     for _ in range(2):
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -337,13 +351,74 @@ def test_kernel_at_the_mla_prefill_shape_matches_plain_version(cuda):
     assert torch.equal(ops.flash_attention(q, k, v, causal=True), out)
 
 
-def test_flash_backward_refuses_head_dims_it_does_not_take(cuda):
-    q, k, v = _inputs((1, 2, 2, 16, 16, 32, 32, True), cuda, 42)
+@pytest.mark.parametrize("hd,hd_v", [(256, 256), (128, 64), (32, 32)])
+def test_flash_backward_refuses_head_dims_it_does_not_take(hd, hd_v, cuda):
+    q, k, v = _inputs((1, 2, 2, 16, 16, hd, hd_v, True), cuda, 42)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     fwd = ops.LAUNCHES
-    with pytest.raises(ValueError, match="hd == hd_v"):
+    with pytest.raises(ValueError, match=r"\(hd, hd_v\) in"):
         ops.flash_attention(*leaves, causal=True)
     assert ops.LAUNCHES == fwd                      # refused before launch
+
+
+def test_flash_autograd_at_mla_widths_matches_plain_autograd(cuda):
+    """``FlashAttention`` under autograd at (192, 128): one forward and one
+    backward launch, and the gradients against torch autograd through the
+    plain version on the same values in fp32 (2e-2 x max)."""
+    q, k, v = _inputs((1, 4, 4, 130, 130, 192, 128, True), cuda, 45)
+    dout = torch.randn((1, 130, 4, 1, 128), device=cuda).to(torch.bfloat16)
+    fwd, bwd = ops.LAUNCHES, ops.BWD_LAUNCHES
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ops.flash_attention(*leaves, causal=True).backward(dout)
+    torch.cuda.synchronize()
+    assert (ops.LAUNCHES, ops.BWD_LAUNCHES) == (fwd + 1, bwd + 1)
+    plain = [t.float().requires_grad_(True) for t in (q, k, v)]
+    ops.plain_attention(*plain, causal=True).backward(dout.float())
+    for got, want in zip(leaves, plain):
+        assert got.grad.shape == want.grad.shape
+        assert float((got.grad.float() - want.grad).abs().max()) <= \
+            2e-2 * float(want.grad.abs().max())
+
+
+def test_deepseek_train_step_at_mla_widths_matches_the_cpu(cuda):
+    """One bf16 train step of deepseek-v2 cut to 1 dense layer, 2 heads and
+    d_model 64, at the published MLA head widths (q / k nope 128 + rope
+    64, v 128), on the card through both flash kernels, against the same
+    weights' fp32 step on the CPU: the loss and the gradients' global norm
+    within 2e-2 relative, one flash forward and one backward launch."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.registry import build
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.utils.tree import tree_map
+    base = get_smoke_config("deepseek-v2-236b")
+    cfg = base.with_(n_layers=1, n_heads=2, n_kv_heads=2,
+                     param_dtype="bfloat16", compute_dtype="bfloat16",
+                     mla=dataclasses.replace(base.mla, qk_nope_head_dim=128,
+                                             qk_rope_head_dim=64,
+                                             v_head_dim=128))
+    bundle = build(cfg, device=cuda)
+    params = bundle.init_params(torch.Generator(cuda).manual_seed(0))
+    tok = np.random.default_rng(7).integers(0, cfg.vocab_size, (2, 65))
+    batch = {"tokens": torch.from_numpy(tok[:, :-1]),
+             "targets": torch.from_numpy(tok[:, 1:])}
+    fwd, bwd = ops.LAUNCHES, ops.BWD_LAUNCHES
+    _, met = make_train_step(bundle)(
+        init_train_state(params, 0, cfg.moment_dtype),
+        {k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert (ops.LAUNCHES - fwd, ops.BWD_LAUNCHES - bwd) == (1, 1)
+    cpu_cfg = cfg.with_(param_dtype="float32", compute_dtype="float32")
+    cpu = build(cpu_cfg, device="cpu")
+    cpu_params = tree_map(lambda x: x.float().cpu(), params)
+    _, want = make_train_step(cpu)(
+        init_train_state(cpu_params, 0, cpu_cfg.moment_dtype), batch)
+    for key in ("loss", "grad_norm"):
+        got, ref = float(met[key]), float(want[key])
+        assert np.isfinite(got) and abs(got - ref) <= 2e-2 * abs(ref), \
+            (key, got, ref)
 
 
 @pytest.mark.parametrize("bad", ["float32", "strided", "hd_not_mult_8"])

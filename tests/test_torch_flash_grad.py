@@ -15,9 +15,12 @@ versions here (``kernels/attention/ref.py``):
 * in the model layout, ``plain_attention_bwd`` equals torch autograd
   through ``plain_attention`` (what the dispatcher runs for CPU tensors),
   and the dispatcher's CPU branch stays differentiable;
-* the backward kernel's dispatcher refuses, before any launch, what the
-  kernel does not take: hd_v != hd, and head dims other than 64 and 128
-  (MLA's 192 / 128 and hd 256 are ROADMAP items).
+* the backward kernel's dispatcher takes (hd, hd_v) = (64, 64), (128,
+  128) and MLA's (192, 128), and refuses, before any launch, every other
+  pair (hd 256, hd_v 64 under hd 128, hd 32).
+
+The cases include MLA's widths (hd_v != hd): the smoke config's (q / k
+24, v 16) and the published ones (192, 128).
 """
 import jax
 import jax.numpy as jnp
@@ -30,21 +33,26 @@ from repro_torch.kernels.attention import ops
 from repro_torch.kernels.attention.ref import (attention_bwd_ref,
                                                attention_ref_lse)
 
-CASES = {  # B, H, K, Sq, Sk, hd, causal
-    "causal": (2, 4, 4, 32, 32, 16, True),
-    "gqa": (1, 8, 2, 24, 24, 16, True),
-    "ragged": (1, 4, 2, 77, 77, 8, True),
-    "noncausal": (2, 4, 4, 13, 29, 16, False),
-    "causal_sq_lt_sk": (1, 2, 1, 20, 33, 8, True),
+CASES = {  # B, H, K, Sq, Sk, hd, hd_v, causal
+    "causal": (2, 4, 4, 32, 32, 16, 16, True),
+    "gqa": (1, 8, 2, 24, 24, 16, 16, True),
+    "ragged": (1, 4, 2, 77, 77, 8, 8, True),
+    "noncausal": (2, 4, 4, 13, 29, 16, 16, False),
+    "causal_sq_lt_sk": (1, 2, 1, 20, 33, 8, 8, True),
+    # MLA: deepseek-v2's smoke widths (nope 16 + rope 8, v 16) and its
+    # published ones (nope 128 + rope 64, v 128)
+    "mla_smoke": (1, 4, 4, 40, 40, 24, 16, True),
+    "mla": (1, 2, 2, 33, 33, 192, 128, True),
 }
 TOL = 1e-5
 
 
 def _inputs(case, seed=0):
-    B, H, K, Sq, Sk, hd, _ = case
+    B, H, K, Sq, Sk, hd, hd_v, _ = case
     g = np.random.default_rng(seed)
     return [g.standard_normal(s).astype(np.float32) for s in
-            ((B, H, Sq, hd), (B, K, Sk, hd), (B, K, Sk, hd), (B, H, Sq, hd))]
+            ((B, H, Sq, hd), (B, K, Sk, hd), (B, K, Sk, hd_v),
+             (B, H, Sq, hd_v))]
 
 
 def _close(ours, theirs, tol=TOL):
@@ -73,7 +81,7 @@ def test_plain_backward_equals_jax_grad_of_the_reference(name):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_lse_equals_jax_logsumexp_of_the_reference_scores(name):
-    B, H, K, Sq, Sk, hd, causal = CASES[name]
+    B, H, K, Sq, Sk, hd, _, causal = CASES[name]
     q, k, v, _ = _inputs(CASES[name], seed=1)
     s = jnp.einsum("bhqd,bhkd->bhqk", jnp.asarray(q) * hd ** -0.5,
                    jnp.repeat(jnp.asarray(k), H // K, axis=1))
@@ -89,10 +97,10 @@ def test_lse_equals_jax_logsumexp_of_the_reference_scores(name):
 
 
 def _model_layout(case, seed=2):
-    B, H, K, Sq, Sk, hd, _ = case
+    B, H, K, Sq, Sk, hd, hd_v, _ = case
     g = np.random.default_rng(seed)
-    shapes = ((B, Sq, K, H // K, hd), (B, Sk, K, hd), (B, Sk, K, hd),
-              (B, Sq, K, H // K, hd))
+    shapes = ((B, Sq, K, H // K, hd), (B, Sk, K, hd), (B, Sk, K, hd_v),
+              (B, Sq, K, H // K, hd_v))
     return [torch.from_numpy(g.standard_normal(s).astype(np.float32))
             for s in shapes]
 
@@ -118,7 +126,7 @@ def test_plain_backward_equals_autograd_in_the_model_layout(name):
 
 @pytest.mark.parametrize("hd,hd_v,ok", [(64, 64, True), (128, 128, True),
                                         (256, 256, False),
-                                        (192, 128, False), (128, 64, False),
+                                        (192, 128, True), (128, 64, False),
                                         (32, 32, False)])
 def test_backward_refuses_what_its_kernel_does_not_take(hd, hd_v, ok):
     q = torch.zeros(1, 4, 2, 1, hd)
@@ -127,5 +135,6 @@ def test_backward_refuses_what_its_kernel_does_not_take(hd, hd_v, ok):
     if ok:
         ops._check_bwd(q, k, v)
     else:
-        with pytest.raises(ValueError, match="hd == hd_v"):
+        with pytest.raises(ValueError, match=r"\(hd, hd_v\) in "
+                           r"\(\(64, 64\), \(128, 128\), \(192, 128\)\)"):
             ops._check_bwd(q, k, v)

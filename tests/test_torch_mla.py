@@ -18,8 +18,9 @@ on its fp32 smoke config with the reference's weights carried over
   the pooled route (the batch shares one routing) and the per-sequence
   route (each row alone, as the reference's per-slot decode): output and
   aux loss (atol 1e-5);
-* MLA training's refusal on the card is the flash backward's
-  (hd_v != hd), not the port's: the dispatcher's check names it.
+* on the card the flash backward takes MLA's published widths (q / k
+  192, v 128) and refuses the smoke config's (24, 16): the dispatcher's
+  check names the pairs it takes.
 """
 import dataclasses
 import os
@@ -252,7 +253,11 @@ def test_moe_with_and_without_shared_experts_matches_the_reference(
 
 
 def test_mla_training_on_the_card_is_refused_by_the_flash_backward():
+    """At the smoke config's MLA widths (q / k 24, v 16): the backward
+    kernel takes MLA's published widths (192, 128) alone."""
     q = torch.zeros((1, 8, 4, 1, 24), dtype=torch.bfloat16)
     v = torch.zeros((1, 8, 4, 16), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="hd_v != hd"):
+    with pytest.raises(ValueError, match=r"\(hd, hd_v\) in"):
         ops._check_bwd(q, q[:, :, :, 0], v)
+    q = torch.zeros((1, 8, 4, 1, 192), dtype=torch.bfloat16)
+    ops._check_bwd(q, q[:, :, :, 0], torch.zeros((1, 8, 4, 128)))
