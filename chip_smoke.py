@@ -29,7 +29,10 @@ deepseek-v2-236b at full width (depth cut to 1 layer) through the flash
 forward and backward at MLA's widths, run right after olmo-1b's training
 (phases 17 to 20 below; the rank processes of phases 15 (a) and 16 (a)
 run beside phase 20 and the in-process parts of 15 and 16, which follow
-it).  It prints one line per phase:
+it), then, after phase 12, the example twins (phase 21) and the
+mesh-native durable commit on a 2x4 mesh of the card's places with a
+killed and restarted mesh worker (phase 22).  It prints one line per
+phase:
 
 1. environment — the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions;
@@ -60,7 +63,11 @@ it).  It prints one line per phase:
      three training shapes (see the forward's cases below), and at MLA's
      widths (hd 192, hd_v 128): deepseek-v2's training step (8, 128 over
      128, 512), one sequence (1, 128, 512), ragged S = T = 77 and
-     non-causal Sq 100 < Sk 300 (2, 4 heads): the forward's logsumexp
+     non-causal Sq 100 < Sk 300 (2, 4 heads), and at head dim 32 (the
+     64-wide tiles over 32 columns; a width the backward takes, though
+     no published config trains at it): (4, 8, 256), ragged GQA (1, 8
+     over 2, 77) and non-causal (2, 4, 100 over 300) (the kernels line
+     reports the first as ``hd32``): the forward's logsumexp
      within 1e-4 abs of the plain
      ``logsumexp``; dq, dk, dv against the fp32 plain backward on the same
      bf16 inputs (the kernel's own output and logsumexp), elementwise
@@ -564,10 +571,47 @@ it).  It prints one line per phase:
         controller must beat every fixed fleet size with no session lost;
         its cost against the best fixed fleet's is printed.
 
+21. the example twins (``repro_torch.examples``) on the card at their
+    defaults, after phase 12 and before phases 13 and 14, each run driven
+    through its ``main``:
+    (a) ``train_durable``: the reference's ``small_cfg`` (olmo-1b's config
+        at 4 layers, d_model 256, 8 heads of olmo-1b's 128, d_ff 1024, a
+        vocabulary of 8192; ``remat="none"``), 60 steps of (4, 256), an
+        ``async`` commit every 10, crashes at steps 20 and 40 each healed
+        by ``ctx.recover``, then a clean run over a fresh pool: the final
+        params must be identical, and the flash forward and backward
+        launched once a layer a step computed (4 x the steps of both
+        runs, the replayed ones included), nothing else;
+    (b) ``serve``: olmo-1b's smoke config, 12 requests of 32 prompt
+        tokens, 4 slots, a session commit every 4 ticks into one pool,
+        run twice: the first prefills every request (one flash launch a
+        layer a prefill), the second resumes all 12 finished sessions
+        from the pool with 0 decode ticks, 0 launches and the same
+        tokens;
+22. the mesh-native durable commit (``dsm.meshio``) on the card:
+    (a) ``bench.checkpoint``'s mesh rows: 8 leaves of 512 x 512 fp32
+        laid over a 2x4 (data, model) mesh of ``cuda:0`` places,
+        committed ``sharded`` device-local against host-gather at the
+        shard count the mesh derives: 8 shards of 1,048,576 bytes,
+        manifests equal, 0 whole-tree gather bytes on the device path
+        (``benchmarks/baselines/checkpoint.json``'s values); each path's
+        fastest commit of 3 printed;
+    (b) (in a thread beside phase 21 and 22 (a)) the scenario runner's
+        mesh lane: ``scenarios.worker --mesh 2x4 --device cuda`` on the
+        toy state at dim 2048 (``reduced``: 6 tensors of params, mu and
+        nu, 301,989,888 bytes, each (2048, 2048) split over both axes, the
+        counters replicated), ``sharded-async``, the shard count priced
+        under ``cxl20-switched-pool`` from the per-place bytes, 8 steps,
+        a commit every 2: a worker killed (``os._exit(17)``) at
+        ``mid_flush`` of step 3 and its restart, beside an uninterrupted
+        run; the killed one must exit 17, the restart resume from the
+        newest completed commit, device-sharded, with the uninterrupted
+        run's params digest; both runs' whole-tree gather bytes 0.
+
 Each path and each run of phases 9, 10, 11, 12, 13, 15 (c), 16 (b), 17,
-18, 19 and 20 is
+18, 19, 20 and 21 is
 driven with every launch count set to 0 just before it and read just
-after; the children of phase 14 start with theirs at 0.  Then a
+after; the children of phases 14 and 22 start with theirs at 0.  Then a
 ``{"kernels": [...]}`` line, the card line again, and as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises and the script exits non-zero; without a CUDA device, or without
 the repo's ``src/repro_torch`` beside it, it exits non-zero and prints no
@@ -978,36 +1022,47 @@ def sdpa_backend(torch, fn) -> str:
                 "unknown")
 
 
+#: phase 3's backward cases: (name, B, H, K, Sq, Sk, hd, hd_v, causal)
+FLASH_BWD_CASES = [
+    ("train_b8_s512", 8, 16, 16, 512, 512, 128, 128, True),
+    ("path_s512", 1, 16, 16, 512, 512, 128, 128, True),
+    ("gqa_h32_k8_s200", 2, 32, 8, 200, 200, 128, 128, True),
+    ("ragged_s77_hd64", 1, 16, 16, 77, 77, 64, 64, True),
+    ("noncausal_sq300_sk700", 2, 16, 16, 300, 700, 128, 128, False),
+    ("gqa_h8_k2_s512", 1, 8, 2, 512, 512, 128, 128, True),
+    ("ragged_s300", 1, 4, 4, 300, 300, 128, 128, True),
+    ("hd64_s512", 1, 8, 8, 512, 512, 64, 64, True),
+    ("causal_sq100_sk300", 1, 4, 2, 100, 300, 128, 128, True),
+    # phase 13's whisper-small training shapes (see phase_kernel)
+    ("whisper_enc_b8_s1500", 8, 12, 12, 1500, 1500, 64, 64, False),
+    ("whisper_cross_b8_sq448_sk1500", 8, 12, 12, 448, 1500, 64, 64,
+     False),
+    ("whisper_dec_b8_s448", 8, 12, 12, 448, 448, 64, 64, True),
+    # MLA (deepseek-v2: q / k nope 128 + rope 64, v 128): phase 20's
+    # training step, one sequence, a ragged and a non-causal Sq < Sk
+    ("mla_train_b8_h128_s512", 8, 128, 128, 512, 512, 192, 128, True),
+    ("mla_s512", 1, 128, 128, 512, 512, 192, 128, True),
+    ("mla_ragged_s77", 1, 4, 4, 77, 77, 192, 128, True),
+    ("mla_noncausal_sq100_sk300", 2, 4, 4, 100, 300, 192, 128, False),
+    # head dim 32 (the (64, 64) tiles over 32 columns; no published
+    # config trains at it): B 4, S 256, 8 heads, a ragged GQA and a
+    # non-causal Sq < Sk
+    ("hd32_b4_h8_s256", 4, 8, 8, 256, 256, 32, 32, True),
+    ("hd32_gqa_ragged_s77", 1, 8, 2, 77, 77, 32, 32, True),
+    ("hd32_noncausal_sq100_sk300", 2, 4, 4, 100, 300, 32, 32, False),
+]
+#: the hd-32 case the kernels line reports beside the training shape's
+FLASH_BWD_HD32 = "hd32_b4_h8_s256"
+
+
 def phase_flash_bwd(torch, ops):
     """Phase 3, the backward: the forward's logsumexp and the backward
     kernel against their plain versions, two launches bit for bit, and
     times beside SDPA's and the bound."""
     from repro_torch.kernels.attention import kernel
-    cases = [  # (name, B, H, K, Sq, Sk, hd, hd_v, causal)
-        ("train_b8_s512", 8, 16, 16, 512, 512, 128, 128, True),
-        ("path_s512", 1, 16, 16, 512, 512, 128, 128, True),
-        ("gqa_h32_k8_s200", 2, 32, 8, 200, 200, 128, 128, True),
-        ("ragged_s77_hd64", 1, 16, 16, 77, 77, 64, 64, True),
-        ("noncausal_sq300_sk700", 2, 16, 16, 300, 700, 128, 128, False),
-        ("gqa_h8_k2_s512", 1, 8, 2, 512, 512, 128, 128, True),
-        ("ragged_s300", 1, 4, 4, 300, 300, 128, 128, True),
-        ("hd64_s512", 1, 8, 8, 512, 512, 64, 64, True),
-        ("causal_sq100_sk300", 1, 4, 2, 100, 300, 128, 128, True),
-        # phase 13's whisper-small training shapes (see phase_kernel)
-        ("whisper_enc_b8_s1500", 8, 12, 12, 1500, 1500, 64, 64, False),
-        ("whisper_cross_b8_sq448_sk1500", 8, 12, 12, 448, 1500, 64, 64,
-         False),
-        ("whisper_dec_b8_s448", 8, 12, 12, 448, 448, 64, 64, True),
-        # MLA (deepseek-v2: q / k nope 128 + rope 64, v 128): phase 20's
-        # training step, one sequence, a ragged and a non-causal Sq < Sk
-        ("mla_train_b8_h128_s512", 8, 128, 128, 512, 512, 192, 128, True),
-        ("mla_s512", 1, 128, 128, 512, 512, 192, 128, True),
-        ("mla_ragged_s77", 1, 4, 4, 77, 77, 192, 128, True),
-        ("mla_noncausal_sq100_sk300", 2, 4, 4, 100, 300, 192, 128, False),
-    ]
     gen = torch.Generator("cuda").manual_seed(4321)
     rows = {}
-    for name, B, H, K, Sq, Sk, hd, hd_v, causal in cases:
+    for name, B, H, K, Sq, Sk, hd, hd_v, causal in FLASH_BWD_CASES:
         G = H // K
         scale = hd ** -0.5
         rn = lambda *shape: torch.randn(shape, generator=gen, device="cuda"
@@ -4535,6 +4590,193 @@ def phase_scale(torch, cfg, counters, card: str) -> dict:
     return out
 
 
+#: small_cfg's layers: one flash forward and one backward each a step
+#: (``remat="none"``)
+TWIN_LAYERS = 4
+TWIN_REQUESTS = 12                 # the serve twin's default trace
+
+
+def _twin_lines(name: str, text: str, card: str):
+    for line in text.splitlines():
+        print(f"twins: {name}: {line} [{card}]", flush=True)
+
+
+def phase_twins(torch, counters, card: str) -> dict:
+    """Phase 21: the example twins on the card at their defaults (see the
+    module docstring), each with every launch count at 0 before it."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.examples import serve as serve_twin
+    from repro_torch.examples import train_durable
+    out = {"launches": {}}
+    others = [k for k in counters if not k.startswith("flash_attention")]
+    reset_counts(counters)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        r = train_durable.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = read_counts(counters)
+    name = "train_durable"
+    _twin_lines(name, buf.getvalue(), card)
+    steps = len(r["losses"]) + len(r["clean_losses"])
+    check(r["same"] and "identical to clean run: True" in buf.getvalue(),
+          f"twins: {name}: identical to the clean run: {r['same']}")
+    check(len(r["recoveries"]) == 2 and all(
+        math.isfinite(x) for x in r["losses"] + r["clean_losses"]),
+        f"twins: {name}: recoveries {r['recoveries']}, losses finite "
+        f"{all(math.isfinite(x) for x in r['losses'])}")
+    want = TWIN_LAYERS * steps
+    check(n["flash_attention"] == want
+          and n["flash_attention_bwd"] == want
+          and not any(n[k] for k in others),
+          f"twins: {name}: launches {n}, expected {want} flash "
+          f"forwards and backwards ({TWIN_LAYERS} layers x {steps} "
+          f"steps computed)")
+    out["launches"][name] = n
+    hd = r["cfg"].head_dim
+    out[name] = dict(wall_s=wall, steps_computed=steps, head_dim=hd,
+                     losses=r["losses"], crashes=r["crashes"],
+                     recoveries=r["recoveries"])
+    print(f"twins: {name}: head dim {hd}, {steps} steps computed (crash "
+          f"run and clean run), launches flash {n['flash_attention']} / "
+          f"backward {n['flash_attention_bwd']}, {wall:.1f} s [{card}]",
+          flush=True)
+    pool = tempfile.mkdtemp(prefix="chip_smoke_serve_twin_")
+    layers = get_smoke_config("olmo-1b").n_layers
+    try:
+        runs = {}
+        for label in ("first", "resumed"):
+            reset_counts(counters)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                res = serve_twin.main(["--pool", pool, "--device", "cuda"])
+            wall = time.perf_counter() - t0
+            n = read_counts(counters)
+            _twin_lines(f"serve {label}", buf.getvalue(), card)
+            runs[label] = (res, buf.getvalue(), n, wall)
+            out["launches"][f"serve twin {label}"] = n
+        (r1, t1, n1, w1), (r2, t2, n2, w2) = runs["first"], runs["resumed"]
+        check(len(r1.outputs) == TWIN_REQUESTS and "resumed" not in t1
+              and n1["flash_attention"] == layers * r1.prefills > 0,
+              f"twins: serve first run: {len(r1.outputs)} outputs, "
+              f"{r1.prefills} prefills, launches {n1}")
+        check(f"resumed {TWIN_REQUESTS} finished sessions" in t2
+              and r2.decode_ticks == 0 and r2.outputs == r1.outputs
+              and not any(n2.values()),
+              f"twins: serve rerun over the pool: resumed "
+              f"{'resumed' in t2}, {r2.decode_ticks} ticks, outputs equal "
+              f"{r2.outputs == r1.outputs}, launches {n2}")
+        out["serve"] = dict(first_s=w1, resumed_s=w2, prefills=r1.prefills,
+                            decode_ticks=r1.decode_ticks,
+                            tokens=r1.emitted_tokens)
+        print(f"twins: serve twice over one pool: {r1.emitted_tokens} tokens,"
+              f" {r1.prefills} prefills ({n1['flash_attention']} flash "
+              f"launches), {w1:.1f} s; the rerun resumed all "
+              f"{TWIN_REQUESTS} sessions in {w2:.1f} s, 0 launches, tokens "
+              f"equal [{card}]", flush=True)
+    finally:
+        shutil.rmtree(pool, ignore_errors=True)
+    return out
+
+
+#: phase 22 (b): the runner's mesh lane on the card (``reduced``: the toy
+#: state at dim 2048, 6 tensors of params / mu / nu, 301,989,888 bytes)
+MESH_LANE_KW = dict(steps=8, commit_every=2, mode="sharded-async", shards=0,
+                    mesh="2x4", topology="cxl20-switched-pool", dim=2048,
+                    device="cuda", timeout=600)
+MESH_LANE_KILL = "mid_flush"
+MESH_STATE_BYTES = 3 * 6 * 2048 * 2048 * 4
+#: phase 22 (a): ``benchmarks/baselines/checkpoint.json``'s mesh rows
+CKPT_MESH = {"ckpt_mesh_shards": 8,
+             "ckpt_mesh_shard_bytes": [1_048_576] * 8,
+             "ckpt_mesh_manifest_equal": True,
+             "ckpt_mesh_d2h_gather_bytes": 0}
+
+
+def phase_mesh_lane(card: str) -> dict:
+    """Phase 22 (b), processes only: a ``--mesh 2x4 --device cuda`` worker
+    killed in the commit window and its restart, beside an uninterrupted
+    run of the same lane."""
+    import dataclasses as dc
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.scenarios import runner
+    from repro_torch.scenarios.worker import KILL_EXIT
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    t0 = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(1) as ex:
+            f_ref = ex.submit(runner.reference_run, work, **MESH_LANE_KW)
+            r = runner.run_scenario(MESH_LANE_KILL, work, ref_digest=0,
+                                    **MESH_LANE_KW)
+            ref = f_ref.result()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    r = dc.replace(r, reference_digest=ref["result"]["digest"])
+    kids = {c["role"]: c for c in r.children}
+    kids["reference"] = ref
+    check(kids["kill"]["rc"] == KILL_EXIT,
+          f"mesh: the killed worker exited {kids['kill']['rc']}, not "
+          f"{KILL_EXIT} (detail {r.detail})")
+    check(r.ok, f"mesh: restart resumed from {r.resumed_from} (completed "
+                f"{r.completed_steps_at_kill}), digest {r.final_digest} vs "
+                f"the uninterrupted run's {r.reference_digest} ({r.detail})")
+    rows = {}
+    for role in ("reference", "restart"):
+        res = kids[role]["result"]
+        check(res["mesh"] == "2x4" and res["d2h_gather_bytes"] == 0
+              and res["d2h_shard_bytes"] > 0,
+              f"mesh: {role}: mesh {res['mesh']}, gather bytes "
+              f"{res['d2h_gather_bytes']}, block bytes "
+              f"{res['d2h_shard_bytes']}")
+        rows[role] = {k: res.get(k) for k in (
+            "d2h_gather_bytes", "d2h_shard_bytes", "recover_s",
+            "recovered_bytes", "resumed_from", "digest", "device")}
+        rows[role]["wall_s"] = kids[role]["wall_s"]
+        print(f"mesh: {role} worker (--mesh 2x4 --device cuda, dim "
+              f"{MESH_LANE_KW['dim']}): exit {kids[role]['rc']}, "
+              f"{kids[role]['wall_s']:.1f} s, resumed from "
+              f"{res['resumed_from']}, D2H gather {res['d2h_gather_bytes']} "
+              f"/ per-block {res['d2h_shard_bytes']} bytes, recover_s "
+              f"{res['recover_s']}, recovered {res['recovered_bytes']} "
+              f"bytes [{card}]", flush=True)
+    check(rows["restart"]["recovered_bytes"] == MESH_STATE_BYTES + 8 + 4,
+          f"mesh: the restart recovered {rows['restart']['recovered_bytes']} "
+          f"bytes into the card, expected {MESH_STATE_BYTES + 12}")
+    print(f"mesh: killed at {MESH_LANE_KILL} (exit {KILL_EXIT}) with "
+          f"commits {r.completed_steps_at_kill} complete; the restart "
+          f"resumed device-sharded from {r.resumed_from}, digest equal to "
+          f"the uninterrupted run's; lane {wall:.1f} s [{card}]", flush=True)
+    return dict(lane_s=wall, completed=r.completed_steps_at_kill,
+                resumed_from=r.resumed_from, workers=rows)
+
+
+def phase_mesh_commit(torch, card: str) -> dict:
+    """Phase 22 (a): the checkpoint bench's four mesh rows on a 2x4 mesh of
+    ``cuda:0`` places."""
+    from repro_torch.bench.checkpoint import bench_mesh_commit
+    from repro_torch.bench.report import Report
+    report = Report("checkpoint")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_mesh_")
+    try:
+        extra = bench_mesh_commit(report, tmp, "cuda")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got = {k: m["value"] for k, m in report.metrics.items()}
+    for k, want in CKPT_MESH.items():
+        check(got[k] == want, f"mesh: {k} {got[k]}, expected {want}")
+    check(extra["d2h_shard_bytes"] == 3 * 8 * 1_048_576,
+          f"mesh: per-block copies {extra['d2h_shard_bytes']} bytes")
+    print(f"mesh: the checkpoint bench's rows on a 2x4 mesh of cuda:0 "
+          f"places: {got['ckpt_mesh_shards']} shards of 1,048,576 bytes, "
+          f"manifests equal, 0 gather bytes; fastest commit device-local "
+          f"{extra['device_s']:.4f} s, host-gather {extra['gather_s']:.4f} s "
+          f"[{card}]", flush=True)
+    return dict(rows=got, **extra)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", default=None,
@@ -4784,6 +5026,21 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     report["archs"] = phase_archs(torch, trace, t_max, counters)
+    # -- 21. the example twins; beside them, in a thread, 22 (b): the mesh
+    # lane's worker processes (their launches count in their own
+    # processes; every time either prints is taken beside the other)
+    clock("phases 21 and 22")
+    gc.collect()
+    torch.cuda.empty_cache()
+    beside_22 = f"{card}; beside phase 22 (b)"
+    with ThreadPoolExecutor(1) as beside:
+        f_lane = beside.submit(phase_mesh_lane, f"{card}; beside phase 21")
+        report["twins"] = phase_twins(torch, counters, beside_22)
+        # -- 22 (a). the checkpoint bench's mesh rows ---------------------
+        clock("phase 22 (a)")
+        report["mesh"] = phase_mesh_commit(torch, beside_22)
+        clock("the end of phase 22 (b)")
+        report["mesh"]["lane"] = f_lane.result()
     # -- 13. whisper-small: durable training, prefill and decode, and ----
     # -- 14. crash scenarios: real process kills of the workers, at once:
     # phase 14's children are processes of their own (their launches count
@@ -4817,6 +5074,7 @@ def main(argv=None) -> int:
     by_run.update({f"deepseek-v2-236b {r}": n
                    for r, n in report["deepseek_train"]["launches"].items()})
     by_run.update(report["archs"]["launches"])
+    by_run.update(report["twins"]["launches"])
     by_run.update(report["whisper"]["launches"])
     # the children of phase 14 count in their own processes and report
     # the flash pair
@@ -4870,6 +5128,11 @@ def main(argv=None) -> int:
             "timed_cases": cases,
             **{k: row[k] for k in ("launch", "step_form_bound_ms")
                if k in row}})
+        if name == "flash_attention_bwd":      # the 32-wide tiles' case
+            hd32 = timed[name][FLASH_BWD_HD32]
+            kernels["kernels"][-1]["hd32"] = {
+                "shape": hd32["shape"], "max_abs_err": hd32["max_abs_err"],
+                **cases[FLASH_BWD_HD32]}
     report.update(kernels)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),

@@ -1,7 +1,8 @@
 """DSM-runtime benchmark: durable-commit throughput of the training loop —
 the twin of ``benchmarks/bench_checkpoint.py``.
 
-    python -m repro_torch.bench.checkpoint [--device cpu] [--out DIR]
+    python -m repro_torch.bench.checkpoint [--device cpu] [--out DIR] \
+        [--mesh]
 
 A real (small) training run — olmo-1b's smoke config, weights from a
 ``torch.Generator`` seeded 0, global batch 4 x 64 tokens, 12 steps with a
@@ -24,11 +25,24 @@ commit every 2 — through ``run_durable_loop``:
   ``write_object_legacy`` (``np.savez`` + sidecar: three passes, two
   fsyncs) on one fine-grained object of 8192 rows of 512 bytes, the
   faster of two writes each, fsync included; at least 5 (asserted, a
-  ratio of two runs on one host: ``ckpt_write_object_speedup_ok``).
+  ratio of two runs on one host: ``ckpt_write_object_speedup_ok``);
+* ``ckpt_mesh_*`` (with ``--mesh``; the default run leaves the four rows
+  out and says so in one ``#`` line, the form the CPU twin test holds) —
+  the device-local commit against the host-gather one over the SAME
+  state: 8 leaves of 512 x 512 fp32 (a ``torch.Generator`` seeded 0)
+  laid over a 2x4 (data, model) mesh of ``--device``'s places (eight
+  places on one card share ``cuda:0``), committed ``sharded`` with the
+  shard count auto-sized from the mesh (the host-gather path at the same
+  count: the port's device heuristic sees one card where the reference's
+  sees 8 forced host devices), 3 commits each.  Held exactly: the shard
+  count the mesh derives (``ckpt_mesh_shards``, 8), the per-shard bytes
+  (``ckpt_mesh_shard_bytes``, 8 x 1,048,576), manifest equality
+  (``ckpt_mesh_manifest_equal``) and the device-local path's whole-tree
+  gather bytes (``ckpt_mesh_d2h_gather_bytes``, 0); the fastest commit of
+  each path is measured, not asserted.
 
-Not produced yet: ``ckpt_mesh_*`` (device-local mesh commits, ROADMAP
-A7).  The reference warms its ``jit`` with one extra run; eager PyTorch
-has nothing to warm.
+The reference warms its ``jit`` with one extra run; eager PyTorch has
+nothing to warm.
 """
 from __future__ import annotations
 
@@ -41,9 +55,6 @@ from repro_torch.bench.report import Report, arg_parser
 N_STEPS = 12
 COMMIT_EVERY = 2
 SHARD_SWEEP = (1, 2, 4, 8)
-NOT_PRODUCED = {
-    "ckpt_mesh_*": "device-local mesh commits are not ported (ROADMAP A7)",
-}
 #: the write-object comparison's object: rows x row bytes of float32
 WRITE_ROWS = 8192
 ROW_BYTES = 512
@@ -125,7 +136,67 @@ def bench_write_object_fast_path(report: Report, tmp: str, *,
                   "write_object >= 5x legacy (asserted)")
 
 
-def bench(device: str) -> Report:
+def bench_mesh_commit(report: Report, tmp: str, device: str, *,
+                      n_leaves: int = 8, dim: int = 512,
+                      n_commits: int = 3) -> dict:
+    """The device-local commit (``CXL0Config.mesh``) against the
+    host-gather one over the same state on a 2x4 mesh (see the module
+    docstring); returns the two contexts' D2H counters and best times."""
+    import torch
+    from repro_torch.dsm.api import CXL0Config
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.parallel.sharding import NamedSharding, P, place
+    mesh = parse_mesh("2x4", device=device)
+    sh = NamedSharding(mesh, P("data", "model"))
+    g = torch.Generator().manual_seed(0)
+    tree = {f"w{t}": place(torch.randn((dim, dim), generator=g,
+                                       dtype=torch.float32), sh)
+            for t in range(n_leaves)}
+    mb = sum(l.nbytes for l in tree.values()) / 2**20
+
+    def run_commits(use_mesh, n_shards=None):
+        ctx = CXL0Config(path=f"{tmp}/mesh_{bool(use_mesh)}",
+                         schedule="sharded", n_shards=n_shards,
+                         mesh=mesh if use_mesh else None).open()
+        best = float("inf")
+        for step in range(1, n_commits + 1):
+            ctx.put({"params": tree}, step=step)
+            t0 = time.perf_counter()
+            with ctx.commit(step):
+                pass
+            best = min(best, time.perf_counter() - t0)
+        ctx.close()
+        return ctx, best
+
+    ctx_dev, t_dev = run_commits(True)
+    # the host-gather path at the shard count the mesh derived: the
+    # reference's gather path reaches 8 through its 8 forced host devices,
+    # the port's device heuristic sees the one card (or none)
+    ctx_hg, t_hg = run_commits(False, ctx_dev.committer.n_shards)
+    note = f"{n_leaves} x {dim}x{dim} f32 ({mb:.0f} MiB) on a 2x4 mesh"
+    report.record("ckpt_mesh_flush_device_s", t_dev,
+                  f"device-local sharded commit, {note}", fmt=".3f")
+    report.record("ckpt_mesh_flush_gather_s", t_hg,
+                  f"host-gather sharded commit, {note}", fmt=".3f")
+    m_dev = ctx_dev.pool.latest_manifest()
+    m_hg = ctx_hg.pool.latest_manifest()
+    report.record("ckpt_mesh_shards", ctx_dev.committer.n_shards,
+                  "shard count derived from the mesh layout")
+    report.record("ckpt_mesh_shard_bytes",
+                  [s["nbytes"] for s in m_dev["objects"]["params"]["shards"]],
+                  "per-shard bytes, device-local path")
+    report.record("ckpt_mesh_manifest_equal", bool(m_dev == m_hg),
+                  "device-local manifest == host-gather manifest")
+    report.record("ckpt_mesh_d2h_gather_bytes",
+                  ctx_dev.tiers.d2h_gather_bytes,
+                  "full-tree D2H gathers on the device-local path "
+                  f"(per-block copies: {ctx_dev.tiers.d2h_shard_bytes})")
+    return {"device_s": t_dev, "gather_s": t_hg,
+            "d2h_shard_bytes": ctx_dev.tiers.d2h_shard_bytes,
+            "gather_path_d2h_gather_bytes": ctx_hg.tiers.d2h_gather_bytes}
+
+
+def bench(device: str, mesh: bool = False) -> Report:
     from repro_torch.utils.device import resolve_device
     resolve_device(device)
     report = Report("checkpoint")
@@ -174,16 +245,22 @@ def bench(device: str) -> Report:
         report.record("ckpt_recoveries", len(r2.recoveries),
                       f"source={','.join(r2.recoveries)}")
         bench_write_object_fast_path(report, tmp)
-        for metrics, why in NOT_PRODUCED.items():
-            print(f"# {metrics}: not produced: {why}", flush=True)
+        if mesh:
+            bench_mesh_commit(report, tmp, device)
+        else:
+            print("# ckpt_mesh_*: the device-local mesh commit's four rows "
+                  "run with --mesh", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return report
 
 
 def main(argv=None) -> int:
-    args = arg_parser(__doc__, device=True).parse_args(argv)
-    report = bench(args.device)
+    ap = arg_parser(__doc__, device=True)
+    ap.add_argument("--mesh", action="store_true",
+                    help="also the device-local mesh commit's rows")
+    args = ap.parse_args(argv)
+    report = bench(args.device, mesh=args.mesh)
     report.write(args.out)
     return 0
 

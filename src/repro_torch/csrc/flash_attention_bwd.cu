@@ -15,10 +15,20 @@
 // with GQA (q head h reads kv head h / G; dK and dV sum over the G heads of
 // a kv head), on the model's layout: q, dQ (B, S, K, G, hd), o, dO (B, S, K,
 // G, hd_v), k, dK (B, T, K, hd), v, dV (B, T, K, hd_v).  It takes (hd, hd_v)
-// = (64, 64), (128, 128) and MLA's (192, 128) (deepseek-v2: q and k are
-// nope 128 + rope 64 wide, v 128), and nothing else.  Every element of dQ,
-// dK and dV is written: a kv tile with no q row below its diagonal writes
+// = (32, 32), (64, 64), (128, 128) and MLA's (192, 128) (deepseek-v2: q and
+// k are nope 128 + rope 64 wide, v 128), and nothing else.  Every element of
+// dQ, dK and dV is written: a kv tile with no q row below its diagonal writes
 // zeros.
+//
+// Head dim 32 (a width the forward takes; no published config of the
+// port trains at it) runs the (64, 64) instantiation on 64-column tiles:
+// its tensor maps give the global width as 32, so TMA fills columns 32-63
+// of every Q, K, V and dO tile with zeros (they add nothing to S or dP),
+// delta sums the 32 columns that exist, and every dQ, dK and dV store stops
+// at column 32.  That doubles the products at a width where the launches
+// cost more than the work: at (4, 8, 256, 32) causal, q, k, v, o, dO, dQ,
+// dK and dV are 524,288 B each and lse 32,768 B, 4.23 MB, 0.0013 ms at
+// 3.35 TB/s.
 //
 // What bounds it on this card: at olmo-1b's training shape (8, 16, 512,
 // 128) causal, q, k, v, o, dO in and dQ, dK, dV out are 134 MB (0.040 ms at
@@ -167,7 +177,8 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&c)[8][
 // A warpgroup's accumulator (64 x N: this thread's rows 16 warp + gr and
 // + 8, columns 8 nt + 2 t and + 1, warp and lane within its warpgroup)
 // times `scale`, to bf16, rows below `limit` only.
-template <int N>
+// Columns from NC on (a tile wider than its tensor) are not stored.
+template <int N, int NC = N>
 __device__ __forceinline__ void store_rows(bf16* g, long long rs, const float (&acc)[N / 8][4],
                                            int limit, float scale) {
   const int wt = threadIdx.x % 128;
@@ -177,7 +188,7 @@ __device__ __forceinline__ void store_rows(bf16* g, long long rs, const float (&
     const int row = warp * 16 + gr + 8 * r;
     if (row >= limit) continue;
 #pragma unroll
-    for (int nt = 0; nt < N / 8; ++nt)
+    for (int nt = 0; nt < NC / 8; ++nt)
       *reinterpret_cast<uint32_t*>(g + row * rs + nt * 8 + 2 * t) =
           pack_f32(acc[nt][2 * r] * scale, acc[nt][2 * r + 1] * scale);
   }
@@ -190,8 +201,9 @@ __device__ __forceinline__ void zero(float (&acc)[N][4]) {
 }
 
 // (1) dQ of one 64-row q tile of one q head, and its rows of lse·log2 e and
-// delta for pass 2.
-template <int DQK, int DV>
+// delta for pass 2.  GQK and GV are the widths q / k and v / o have in
+// global memory: DQK and DV but at head dim 32 (see the note above).
+template <int DQK, int DV, int GQK = DQK, int GV = DV>
 __global__ void __launch_bounds__(128, 2)
 bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
               const __grid_constant__ CUtensorMap tmv, const __grid_constant__ CUtensorMap tmdo,
@@ -255,9 +267,9 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ C
     const int row = q0 + warp * 16 + gr + 8 * r;
     float acc = 0.f;
     if (row < Sq) {
-      const long long off = b * sob + h * soh + row * sos + t * (DV / 4);
+      const long long off = b * sob + h * soh + row * sos + t * (GV / 4);
 #pragma unroll
-      for (int c = 0; c < DV / 32; ++c) {
+      for (int c = 0; c < GV / 32; ++c) {
         const uint4 x = *reinterpret_cast<const uint4*>(o + off + 8 * c);
         const uint4 y = *reinterpret_cast<const uint4*>(dout + off + 8 * c);
         const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
@@ -336,13 +348,13 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ C
   }
   wgmma_wait<0>();
   fence_regs(dQ);
-  store_rows<DQK>(dq + b * sqb + h * sqh + q0 * sqs, sqs, dQ, Sq - q0, scale);
+  store_rows<DQK, GQK>(dq + b * sqb + h * sqh + q0 * sqs, sqs, dQ, Sq - q0, scale);
 }
 
 // (2) dK, dV of one 64-row kv tile of one kv head.  With SPLIT, warpgroup 0
 // does all of the below but dK, which warpgroup 1 accumulates from the dSᵀ
 // fragments warpgroup 0 hands it.
-template <int DQK, int DV>
+template <int DQK, int DV, int GQK = DQK, int GV = DV>
 __global__ void __launch_bounds__(Smem<DQK, DV>::THREADS, Smem<DQK, DV>::SPLIT ? 1 : 2)
 bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
                 const __grid_constant__ CUtensorMap tmv, const __grid_constant__ CUtensorMap tmdo,
@@ -436,7 +448,7 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__
         mbar_arrive(empty(slot));  // this warpgroup is done with the slot
       }
       if (n == 0) zero(dK);
-      store_rows<DQK>(dk_tile, sks, dK, Sk - kv0, scale);
+      store_rows<DQK, GQK>(dk_tile, sks, dK, Sk - kv0, scale);
       return;
     }
   }
@@ -536,44 +548,44 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__
     if constexpr (!SPLIT) zero(dK);
     zero(dV);
   }
-  if constexpr (!SPLIT) store_rows<DQK>(dk_tile, sks, dK, Sk - kv0, scale);
-  store_rows<DV>(dv_tile, svs, dV, Sk - kv0, 1.f);
+  if constexpr (!SPLIT) store_rows<DQK, GQK>(dk_tile, sks, dK, Sk - kv0, scale);
+  store_rows<DV, GV>(dv_tile, svs, dV, Sk - kv0, 1.f);
 }
 
 // st: the (batch, head, position) strides of q (and dq), k (dk), v (dv), o
 // (dout), in that order.
-template <int DQK, int DV>
+template <int DQK, int DV, int GQK = DQK, int GV = DV>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const float* lse,
                    const void* dout, void* dq, void* dk, void* dv, float* rows, int B, int H,
                    int KH, int Sq, int Sk, const long long* st, float scale, int causal,
                    cudaStream_t stream) {
   using L = Smem<DQK, DV>;
   CUtensorMap tmq, tmk, tmv, tmdo;
-  if (!encode_4d(&tmq, q, DQK, Sq, H, B, st[2], st[1], st[0], BM) ||
-      !encode_4d(&tmdo, dout, DV, Sq, H, B, st[11], st[10], st[9], BM) ||
-      !encode_4d(&tmk, k, DQK, Sk, KH, B, st[5], st[4], st[3], BM) ||
-      !encode_4d(&tmv, v, DV, Sk, KH, B, st[8], st[7], st[6], BM))
+  if (!encode_4d(&tmq, q, GQK, Sq, H, B, st[2], st[1], st[0], BM) ||
+      !encode_4d(&tmdo, dout, GV, Sq, H, B, st[11], st[10], st[9], BM) ||
+      !encode_4d(&tmk, k, GQK, Sk, KH, B, st[5], st[4], st[3], BM) ||
+      !encode_4d(&tmv, v, GV, Sk, KH, B, st[8], st[7], st[6], BM))
     return cudaErrorInvalidValue;
   constexpr int smem = (int)L::BYTES;
   static bool attributes_set = false;
   if (!attributes_set) {
-    cudaError_t err = cudaFuncSetAttribute(bwd_dq_kernel<DQK, DV>,
+    cudaError_t err = cudaFuncSetAttribute(bwd_dq_kernel<DQK, DV, GQK, GV>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(bwd_dkdv_kernel<DQK, DV>,
+      err = cudaFuncSetAttribute(bwd_dkdv_kernel<DQK, DV, GQK, GV>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     attributes_set = true;
   }
   const float scale_log2 = scale * LOG2E;
   const int n_qt = (Sq + BM - 1) / BM, n_kt = (Sk + BM - 1) / BM;
-  bwd_dq_kernel<DQK, DV><<<dim3(n_qt, H, B), 128, smem, stream>>>(
+  bwd_dq_kernel<DQK, DV, GQK, GV><<<dim3(n_qt, H, B), 128, smem, stream>>>(
       tmq, tmk, tmv, tmdo, static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, rows,
       static_cast<bf16*>(dq), H, H / KH, Sq, Sk, st[0], st[1], st[2], st[9], st[10], st[11], scale,
       scale_log2, causal);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bwd_dkdv_kernel<DQK, DV><<<dim3(n_kt, KH, B), L::THREADS, smem, stream>>>(
+  bwd_dkdv_kernel<DQK, DV, GQK, GV><<<dim3(n_kt, KH, B), L::THREADS, smem, stream>>>(
       tmq, tmk, tmv, tmdo, rows, static_cast<bf16*>(dk), static_cast<bf16*>(dv), KH, H / KH, Sq,
       Sk, st[3], st[4], st[5], st[6], st[7], st[8], scale, scale_log2, causal);
   return cudaGetLastError();
@@ -584,7 +596,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
 // Strides (batch, head, position; the head stride walks the flattened (K, G)
 // axes of q and o, the K axis of k and v): q and dq share (sqb, sqh, sqs), k
 // and dk (skb, skh, sks), v and dv (svb, svh, svs), o and dout (sob, soh,
-// sos).  (hd, hd_v) is (64, 64), (128, 128) or (192, 128).  lse is fp32
+// sos).  (hd, hd_v) is (32, 32), (64, 64), (128, 128) or (192, 128).  lse is fp32
 // (B, H, Sq), contiguous; rows is the scratch described above.
 extern "C" int repro_flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o, const float* lse,
@@ -592,8 +604,8 @@ extern "C" int repro_flash_attention_bwd_bf16(
     int Sk, int hd, int hd_v, long long sqb, long long sqh, long long sqs, long long skb,
     long long skh, long long sks, long long svb, long long svh, long long svs, long long sob,
     long long soh, long long sos, float scale, int causal, void* stream) {
-  const bool widths = (hd == 64 && hd_v == 64) || (hd == 128 && hd_v == 128) ||
-                      (hd == 192 && hd_v == 128);
+  const bool widths = (hd == 32 && hd_v == 32) || (hd == 64 && hd_v == 64) ||
+                      (hd == 128 && hd_v == 128) || (hd == 192 && hd_v == 128);
   if (B < 1 || H < 1 || KH < 1 || H % KH != 0 || Sq < 1 || Sk < 1 || !widths)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long st[12] = {sqb, sqh, sqs, skb, skh, sks, svb, svh, svs, sob, soh, sos};
@@ -607,7 +619,10 @@ extern "C" int repro_flash_attention_bwd_bf16(
   if (bound != cudaSuccess) return static_cast<int>(bound);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (hd == 64)
+  if (hd == 32)  // the (64, 64) tiles over 32 columns (see the note above)
+    err = launch<64, 64, 32, 32>(q, k, v, o, lse, dout, dq, dk, dv, rows, B, H, KH, Sq, Sk, st,
+                                 scale, causal, s);
+  else if (hd == 64)
     err = launch<64, 64>(q, k, v, o, lse, dout, dq, dk, dv, rows, B, H, KH, Sq, Sk, st, scale,
                          causal, s);
   else if (hd == 128)

@@ -38,11 +38,12 @@ recovery sources (anything with a ``.staging`` mapping — a TierManager, a
 target of every ``put`` (tagged with the step), and a newer consistent
 staged copy beats the pool at recovery.  ``worker_id`` names the flush
 threads, and ``fault_hook(point, step)`` fires inside the commit window
-(``pre_flush``, ``mid_flush``, ``post_completeOp``).  Not ported yet, and
-refused with ``NotImplementedError`` naming the reference: mesh-native
-commits (``repro.dsm.meshio``, ROADMAP A7).  The port's default schedule
-is ``"sync"`` (the reference's is ``"auto"``, which without a topology
-resolves to ``"sharded-async"`` in both).
+(``pre_flush``, ``mid_flush``, ``post_completeOp``).  ``mesh`` (a
+``launch.mesh.Mesh``) makes the sharded schedules commit device-local, as
+the reference's does (``dsm.meshio``): each shard pipeline copies its own
+leaves' per-place blocks, and nothing is gathered.  The port's default
+schedule is ``"sync"`` (the reference's is ``"auto"``, which without a
+topology resolves to ``"sharded-async"`` in both).
 """
 from __future__ import annotations
 
@@ -86,10 +87,6 @@ class CXL0Config:
     complete_fn: Optional[Callable] = None
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "CXL0Config(mesh=...) is not ported yet (reference: "
-                "repro.dsm.meshio, ROADMAP A7)")
         self.peers = tuple(self.peers or ())
         if self.schedule != AUTO_MODE:      # "auto" resolves at open time
             check_mode(self.schedule)
@@ -281,7 +278,8 @@ class CXL0Context:
             self.tiers, mode=config.resolved_schedule(self.placement),
             replicate_to=config.replicate_to, n_shards=config.n_shards,
             retention=config.retention, fault_hook=config.fault_hook,
-            placement=self.placement, complete_fn=config.complete_fn)
+            placement=self.placement, mesh=config.mesh,
+            complete_fn=config.complete_fn)
         self.recovery = RecoveryManager(self.pool)
 
     @property
@@ -369,7 +367,7 @@ def open_cxl0(path, worker_id: int = 0, *,
               fault_hook: Optional[Callable[[str, int], None]] = None,
               complete_fn: Optional[Callable] = None) -> CXL0Context:
     """Open a CXL0 context over a pool directory (or an open DSMPool), with
-    the reference's signature; ``mesh`` is not ported yet and raises."""
+    the reference's signature."""
     pool = path if isinstance(path, DSMPool) else None
     cfg = CXL0Config(
         path=path if pool is None else path.path,

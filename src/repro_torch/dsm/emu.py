@@ -327,7 +327,7 @@ def attach_emulator(tiers, emu: TopologyEmulator):
     shard count, BEFORE submission — program order, not completion order,
     so the trace stays deterministic under the thread pool."""
     from repro_torch.dsm.pool import partition_leaves
-    from repro_torch.dsm.tiers import leaf_nbytes
+    from repro_torch.dsm.meshio import leaf_nbytes
 
     # a fused primitive (mstore = lstore + rflush) delegates to other
     # WRAPPED methods on the same instance: only the outermost call is

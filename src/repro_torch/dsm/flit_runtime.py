@@ -46,8 +46,16 @@ decisions are logged on the policy with their priced costs.
 tagged with the step (a newer consistent staged copy beats the pool at
 recovery), and ``fault_hook(point, step)`` fires at the reference's three
 points of the commit window: ``pre_flush``, ``mid_flush`` (after the first
-object, or the first shard, is durable) and ``post_completeOp``.  Not
-ported yet: mesh-native shard pipelines (``repro.dsm.meshio``).
+object, or the first shard, is durable) and ``post_completeOp``.
+
+With a ``Mesh`` (``mesh=``) the sharded schedules commit DEVICE-LOCAL:
+each shard pipeline copies its own leaves' per-place blocks to the host
+(``tiers.rflush_sharded(device_local=True)``, ``dsm.meshio``), so the full
+tree is never gathered; the auto shard count's device term is the mesh's
+place count, and a placement policy prices the shard count from the real
+per-place byte loads (``meshio.per_device_nbytes``).  The shard files stay
+byte-equal to the host-gather path's, so either path recovers the other's
+pool.
 """
 from __future__ import annotations
 
@@ -57,7 +65,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.dsm.tiers import TierManager, leaf_nbytes
+from repro_torch.dsm import meshio
+from repro_torch.dsm.meshio import leaf_nbytes
+from repro_torch.dsm.tiers import TierManager
 from repro_torch.utils.tree import tree_leaves
 
 COMMIT_MODES = ("sync", "async", "sharded", "sharded-async")
@@ -96,7 +106,8 @@ def auto_shard_count(total_bytes: int, *,
     """The default shard-count heuristic: one flush pipeline per local
     device, capped so no shard falls under ``min_shard_bytes``.  The
     device term is ``torch.cuda.device_count()`` (1 without a card) where
-    the reference's is ``jax.local_device_count()``."""
+    the reference's is ``jax.local_device_count()``; ``n_devices`` pins it
+    to a configured mesh's place count."""
     per_device = max(n_devices if n_devices is not None
                      else torch.cuda.device_count(), 1)
     by_bytes = max(total_bytes // min_shard_bytes, 1)
@@ -110,6 +121,7 @@ class DurableCommitter:
                  retention: Optional[int] = None,
                  fault_hook: Optional[Callable[[str, int], None]] = None,
                  placement: Optional[Any] = None,
+                 mesh: Optional[Any] = None,
                  complete_fn: Optional[
                      Callable[[int, Dict[str, Any], Optional[dict]],
                               int]] = None):
@@ -119,6 +131,9 @@ class DurableCommitter:
         #: cost-driven placement (``dsm.placement``): the shard count and,
         #: under ``mode="auto"``, the schedule, priced at the first commit
         self.placement = placement
+        #: device-sharded commit: with a ``Mesh`` the sharded schedules run
+        #: device-local and the shard count follows the mesh's layout
+        self.mesh = mesh
         #: peer for RStore staging (anything with a ``.staging`` mapping)
         self.replicate_to = replicate_to
         self.n_shards = n_shards or None     # None = auto at first commit
@@ -152,13 +167,25 @@ class DurableCommitter:
     def _resolve_shards(self) -> int:
         """Lazy auto shard count, sized from the HBM state volume at the
         first sharded flush: by the placement policy's cost model when one
-        is configured, else the device-count heuristic."""
+        is configured (with a mesh, from the per-place byte loads), else
+        the device-count heuristic (with a mesh, its place count)."""
         if self.n_shards is None:
             total = self._hbm_bytes()
-            self.n_shards = (self.placement.choose_shards(total)
-                             if self.placement is not None
-                             else auto_shard_count(total))
+            if self.placement is not None:
+                device_bytes = (meshio.per_device_nbytes(
+                    dict(self.tiers.hbm)) if self.mesh is not None else None)
+                self.n_shards = self.placement.choose_shards(
+                    total, device_bytes=device_bytes)
+            else:
+                self.n_shards = auto_shard_count(
+                    total, n_devices=(meshio.mesh_device_count(self.mesh)
+                                      if self.mesh is not None else None))
         return self.n_shards
+
+    @property
+    def _device_local(self) -> bool:
+        """Sharded flushes copy per-place blocks iff a mesh is set."""
+        return self.mesh is not None
 
     def _resolve_mode(self) -> str:
         """``mode="auto"`` waits for the first commit, when the state's
@@ -214,7 +241,8 @@ class DurableCommitter:
             if self.mode == "sharded":
                 written[name] = self.tiers.rflush_sharded(
                     name, self._resolve_shards(),
-                    post_first_shard=self._mid_flush_probe(first, step))
+                    post_first_shard=self._mid_flush_probe(first, step),
+                    device_local=self._device_local)
             else:
                 written[name] = self.tiers.rflush(name)
                 if first:
@@ -246,7 +274,8 @@ class DurableCommitter:
         for name in names:
             self.tiers.flush_async_sharded(
                 name, self._resolve_shards(),
-                post_first_shard=self._mid_flush_probe(first, step))
+                post_first_shard=self._mid_flush_probe(first, step),
+                device_local=self._device_local)
             first = False
         self._pending = (step, names, meta)
         return st

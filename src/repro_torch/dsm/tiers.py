@@ -42,8 +42,19 @@ Peer staging copies to the host where the reference does: a peer whose
 ``dsm.cluster``) gets the tree as it is and copies each leaf to the host
 as it writes the frame, through this manager's counted ``to_host``; any
 other peer gets a counted host snapshot up front.  Either way the bytes
-staged from the card show in ``d2h_gather_bytes``.  The device-local
-(mesh) shard pipelines are not ported yet.
+staged from the card show in ``d2h_gather_bytes``.
+
+Device-local shard pipelines (``device_local=True``, the mesh-native
+commit; ``dsm.meshio``): the assignment comes from leaf METADATA
+(``meshio.leaf_nbytes``, the gathered path's bytes, so every shard file is
+byte-equal), and each shard's pipeline copies only its own leaves' blocks
+to the host (``meshio.assemble_leaf``, counted in ``d2h_shard_bytes``);
+nothing is gathered, so ``d2h_gather_bytes`` stays untouched.  A
+``ShardedTensor`` gathered by the host-gather path (``to_host``) is one
+counted copy of the whole.  The asynchronous flushes snapshot on the
+DEVICE at launch (each replica-0 block, each tensor cloned where it lives:
+no D2H on the caller's thread), since the caller may write the tensors
+the blocks view.
 """
 from __future__ import annotations
 
@@ -54,16 +65,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.dsm import meshio
+from repro_torch.dsm.meshio import leaf_nbytes
 from repro_torch.dsm.pool import (DSMPool, PoolObject, ShardedObject,
                                   partition_leaves)
+from repro_torch.parallel.sharding import ShardedTensor
 from repro_torch.utils.tree import tree_flatten
-
-
-def leaf_nbytes(leaf: Any) -> int:
-    """Payload bytes of one leaf (a tensor or anything numpy takes)."""
-    if isinstance(leaf, torch.Tensor):
-        return int(leaf.nbytes)
-    return int(np.asarray(leaf).nbytes)
 
 
 class TierManager:
@@ -87,8 +94,8 @@ class TierManager:
         self._fsync_lane: Optional[ThreadPoolExecutor] = None
         self._lock = threading.Lock()
         #: D2H accounting (bytes): whole-leaf host gathers of the flush
-        #: and paging paths (``d2h_gather_bytes``) and, kept for the
-        #: device-local shard pipelines to come, per-buffer copies
+        #: and paging paths (``d2h_gather_bytes``) and the per-block
+        #: copies of the device-local shard pipelines
         #: (``d2h_shard_bytes``)
         self.d2h_gather_bytes = 0
         self.d2h_shard_bytes = 0
@@ -108,7 +115,12 @@ class TierManager:
 
     def to_host(self, leaf: Any) -> Any:
         """One leaf to the host: a CUDA tensor through one counted
-        ``.cpu()``; host tensors and numpy arrays pass through."""
+        ``.cpu()``, a ShardedTensor through one counted copy of its whole;
+        host tensors and numpy arrays pass through."""
+        if isinstance(leaf, ShardedTensor):
+            host = leaf.full().to("cpu", copy=True)
+            self.count_d2h("gather", host.nbytes)
+            return host
         if isinstance(leaf, torch.Tensor) and leaf.device.type != "cpu":
             host = leaf.cpu()
             self.count_d2h("gather", host.nbytes)
@@ -131,6 +143,25 @@ class TierManager:
                 host = (leaf.clone() if isinstance(leaf, torch.Tensor)
                         else np.array(leaf, copy=True))
             out.append(host)
+        return out
+
+    def _device_leaves(self, name: str, own: bool) -> List[Any]:
+        """The object's leaves where they live, taken NOW: with ``own``
+        each tensor (each block of a ShardedTensor) is cloned on its own
+        device and each array copied, so a later in-place write cannot
+        reach a flush in flight."""
+        leaves = tree_flatten(self.hbm[name])[0]
+        if not own:
+            return leaves
+        out = []
+        for leaf in leaves:
+            if isinstance(leaf, ShardedTensor):
+                leaf = leaf.snapshot()
+            elif isinstance(leaf, torch.Tensor):
+                leaf = leaf.clone()
+            elif isinstance(leaf, np.ndarray):
+                leaf = leaf.copy()
+            out.append(leaf)
         return out
 
     def _get_executor(self, n_workers: int) -> ThreadPoolExecutor:
@@ -214,20 +245,31 @@ class TierManager:
                       post_first_shard: Optional[Callable] = None,
                       device_local: bool = False
                       ) -> Tuple[int, int, List[List[int]], List[Future]]:
-        """Snapshot the object NOW (``_snapshot_leaves``), partition its
-        leaves into byte-balanced shards and submit one write per shard to
-        the flush pool as a split-phase pipeline.  ``post_first_shard``
-        runs once the FIRST shard is durable, before the rest are joined —
-        the mid-flush fault-injection point."""
-        if device_local:
-            raise NotImplementedError(
-                "device-local (mesh) shard pipelines are not ported yet "
-                "(reference: repro.dsm.meshio)")
+        """Snapshot the object NOW, partition its leaves into byte-balanced
+        shards and submit one write per shard to the flush pool as a
+        split-phase pipeline.  ``post_first_shard`` runs once the FIRST
+        shard is durable, before the rest are joined — the mid-flush
+        fault-injection point.
+
+        The host-gather path snapshots to the host (``_snapshot_leaves``);
+        ``device_local=True`` snapshots where the leaves live
+        (``_device_leaves``), sizes them from metadata and hands each shard
+        a THUNK that copies its own leaves' blocks to the host inside its
+        pipeline (see the module docstring)."""
         version = self.versions.get(name, 0)
-        leaves = self._snapshot_leaves(name, own)
+        if device_local:
+            leaves = self._device_leaves(name, own)
+
+            def shard_thunk(idxs):
+                return lambda: [meshio.assemble_leaf(
+                    leaves[i], lambda nb: self.count_d2h("shard", nb))
+                    for i in idxs]
+        else:
+            leaves = self._snapshot_leaves(name, own)
         assignment = partition_leaves([leaf_nbytes(l) for l in leaves],
                                       n_shards)
-        shards = [[leaves[i] for i in idxs] for idxs in assignment]
+        shards = [shard_thunk(idxs) if device_local
+                  else [leaves[i] for i in idxs] for idxs in assignment]
         ex = self._get_executor(len(assignment))
         futs = []
         try:
@@ -255,12 +297,15 @@ class TierManager:
         serializes + CRCs the frame (``start_write``, no fsync), then hands
         the pending write to the fsync lane for ``finish`` (fsync + atomic
         rename).  The returned future resolves only after the rename — the
-        durability point of a monolithic ``write_object``."""
+        durability point of a monolithic ``write_object``.  ``leaves`` may
+        be a device-local thunk: it runs on the flush-pool thread, so the
+        block copies overlap across pipelines."""
         out: Future = Future()
 
         def serialize():
             try:
-                pending = self.pool.start_write(name, version, leaves)
+                arrs = leaves() if callable(leaves) else leaves
+                pending = self.pool.start_write(name, version, arrs)
             except BaseException as e:
                 out.set_exception(e)
                 return
@@ -305,7 +350,9 @@ class TierManager:
                        post_first_shard: Optional[Callable] = None,
                        device_local: bool = False) -> ShardedObject:
         """Blocking sharded durable write: all shards written in parallel,
-        returns once every shard is on storage."""
+        returns once every shard is on storage.  ``device_local=True``
+        copies each shard's blocks inside its own pipeline instead of
+        gathering the tree first (see ``_shard_submit``)."""
         self.flit_counter[name] = self.flit_counter.get(name, 0) + 1
         try:
             return self._shard_join(

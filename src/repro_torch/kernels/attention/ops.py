@@ -28,9 +28,10 @@ from repro_torch.kernels.attention.ref import (attention_bwd_ref,
 LAUNCHES = 0
 #: backward launches (one per backward: its two kernels, one C call)
 BWD_LAUNCHES = 0
-#: the (hd, hd_v) pairs the backward kernel takes: hd == hd_v at 64 and
-#: 128, and MLA's (deepseek-v2: q / k nope 128 + rope 64, v 128)
-BWD_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
+#: the (hd, hd_v) pairs the backward kernel takes: hd == hd_v at 32 (the
+#: durable-training example's model, on the 64-wide tiles), 64 and 128, and
+#: MLA's (deepseek-v2: q / k nope 128 + rope 64, v 128)
+BWD_HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128))
 
 
 def _check_cuda(q, k, v):

@@ -4,7 +4,7 @@ the port of ``repro.launch.train`` (no mesh, one process).
     python -m repro_torch.launch.train --arch olmo-1b --steps 100 \\
         --global-batch 8 --seq 512 --pool "$TMPDIR/pool" \\
         [--commit-every 10] [--mode sharded-async] [--shards 8] \\
-        [--retention 5] [--resume]
+        [--retention 5] [--resume] [--compress int8]
 
     # the CPU dev loop (plain PyTorch versions of the kernels)
     python -m repro_torch.launch.train --device cpu --smoke --steps 4 \\
@@ -15,14 +15,14 @@ forward and backward is the hand-written flash kernel, every expert
 product the grouped matmul's forward, dx and dw kernels, every WKV the
 WKV-6 forward and backward kernels and every selective scan the scan's
 forward and backward kernels, and raises without one.  The flash
-backward takes head dims 64 and 128, so on the card olmo-1b and
-olmoe-1b-7b train at their published widths, and the smoke configs (head
-dim 16) raise ``ValueError``; on the CPU everything runs the plain
+backward takes head dims 32, 64 and 128 (and MLA's 192 / 128), so on the
+card every published config trains at its widths, and the smoke configs
+(head dim 16) raise ``ValueError``; on the CPU everything runs the plain
 versions.  olmoe-1b-7b's full depth does not fit one 80 GB card: its
 6.9e9 params make a 69.2 GB state (bf16 params, fp32 mu and nu) that the
 out-of-place update holds twice, so ``--arch olmoe-1b-7b`` runs out of
 device memory here (``chip_smoke.py`` phase 17 trains it cut to 1 of its
-16 layers; a sharded state is ROADMAP A7's).  rwkv6-7b trains on the card
+16 layers; a sharded state is ROADMAP A7b's).  rwkv6-7b trains on the card
 likewise, and its full 32 layers do not fit either: 7,575,044,096 params
 make a 75.8 GB state, held twice by the update (phase 18 trains it cut
 to 2 layers).  jamba-1.5-large-398b trains on the card through the
@@ -32,11 +32,15 @@ params, 797 GB in bf16) fit no card: one layer (a mamba mixer and a dense
 MLP, 2,098,020,352 params, a 12.6 GB state with its bf16 moments) is what
 one card trains durably (phase 19; a second layer adds a 16-expert MoE,
 12.18e9 params, whose state the update cannot hold twice), and the
-launcher offers no depth cut (a sharded state is ROADMAP A7's).  Weights
+launcher offers no depth cut (a sharded state is ROADMAP A7b's).  Weights
 are random,
 from a ``torch.Generator`` seeded 0; the key data committed with them is
-the reference's ``PRNGKey(0)``.  The mesh flags, ``--compress`` and
-``--distributed`` are not offered yet (ROADMAP A7).
+the reference's ``PRNGKey(0)``.  ``--compress int8`` sends every
+gradient through the int8 round trip (``parallel.compression``, no error
+feedback) through the step's ``grad_transform`` hook, as the reference's
+launcher wires it.  ``--mesh-data``, ``--mesh-model`` and
+``--distributed`` shard the reference's compute, not its commit, and are
+not offered yet (ROADMAP A7b).
 """
 from __future__ import annotations
 
@@ -76,6 +80,7 @@ def main(argv=None):
                     help="recover from the pool before training "
                          "(restart of a crashed or preempted worker)")
     ap.add_argument("--microbatch", type=int, default=1)
+    ap.add_argument("--compress", default="none", choices=["none", "int8"])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
     if args.mode == AUTO_MODE and args.topology is None:
@@ -95,8 +100,14 @@ def main(argv=None):
     bundle = build(cfg, device=args.device)
     state = init_train_state(bundle.init_params(seed=0), 0,
                              cfg.moment_dtype)
+    grad_transform = None
+    if args.compress == "int8":
+        from repro_torch.parallel.compression import make_int8_transform
+        transform, _ = make_int8_transform(with_error_feedback=False)
+        grad_transform = lambda g, ctx: transform(g, None)[0]
     step = make_train_step(bundle, microbatch=args.microbatch,
-                           total_steps=args.steps)
+                           total_steps=args.steps,
+                           grad_transform=grad_transform)
     pipe = DataPipeline(SyntheticLMSource(cfg.vocab_size),
                         args.global_batch, args.seq)
     ctx = CXL0Config(path=args.pool, schedule=args.mode,

@@ -203,9 +203,11 @@ class ClusterWorker:
                ) -> Dict[str, Dict[str, torch.Tensor]]:
         """Host tensors read back from staging or the pool -> this rank's
         device slice (``remesh``; the reshard transfer of a real
-        cluster)."""
-        placed, _ = remesh(tensors, None,
-                           rank_submesh(self.rank, self.live, self.device))
+        cluster).  A rank computes on its slice's first device: laying its
+        partition over a slice of several is sharded compute (ROADMAP
+        A7b)."""
+        placed, _ = remesh(tensors, None, rank_submesh(
+            self.rank, self.live, self.device)[:1])
         return placed
 
     def _count_read(self, tree):

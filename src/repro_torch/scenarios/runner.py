@@ -36,10 +36,20 @@ join phase (``--scale-points``), then runs the fleet grow-and-drain cell
 and the autoscale cell.  ``--suite all`` runs train, serve, cluster, scale
 and fuzz, in that order.
 
+The MESH lane (``--suite train --mesh 2x4``, as the reference's): every
+worker lays its state over a (data, model) mesh of the device's places
+and commits device-local, shard count 0 (auto: priced by the placement
+policy from the per-place bytes under ``--topology``, default
+``cxl20-switched-pool``, with the decisions logged beside each pool).
+The reference's runner forces XLA host devices into its workers'
+environment; the port's workers map the mesh's places onto the devices
+torch sees (eight places on one card share ``cuda:0``, on the host the
+CPU).  ``--mesh`` with another suite raises: its ranks take device slices.
+
     python -m repro_torch.scenarios.runner \\
         --suite train|serve|cluster|scale|fuzz|all \\
         [--device cpu] [--workdir DIR] [--steps 8] [--commit-every 2] \\
-        [--mode sharded-async] [--shards 4] [--world 3] \\
+        [--mode sharded-async] [--shards 4] [--mesh 2x4] [--world 3] \\
         [--kill-points pre_flush,...] [--cluster-sources peer,pool] \\
         [--scale-points none,join_staged,join_committed,join_adopted]
 """
@@ -125,12 +135,16 @@ def _run_worker(pool: str, *, steps: int, commit_every: int, mode: str,
                 shards: int, retention: int, kill_point: str, kill_step: int,
                 model: str, timeout: int, topology: str = "",
                 decision_log: str = "", device: str = "cuda",
-                layers: int = 0) -> dict:
+                layers: int = 0, mesh: str = "", dim: int = 0) -> dict:
     args = ["--pool", pool, "--steps", str(steps),
             "--commit-every", str(commit_every), "--mode", mode,
             "--shards", str(shards), "--retention", str(retention),
             "--kill-point", kill_point, "--kill-step", str(kill_step),
             "--model", model, "--device", device, "--layers", str(layers)]
+    if mesh:
+        args += ["--mesh", mesh]
+    if dim:
+        args += ["--dim", str(dim)]
     if topology:
         args += ["--topology", topology]
     if decision_log:
@@ -142,7 +156,8 @@ def reference_run(workdir: str, *, steps: int = 8, commit_every: int = 2,
                   mode: str = "sharded-async", shards: int = 4,
                   retention: int = 0, model: str = "toy",
                   topology: str = "", device: str = "cuda",
-                  layers: int = 0, timeout: int = 600) -> dict:
+                  layers: int = 0, mesh: str = "", dim: int = 0,
+                  timeout: int = 600) -> dict:
     """An uninterrupted run with the same configuration, as a child
     record (``{"role": "reference", "rc", "wall_s", "result"}``)."""
     pool = os.path.join(workdir, "pool_reference")
@@ -152,7 +167,8 @@ def reference_run(workdir: str, *, steps: int = 8, commit_every: int = 2,
                       topology=topology,
                       decision_log=(pool + "_decisions.jsonl"
                                     if topology else ""),
-                      device=device, layers=layers, timeout=timeout)
+                      device=device, layers=layers, mesh=mesh, dim=dim,
+                      timeout=timeout)
     if run["rc"] != 0:
         raise RuntimeError(f"reference run failed: "
                            f"{run['proc'].stderr[-2000:]}")
@@ -169,8 +185,8 @@ def run_scenario(kill_point: str, workdir: str, *, steps: int = 8,
                  shards: int = 4, retention: int = 0,
                  kill_step: Optional[int] = None, model: str = "toy",
                  ref_digest: Optional[int] = None, topology: str = "",
-                 device: str = "cuda", layers: int = 0,
-                 timeout: int = 600) -> ScenarioResult:
+                 device: str = "cuda", layers: int = 0, mesh: str = "",
+                 dim: int = 0, timeout: int = 600) -> ScenarioResult:
     # a real raise, not an assert: under ``python -O`` an assert silently
     # accepts a bogus kill point and the scenario "passes" vacuously
     if kill_point not in KILL_POINTS:
@@ -183,7 +199,7 @@ def run_scenario(kill_point: str, workdir: str, *, steps: int = 8,
     common = dict(steps=steps, commit_every=commit_every, mode=mode,
                   shards=shards, retention=retention, model=model,
                   topology=topology, device=device, layers=layers,
-                  timeout=timeout)
+                  mesh=mesh, dim=dim, timeout=timeout)
 
     # 1. kill phase
     p1 = _run_worker(pool, kill_point=kill_point, kill_step=kill_step,
@@ -218,8 +234,8 @@ def run_scenario(kill_point: str, workdir: str, *, steps: int = 8,
         ref_digest = reference_digest(
             workdir, steps=steps, commit_every=commit_every, mode=mode,
             shards=shards, retention=retention, model=model,
-            topology=topology, device=device, layers=layers,
-            timeout=timeout)
+            topology=topology, device=device, layers=layers, mesh=mesh,
+            dim=dim, timeout=timeout)
     return ScenarioResult(
         kill_point, True, completed, res["resumed_from"],
         (res["recoveries"] or [None])[0], res["digest"], ref_digest,
@@ -506,7 +522,12 @@ def main(argv=None) -> int:
     ap.add_argument("--mode", default="sharded-async")
     ap.add_argument("--shards", type=int, default=4)
     ap.add_argument("--mesh", default="",
-                    help="not ported (device-local mesh commits)")
+                    help="train suite: run every worker on a (data, model) "
+                         "Mesh (e.g. 2x4) of --device's places with "
+                         "device-local sharded commits; shard counts are "
+                         "priced under --topology (default "
+                         "cxl20-switched-pool) and the priced-decision "
+                         "JSONL logs land next to each pool in --workdir")
     ap.add_argument("--model", default="toy",
                     choices=["toy", "smoke", "full"])
     ap.add_argument("--layers", type=int, default=0,
@@ -552,10 +573,12 @@ def main(argv=None) -> int:
     ap.add_argument("--fuzz-workloads", default="train,serve,cluster",
                     help="fuzz suite: comma-separated workload subset")
     args = ap.parse_args(argv)
-    if args.mesh:
+    if args.mesh and args.suite != "train":
         raise NotImplementedError(
-            "--mesh is not ported yet (reference: repro.dsm.meshio and "
-            "repro.launch.mesh, ROADMAP A7)")
+            "--mesh lays out the train suite's workers only: the cluster "
+            "and scale ranks take device slices "
+            "(repro.launch.mesh.rank_submesh), and a mesh under each rank "
+            "is sharded compute, ROADMAP A7b")
     workdir = args.workdir or tempfile.mkdtemp(prefix="scenarios_")
     failed = 0
 
@@ -571,10 +594,19 @@ def main(argv=None) -> int:
 
     def _train_suite():
         nonlocal failed
+        # the mesh lane: shard count 0 = auto, so the placement policy
+        # prices it from the per-place bytes (and logs the decision);
+        # --topology doubles as the pricing preset when it names one
+        topology, shards = "", args.shards
+        if args.mesh:
+            topology = (args.topology if args.topology not in ("", "all")
+                        else "cxl20-switched-pool")
+            shards = 0
         for r in run_suite(workdir, steps=args.steps,
                            commit_every=args.commit_every, mode=args.mode,
-                           shards=args.shards, model=args.model,
-                           device=args.device, layers=args.layers):
+                           shards=shards, model=args.model,
+                           device=args.device, layers=args.layers,
+                           mesh=args.mesh, topology=topology):
             status = "OK" if r.ok else "FAIL"
             failed += not r.ok
             print(f"scenario,{r.kill_point},{status},"

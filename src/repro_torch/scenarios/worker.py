@@ -30,6 +30,18 @@ imports, model build, recovery into the device and one step) and the
 bytes it recovered (``recovered_bytes``), and the steps it computed
 (``steps_run``).  A killed worker prints one JSON line with its kill
 point, step, launches and steps computed before it exits.
+
+``--mesh DxM`` lays the state over a (data, model) ``launch.mesh.Mesh``
+of ``--device``'s places (on one card, all on ``cuda:0``): each (dim, dim)
+tensor of params, mu and nu split over both axes, the step counter and
+the key data replicated, as the reference's worker does; the context
+opens with the mesh, so every sharded commit runs device-local, and the
+restart's recovered state goes back onto the same layout.  The result
+line adds the D2H counters of both paths (``d2h_gather_bytes`` stays 0
+on a device-local run).
+
+    python -m repro_torch.scenarios.worker --device cpu --pool "$TMPDIR/m" \
+        --mesh 2x4 --shards 0 --kill-point mid_flush --kill-step 3
 """
 from __future__ import annotations
 
@@ -110,9 +122,10 @@ def make_model(kind: str, *, device="cuda", layers: int = 0):
 def state_digest(state) -> int:
     """CRC32 over the final params as fp32 — the cross-process check."""
     import torch
+    from repro_torch.parallel.sharding import unshard
     from repro_torch.utils.tree import tree_leaves
     crc = 0
-    for l in tree_leaves(state.params):
+    for l in tree_leaves(unshard(state.params)):
         a = l.detach().to(torch.float32).cpu().contiguous().numpy()
         crc = zlib.crc32(a.tobytes(), crc)
     return crc
@@ -169,7 +182,9 @@ def main(argv=None) -> int:
                     help="--model full: layers kept (0 = the config's)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--mesh", default="",
-                    help="not ported (device-local mesh commits)")
+                    help="mesh spec like 2x4: lay the toy state over a "
+                         "(data, model) Mesh of --device's places and "
+                         "commit device-local")
     ap.add_argument("--topology", default="",
                     help="emulated CXL topology preset: builds a "
                          "PlacementPolicy so shard counts are priced")
@@ -179,10 +194,6 @@ def main(argv=None) -> int:
     ap.add_argument("--result", default="", help="also write the result "
                                                  "JSON to this path")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh is not ported yet (reference: repro.dsm.meshio and "
-            "repro.launch.mesh, ROADMAP A7)")
 
     # deterministic algorithms and the cuBLAS workspace before the first
     # CUDA call: the restart must compute what the killed run computed
@@ -214,6 +225,24 @@ def main(argv=None) -> int:
         if args.model == "full":
             batch, seq = FULL_BATCH
 
+    mesh = None
+    if args.mesh:
+        from repro_torch.launch.mesh import parse_mesh
+        from repro_torch.parallel.sharding import NamedSharding, P, place
+        from repro_torch.utils.tree import tree_map
+        mesh = parse_mesh(args.mesh, device=device.type)
+        # the (dim, dim) tensors split over the whole grid; the scalars
+        # (opt step, key data) replicated
+        sh = NamedSharding(mesh, P("data", "model"))
+        rep = NamedSharding(mesh, P())
+        put = lambda p: place(p, sh)
+        state = state._replace(
+            params=tree_map(put, state.params),
+            opt=state.opt._replace(mu=tree_map(put, state.opt.mu),
+                                   nu=tree_map(put, state.opt.nu),
+                                   step=place(state.opt.step, rep)),
+            rng=place(state.rng, rep))
+
     recover_s = []
 
     def timed_step(st, b):
@@ -230,7 +259,7 @@ def main(argv=None) -> int:
                      n_shards=args.shards or None,
                      retention=args.retention or None,
                      topology=args.topology or None,
-                     fault_hook=hook).open()
+                     mesh=mesh, fault_hook=hook).open()
     r = run_durable_loop(timed_step, state, pipe, ctx, n_steps=args.steps,
                          commit_every=args.commit_every, resume=True)
 
@@ -251,7 +280,7 @@ def main(argv=None) -> int:
         "digest": state_digest(r.state),
         "final_manifest_step": ctx.pool.latest_manifest()["step"],
         "pipeline_step": r.pipeline_state.step,
-        "mesh": None,
+        "mesh": args.mesh or None,
         "n_devices": torch.cuda.device_count() if device.type == "cuda"
         else 1,
         "d2h_gather_bytes": ctx.tiers.d2h_gather_bytes,

@@ -35,7 +35,7 @@ A CUDA lane's copies to the host go through the tiers' counted
 ``to_host``.  ``restore`` returns the tier's tree (host tensors from the
 buffer or the pool); ``write_slot`` copies it into a lane on the card.
 Mesh-sharded lanes and device-local spills (``parallel=`` with a mesh)
-are not ported yet and raise (ROADMAP A7).
+are not ported yet and raise (ROADMAP A7b).
 """
 from __future__ import annotations
 
@@ -57,7 +57,7 @@ class TieredKVCache:
             raise NotImplementedError(
                 "mesh-sharded KV lanes and device-local spills are not "
                 "ported yet (reference: repro.serve.kvcache.TieredKVCache "
-                "with a ParallelCtx, ROADMAP A7)")
+                "with a ParallelCtx, ROADMAP A7b)")
         self.n_slots = n_slots
         self.t_max = t_max
         self.tiers = tiers

@@ -5,12 +5,19 @@ On a worker-count change (scale-up, or shrink after a permanent failure)
 the launcher recovers the newest durable state, re-lays it on the new
 worker set and re-plans the data shards (``data.pipeline.shard_plan``).
 The planners (``shrink_plan``, ``grow_plan``, ``plan_delta``,
-``partition_plan``) are pure functions of the membership.  ``reshard`` /
-``remesh`` re-lay the state: here the single-device part, a ``.to`` of
-every leaf onto the rank's device (``launch.mesh.rank_submesh``), which
-is what the reference's ``device_put`` does on a one-device mesh.  A
-slice of more than one device needs a sharded layout (``ParallelCtx``)
-and raises (ROADMAP A7).
+``partition_plan``) are pure functions of the membership.
+
+``reshard`` / ``remesh`` re-lay the state.  Over a ``launch.mesh.Mesh``
+they do what the reference's do: the sharding of every leaf comes from
+the SAME logical axes (``shardings_for``: the rules are mesh-shape
+agnostic) and each leaf is placed onto it (``parallel.sharding.place``,
+the counterpart of ``device_put``), and ``remesh`` returns the new
+``ParallelCtx``.  A rank's device slice (``launch.mesh.rank_submesh``: a
+list of torch devices) keeps the single-device behaviour, a ``.to`` of
+every leaf onto the slice's device, and ``remesh`` returns ``(tree,
+device)`` there; a slice of several devices is laid out as the
+reference's ``rank_submesh`` mesh is, an (n, 1) mesh with every leaf
+replicated over it.
 """
 from __future__ import annotations
 
@@ -18,37 +25,72 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.launch.mesh import Mesh
+from repro_torch.parallel.sharding import (NamedSharding, ParallelCtx, P,
+                                           ctx_for_mesh, param_specs, place)
 from repro_torch.utils.tree import tree_map
 
 
-def _one_device(devices) -> torch.device:
-    devs = ([devices] if isinstance(devices, (str, torch.device))
-            else list(devices))
-    if len(devs) != 1:
-        raise NotImplementedError(
-            f"re-laying state over {len(devs)} devices needs a sharded "
-            f"layout, not ported yet (reference: repro.train.elastic."
-            f"remesh with a ParallelCtx over a Mesh, ROADMAP A7)")
-    return torch.device(devs[0])
+def shardings_for(ctx: ParallelCtx, descs):
+    """NamedShardings on ``ctx.mesh`` from the logical-axis rules (any
+    mesh shape: the same descs serve 1, 8 or 256 places)."""
+    specs = param_specs(ctx, descs)
+    return tree_map(lambda s: NamedSharding(ctx.mesh, s), specs,
+                    is_leaf=lambda x: isinstance(x, P))
 
 
-def reshard(tree: Any, new_device) -> Any:
-    """Move every tensor leaf onto ``new_device`` (one device, or a
-    one-device slice); numpy leaves become tensors there."""
-    dev = _one_device(new_device)
+def _devices(x) -> Optional[list]:
+    """``x`` as a list of devices (a device, or a rank's device slice), or
+    None when it is not one."""
+    if isinstance(x, (str, torch.device)):
+        return [x]
+    if isinstance(x, (list, tuple)) and x and all(
+            isinstance(d, (str, torch.device)) for d in x):
+        return list(x)
+    return None
+
+
+def _slice_mesh(devices) -> Mesh:
+    """A slice of several devices as the reference's (n, 1) mesh."""
+    return Mesh((len(devices), 1), ("data", "model"), devices)
+
+
+def reshard(tree: Any, new_shardings: Any) -> Any:
+    """Every leaf onto its new layout: a tree of NamedShardings (or one
+    for every leaf) places each leaf; a device, or a one-device slice,
+    moves every tensor leaf there (numpy leaves become tensors there); a
+    slice of several devices replicates every leaf over its (n, 1)
+    mesh."""
+    if isinstance(new_shardings, NamedSharding):
+        return tree_map(lambda a: place(a, new_shardings), tree)
+    devs = _devices(new_shardings)
+    if devs is None:
+        return tree_map(place, tree, new_shardings)
+    if len(devs) > 1:
+        return reshard(tree, NamedSharding(_slice_mesh(devs), P()))
+    dev = torch.device(devs[0])
     return tree_map(lambda a: (a.to(dev) if isinstance(a, torch.Tensor)
                                else torch.as_tensor(a, device=dev)), tree)
 
 
-def remesh(tree: Any, descs: Any, new_mesh: Sequence, *,
-           ep: bool = True) -> Tuple[Any, torch.device]:
-    """Recovered state -> state placed on ``new_mesh`` (a rank's device
-    slice).  Returns ``(placed, device)``; the reference returns its
-    ``ParallelCtx`` there.  ``descs`` and ``ep`` are the reference's
-    arguments: with one device nothing is sharded, so neither changes the
-    placement."""
-    dev = _one_device(new_mesh)
-    return reshard(tree, dev), dev
+def remesh(tree: Any, descs: Any, new_mesh, *, ep: bool = True
+           ) -> Tuple[Any, Any]:
+    """Recovered state -> state laid out on ``new_mesh``.  A Mesh gives
+    ``(placed, ParallelCtx)``, as the reference's; ``descs`` (a tree of
+    ``ParamDesc`` matching ``tree``) picks each leaf's sharding, and
+    without it every leaf is replicated.  A rank's device slice gives
+    ``(placed, device)`` for one device (``descs`` and ``ep`` then change
+    nothing), and an (n, 1) mesh's ``(placed, ParallelCtx)`` for more."""
+    if not isinstance(new_mesh, Mesh):
+        devs = _devices(new_mesh)
+        if len(devs) == 1:
+            dev = torch.device(devs[0])
+            return reshard(tree, dev), dev
+        new_mesh = _slice_mesh(devs)
+    ctx = ctx_for_mesh(new_mesh, ep=ep)
+    if descs is None:
+        return reshard(tree, NamedSharding(new_mesh, P())), ctx
+    return reshard(tree, shardings_for(ctx, descs)), ctx
 
 
 def shrink_plan(old_ranks: int, new_ranks: int) -> dict:

@@ -16,8 +16,17 @@ The loop guarantees, as the reference's does:
 The committed objects, their leaves, names, dtypes and shapes equal the
 reference's (``params``, ``opt_mu``, ``opt_nu``, ``counters`` with the
 int32 step and the uint32 key data, ``pipeline`` with two int64 scalars),
-so each package resumes the other's pool.  A mesh (device-local commits)
-is not ported yet (ROADMAP A7).
+so each package resumes the other's pool.
+
+With a mesh (``mesh=``, or the context's ``CXL0Config.mesh``) the state's
+leaves are ``parallel.sharding.ShardedTensor``s and every sharded commit
+runs device-local: each shard pipeline copies its own leaves' per-place
+blocks, and the tree is never gathered (``dsm.meshio``).  The step runs
+on the leaves' whole tensors and the loop places its result back onto the
+initial state's layout (on one card the blocks are views: nothing is
+copied); recovered leaves are put back onto their template's sharding
+(``_restore_placement``), so a resumed run commits device-locally again.
+Sharded compute (each place computing its own block) is ROADMAP A7b's.
 """
 from __future__ import annotations
 
@@ -31,6 +40,8 @@ import torch
 from repro_torch.data.pipeline import DataPipeline, PipelineState
 from repro_torch.dsm.api import CXL0Context, open_cxl0
 from repro_torch.dsm.recovery import ColdStartError, CrashError
+from repro_torch.parallel.sharding import (ShardedTensor, place, place_like,
+                                           unshard)
 from repro_torch.train.state import TrainState
 from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -67,23 +78,37 @@ def _state_objects(state: TrainState, pipe_state: PipelineState):
     }
 
 
-def _place(tree, template):
-    """Recovered (host) leaves onto the template leaves' devices."""
-    return tree_map(lambda r, t: torch.as_tensor(r).to(t.device), tree,
-                    template)
+def _restore_placement(tree, template):
+    """Recovered (host) leaves onto the template leaves' layout: a
+    ShardedTensor template's sharding, else its device."""
+    def one(r, t):
+        if isinstance(t, ShardedTensor):
+            return place(torch.as_tensor(r), t.sharding)
+        return torch.as_tensor(r).to(t.device)
+    return tree_map(one, tree, template)
 
 
 def _objects_to_state(objs, template: TrainState):
     st = TrainState(
-        params=_place(objs["params"], template.params),
+        params=_restore_placement(objs["params"], template.params),
         opt=template.opt._replace(
-            mu=_place(objs["opt_mu"], template.opt.mu),
-            nu=_place(objs["opt_nu"], template.opt.nu),
-            step=_place(objs["counters"]["opt_step"], template.opt.step)),
-        rng=_place(objs["counters"]["rng"], template.rng))
+            mu=_restore_placement(objs["opt_mu"], template.opt.mu),
+            nu=_restore_placement(objs["opt_nu"], template.opt.nu),
+            step=_restore_placement(objs["counters"]["opt_step"],
+                                    template.opt.step)),
+        rng=_restore_placement(objs["counters"]["rng"], template.rng))
     ps = PipelineState(seed=int(objs["pipeline"]["seed"]),
                        step=int(objs["pipeline"]["step"]))
     return st, ps
+
+
+def _on_whole_tensors(step_fn: Callable, template: TrainState) -> Callable:
+    """``step_fn`` on the whole tensors of a sharded state, its result
+    placed back onto ``template``'s layout."""
+    def step(state, batch):
+        new_state, metrics = step_fn(unshard(state), batch)
+        return place_like(new_state, template), metrics
+    return step
 
 
 def run_durable_loop(
@@ -109,7 +134,8 @@ def run_durable_loop(
     #                                         window — see dsm.flit_runtime
     resume: bool = False,   # recover from the pool before training; skips
     #                         the initial step -1 commit
-    mesh=None,
+    mesh=None,              # launch.mesh.Mesh: device-local commits (see
+    #                         the module docstring)
     to_device: Optional[Callable] = None,
 ) -> LoopResult:
     """Run ``n_steps`` with durable commits every ``commit_every`` steps.
@@ -127,10 +153,6 @@ def run_durable_loop(
     ``CXL0Context``, whose own wiring then wins.  ``to_device`` maps each
     numpy batch array to a tensor; by default onto the device of the
     state's params."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_durable_loop(mesh=...) is not ported yet (reference: "
-            "repro.dsm.meshio, ROADMAP A7)")
     if isinstance(pool, CXL0Context):
         ctx = pool
     else:
@@ -140,7 +162,9 @@ def run_durable_loop(
             pool, worker_id, schedule=commit_mode, n_shards=n_shards,
             retention=retention, placement=placement, peers=peers,
             replicate_to=peers[0] if (replicate and peers) else None,
-            fault_hook=fault_hook)
+            mesh=mesh, fault_hook=fault_hook)
+    if (mesh if mesh is not None else ctx.config.mesh) is not None:
+        step_fn = _on_whole_tensors(step_fn, init_state)
     if to_device is None:
         device = tree_leaves(init_state.params)[0].device
         to_device = lambda a: torch.from_numpy(np.asarray(a)).to(device)

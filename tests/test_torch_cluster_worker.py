@@ -5,7 +5,8 @@ cluster``) against the JAX package's, every rank on ``--device cpu``.
 
 * ``mesh_device_sets`` / ``rank_submesh`` on the host (one device: every
   rank's slice is it, the reference's shared-device fallback), ``remesh``
-  onto it; the meshes of A7 and a slice of two devices raise naming A7;
+  onto it; the production, debug and parsed meshes, a slice of two
+  devices laid out as an (n, 1) mesh, ``remesh`` onto a 2x4 mesh;
 * partitions follow the device count: at the port's one host device they
   equal the reference's partition at one forced device;
 * the planned shrink (3 ranks, rank 1 leaves at step 4, 6 steps, a
@@ -111,13 +112,20 @@ def test_rank_slices_and_remesh_on_the_host():
     assert dev == torch.device("cpu")
     assert torch.equal(placed["t00"]["p"], torch.arange(4.0))
     assert placed["t00"]["mu"] is tree["t00"]["mu"]     # already there
-    for fn, args in ((mesh.make_production_mesh, ()),
-                     (mesh.make_debug_mesh, (8,)),
-                     (mesh.parse_mesh, ("2x4",))):
-        with pytest.raises(NotImplementedError, match="A7"):
-            fn(*args)
-    with pytest.raises(NotImplementedError, match="A7"):
-        reshard(tree, ["cpu", "cpu"])
+    # the meshes are ported: production (abstract), debug and parsed ones
+    assert mesh.make_production_mesh().shape == {"data": 16, "model": 16}
+    assert mesh.make_debug_mesh(8, device="cpu").shape == \
+        {"data": 8, "model": 1}
+    m = mesh.parse_mesh("2x4", device="cpu")
+    assert m.devices == (torch.device("cpu"),) * 8
+    # a slice of several devices is laid out as the reference's (n, 1)
+    # mesh, every leaf replicated; a Mesh takes the rules' shardings
+    two = reshard(tree, ["cpu", "cpu"])
+    assert two["t00"]["p"].sharding.mesh.shape == {"data": 2, "model": 1}
+    assert torch.equal(two["t00"]["p"].full(), torch.arange(4.0))
+    placed, ctx = remesh(tree, None, m)
+    assert ctx.mesh is m and ctx.tp_size == 4
+    assert len(placed["t00"]["mu"].addressable_shards) == 8
 
 
 def test_partitions_follow_the_device_count():

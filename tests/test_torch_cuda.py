@@ -54,14 +54,16 @@ machine with the card, where there is no JAX:
 * the flash backward kernel against the fp32 plain backward at ragged,
   GQA (G 2 and G 4 at 512), non-causal, Sq > Sk and Sq < Sk causal, S 300
   and hd 64 at 512 shapes, and at MLA's widths (hd 192, hd_v 128: ragged,
-  non-causal, Sq < Sk and Sq > Sk causal, S 300) (2e-2 x max|plain|), the
+  non-causal, Sq < Sk and Sq > Sk causal, S 300) and at head dim 32
+  (ragged, GQA, non-causal, Sq < Sk causal, (4, 8, 256))
+  (2e-2 x max|plain|), the
   forward's logsumexp (1e-4), two launches with the same bits; the
   dispatcher under autograd at MLA's widths against autograd through the
   plain version; one bf16 train step of deepseek-v2 cut to one dense
   layer, 2 heads and d_model 64 at MLA's published head widths against
   the CPU's fp32 step (loss and grad norm, 2e-2); the dispatcher's
   refusal of the head dims the backward does not take ((256, 256), (128,
-  64), (32, 32)), and both flash kernels
+  64), (16, 16)), and both flash kernels
   launched from a thread that has made no CUDA call yet (the tensor maps
   need the tensors' context current there) with the main thread's bits;
 * the flash dispatcher, given inputs that require grad under grad mode,
@@ -249,6 +251,12 @@ BWD_CASES = [
     (1, 4, 2, 100, 300, 192, 128, True),    # causal, Sq < Sk: zeros past Sq
     (1, 2, 2, 200, 77, 192, 128, True),     # causal, Sq > Sk
     (1, 4, 4, 300, 300, 192, 128, True),    # several ring turns a kv tile
+    # head dim 32: the (64, 64) tiles over 32 columns (TMA's zero fill)
+    (1, 2, 2, 37, 37, 32, 32, True),        # ragged, one partial tile
+    (2, 8, 2, 130, 130, 32, 32, True),      # GQA G 4, three tiles
+    (1, 2, 1, 77, 200, 32, 32, False),      # non-causal, Sq != Sk
+    (1, 4, 2, 100, 300, 32, 32, True),      # causal, Sq < Sk: zeros past Sq
+    (4, 8, 8, 256, 256, 32, 32, True),      # four batch rows, four tiles
 ]
 
 
@@ -351,7 +359,7 @@ def test_kernel_at_the_mla_prefill_shape_matches_plain_version(cuda):
     assert torch.equal(ops.flash_attention(q, k, v, causal=True), out)
 
 
-@pytest.mark.parametrize("hd,hd_v", [(256, 256), (128, 64), (32, 32)])
+@pytest.mark.parametrize("hd,hd_v", [(256, 256), (128, 64), (16, 16)])
 def test_flash_backward_refuses_head_dims_it_does_not_take(hd, hd_v, cuda):
     q, k, v = _inputs((1, 2, 2, 16, 16, hd, hd_v, True), cuda, 42)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]

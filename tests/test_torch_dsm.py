@@ -11,8 +11,8 @@
   returns, on a pool either package committed;
 * the port's own crash contract: a torn object falls back to the previous
   manifest, an exception inside a commit region publishes nothing, and
-  knobs that are not ported (mesh) raise while
-  the ported ones (topology, placement, ``"auto"``) open.
+  the wiring knobs (mesh, topology, placement, ``"auto"``) open and reach
+  the committer.
 """
 import io
 import json
@@ -238,11 +238,15 @@ def test_exception_inside_commit_region_publishes_nothing(tmp_path):
 
 def test_unported_knobs_raise_naming_the_reference(tmp_path):
     from repro_torch.dsm.placement import PlacementPolicy
+    from repro_torch.launch.mesh import parse_mesh
     ctx = open_cxl0(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="repro.dsm.meshio"):
-        CXL0Config(path=str(tmp_path), mesh=object())
-    with pytest.raises(NotImplementedError, match="repro.dsm.meshio"):
-        open_cxl0(str(tmp_path), mesh=object())
+    # mesh= is ported: the mesh reaches the committer, whose sharded
+    # flushes then run device-local
+    mesh = parse_mesh("2x4", device="cpu")
+    assert CXL0Config(path=str(tmp_path), mesh=mesh).mesh is mesh
+    meshed = open_cxl0(str(tmp_path / "m"), mesh=mesh)
+    assert meshed.committer.mesh is mesh and meshed.committer._device_local
+    assert not ctx.committer._device_local
     # the peer-staging wiring is ported: recovery sources and the RStore
     # target reach the context and its committer
     wired = open_cxl0(str(tmp_path / "w"), 2, peers=(ctx,),

@@ -15,12 +15,12 @@ versions here (``kernels/attention/ref.py``):
 * in the model layout, ``plain_attention_bwd`` equals torch autograd
   through ``plain_attention`` (what the dispatcher runs for CPU tensors),
   and the dispatcher's CPU branch stays differentiable;
-* the backward kernel's dispatcher takes (hd, hd_v) = (64, 64), (128,
-  128) and MLA's (192, 128), and refuses, before any launch, every other
-  pair (hd 256, hd_v 64 under hd 128, hd 32).
+* the backward kernel's dispatcher takes (hd, hd_v) = (32, 32), (64, 64),
+  (128, 128) and MLA's (192, 128), and refuses, before any launch, every
+  other pair (hd 256, hd_v 64 under hd 128, hd 16).
 
 The cases include MLA's widths (hd_v != hd): the smoke config's (q / k
-24, v 16) and the published ones (192, 128).
+24, v 16) and the published ones (192, 128), and head dim 32.
 """
 import jax
 import jax.numpy as jnp
@@ -43,6 +43,8 @@ CASES = {  # B, H, K, Sq, Sk, hd, hd_v, causal
     # published ones (nope 128 + rope 64, v 128)
     "mla_smoke": (1, 4, 4, 40, 40, 24, 16, True),
     "mla": (1, 2, 2, 33, 33, 192, 128, True),
+    # head dim 32: the (64, 64) tiles over 32 columns on the card
+    "hd32": (2, 8, 4, 70, 70, 32, 32, True),
 }
 TOL = 1e-5
 
@@ -127,7 +129,7 @@ def test_plain_backward_equals_autograd_in_the_model_layout(name):
 @pytest.mark.parametrize("hd,hd_v,ok", [(64, 64, True), (128, 128, True),
                                         (256, 256, False),
                                         (192, 128, True), (128, 64, False),
-                                        (32, 32, False)])
+                                        (32, 32, True), (16, 16, False)])
 def test_backward_refuses_what_its_kernel_does_not_take(hd, hd_v, ok):
     q = torch.zeros(1, 4, 2, 1, hd)
     k = torch.zeros(1, 4, 2, hd)
@@ -136,5 +138,6 @@ def test_backward_refuses_what_its_kernel_does_not_take(hd, hd_v, ok):
         ops._check_bwd(q, k, v)
     else:
         with pytest.raises(ValueError, match=r"\(hd, hd_v\) in "
-                           r"\(\(64, 64\), \(128, 128\), \(192, 128\)\)"):
+                           r"\(\(32, 32\), \(64, 64\), \(128, 128\), "
+                           r"\(192, 128\)\)"):
             ops._check_bwd(q, k, v)

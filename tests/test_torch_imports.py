@@ -75,6 +75,9 @@ SLICE_MODULES = [
     "repro_torch.scenarios.cluster", "repro_torch.scenarios.cluster_worker",
     "repro_torch.serve.kvcache", "repro_torch.serve.sessions",
     "repro_torch.scenarios.scale",
+    "repro_torch.parallel", "repro_torch.parallel.sharding",
+    "repro_torch.parallel.compression", "repro_torch.dsm.meshio",
+    "repro_torch.examples.train_durable", "repro_torch.examples.serve",
 ]
 
 _FORBIDDEN = re.compile(
